@@ -1,0 +1,57 @@
+"""The weight bridge between the JAX package's parameter layout and the
+port's.
+
+The JAX pipeline keeps each model's layers stacked along a leading ``[nl]``
+axis (for ``lax.scan``) and its convolutions in HWIO.  The port loops over a
+list of per-layer dicts and convolves in NCHW with OIHW weights.  This is
+the one place where a layout changes:
+
+* a ``layers`` subtree of stacked ``[nl, ...]`` leaves becomes a list of
+  ``nl`` dicts of per-layer views;
+* every leaf under ``encoder`` / ``decoder`` (the VAE's convs) goes from
+  HWIO to OIHW.
+
+Everything else keeps its shape, so the same matmuls run on the same
+numbers.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+Tree = Dict[str, Any]
+
+
+def to_port_layout(tree: Tree) -> Tree:
+    """A parameter tree of tensors in the JAX layout -> the port's layout."""
+    out: Tree = {}
+    for key, val in tree.items():
+        if key == "layers":
+            n = next(iter(val.values())).shape[0]
+            out[key] = [{name: leaf[i] for name, leaf in val.items()}
+                        for i in range(n)]
+        elif key in ("encoder", "decoder"):
+            out[key] = {name: w.permute(3, 2, 0, 1).contiguous()
+                        for name, w in val.items()}
+        elif isinstance(val, dict):
+            out[key] = to_port_layout(val)
+        else:
+            out[key] = val
+    return out
+
+
+def _to_torch(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _to_torch(v, device) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree)).to(device)
+
+
+def params_from_numpy(tree: Tree, device: DeviceLike = None) -> Tree:
+    """One of the JAX pipeline's ``text_params`` / ``vae_params`` /
+    ``dit_params``, as nested dicts of numpy arrays, -> the port's tree of
+    tensors on ``device`` (``cuda`` unless the caller names another)."""
+    return to_port_layout(_to_torch(tree, resolve_device(device)))

@@ -1,0 +1,40 @@
+"""Plain PyTorch version of the flash-attention kernel.
+
+The same function as the kernel, computed one (batch, head) pair and one
+chunk of query rows at a time, so that the [Sq, Sk] score matrix of a
+full-size DiT call (18,900 x 18,900 per head) never exists for all heads at
+once.  The CPU path of the wrapper runs it; on the card it is what the
+kernel is held against.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = False, sm_scale=None,
+                  q_chunk: int = 4096) -> torch.Tensor:
+    """q: [B,Sq,H,D]; k, v: [B,Sk,KV,D] with H % KV == 0.  Query head h
+    reads kv head h // (H // KV).  Causal masks key j > query i (Sq == Sk).
+    Returns [B,Sq,H,D] in q's dtype; scores and softmax in float32."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    group = h // kv
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    out = torch.empty_like(q)
+    kpos = torch.arange(sk, device=q.device)
+    for bi in range(b):
+        for hi in range(h):
+            kh = k[bi, :, hi // group].float()
+            vh = v[bi, :, hi // group].float()
+            for r0 in range(0, sq, q_chunk):
+                qh = q[bi, r0:r0 + q_chunk, hi].float() * scale
+                s = qh @ kh.T
+                if causal:
+                    qpos = torch.arange(r0, r0 + qh.shape[0], device=q.device)
+                    s = s.masked_fill(kpos[None, :] > qpos[:, None], NEG_INF)
+                p = torch.softmax(s, dim=-1)
+                out[bi, r0:r0 + q_chunk, hi] = (p @ vh).to(q.dtype)
+    return out

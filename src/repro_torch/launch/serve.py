@@ -1,0 +1,213 @@
+"""Serving launcher: stand up a complete OnePiece Workflow Set around the
+Wan-style I2V pipeline on the card and push requests through it.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --requests 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --workflow dag
+    PYTHONPATH=src python -m repro_torch.launch.serve --profile small --device cpu
+
+Workflows (docs/workflows.md):
+  * chain — the linear 4-stage pipeline (text -> vae -> dit -> decode);
+  * dag   — the paper's real Wan2.1 topology: text encoder ∥ image/VAE
+            encoder as independent branches joining into the DiT.
+
+Profiles: ``port`` (the default) is FULL's widths at cut depth, the size
+served on one H100; ``small`` is the CPU-sized parity profile.
+
+Each instance's inbox ring is sized from the configuration's largest stage
+payload: at ``port`` widths a diffusion-stage message is about 13 MB, more
+than the 4 MiB default ring, and a message that does not fit is dropped
+(§9).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.cluster import Rejected, StageSpec, WorkflowSet, WorkflowSpec
+from repro_torch.configs.wan_i2v import PROFILES, WanPipelineConfig
+from repro_torch.core import RequestMonitor, critical_path, plan_dag
+from repro_torch.models.aigc import (
+    DAG_DEPS,
+    WanI2VPipeline,
+    build_dag_stage_fns,
+    build_stage_fns,
+)
+from repro_torch.models.aigc.pipeline import measure_stage_times
+
+APP_I2V = 1
+STAGES = ("text_encode", "vae_encode", "diffusion", "vae_decode")
+DEFAULT_RING_BYTES = 1 << 22   # WorkflowInstance's own default
+MESSAGE_SLACK = 1 << 16        # header and payload metadata
+
+
+def largest_message_bytes(cfg: WanPipelineConfig) -> int:
+    """Bytes of the largest stage payload of one request, from the shapes:
+    client -> text_encode {tokens, image}, -> vae_encode {text_emb, image},
+    -> diffusion {text_emb, z_tokens}, -> vae_decode {latents}."""
+    f32 = 4
+    tokens = cfg.text_len * 4
+    image = cfg.image_size ** 2 * 3 * f32
+    text_emb = cfg.text_len * cfg.text_d_model * f32
+    z_tokens = cfg.video_tokens * cfg.patch ** 2 * cfg.vae_latent_ch * f32
+    return MESSAGE_SLACK + max(tokens + image, text_emb + image,
+                               text_emb + z_tokens)
+
+
+def ring_bytes_for(cfg: WanPipelineConfig, max_batch: int = 1) -> int:
+    """Inbox ring size: room for 4 x max_batch of the largest message.  Two
+    messages in flight plus the unusable tail an entry leaves when it wraps
+    can take up to 3 messages' worth; 4 leaves margin."""
+    return max(DEFAULT_RING_BYTES,
+               4 * max(max_batch, 1) * largest_message_bytes(cfg))
+
+
+def workflow_spec(workflow: str, pipe: WanI2VPipeline,
+                  times: Optional[Dict[str, float]] = None):
+    """-> (WorkflowSpec, stage_times dict) for a named scenario.  Stage
+    times are measured on the pipeline unless given."""
+    times = times or measure_stage_times(pipe)
+    if workflow == "chain":
+        fns = build_stage_fns(pipe)
+        spec = WorkflowSpec(APP_I2V, "wan-i2v", [
+            StageSpec(s, fn=fns[s], exec_time_s=times[s]) for s in STAGES
+        ])
+        return spec, {s: times[s] for s in STAGES}
+    if workflow == "dag":
+        fns = build_dag_stage_fns(pipe)
+        dag_times = {"text_encode": times["text_encode"],
+                     "image_encode": times["vae_encode"],
+                     "diffusion": times["diffusion"],
+                     "vae_decode": times["vae_decode"]}
+        spec = WorkflowSpec(APP_I2V, "wan-i2v-dag", [
+            StageSpec(s, fn=fns[s], exec_time_s=dag_times[s],
+                      deps=DAG_DEPS[s])
+            for s in DAG_DEPS
+        ])
+        return spec, dag_times
+    raise ValueError(f"unknown workflow {workflow!r}")
+
+
+def make_request(cfg: WanPipelineConfig, rng, i: int) -> Dict[str, Any]:
+    return {
+        "tokens": rng.integers(0, cfg.text_vocab,
+                               (1, cfg.text_len)).astype(np.int32),
+        "image": (rng.standard_normal(
+            (1, cfg.image_size, cfg.image_size, 3)) * 0.1).astype(np.float32),
+        "seed": i,
+    }
+
+
+def build_set(spec: WorkflowSpec, *, counts, admit_rate: float,
+              cfg: WanPipelineConfig, name: str = "ws0", max_batch: int = 1,
+              max_wait_s: float = 0.02, elastic: bool = True) -> WorkflowSet:
+    """A Workflow Set with ``counts[stage]`` instances per stage, each inbox
+    ring sized for ``cfg``'s payloads (``ring_bytes_for``)."""
+    ws = WorkflowSet(name, control_loop=elastic)
+    ws.register_workflow(spec)
+    # Without the elastic loop nothing reassigns instances mid-run, so the
+    # stage fn can run inline on the scheduler thread; with it, keep the
+    # worker thread so drain-and-handoff stays preemptive.
+    kw = dict(max_batch=max_batch, max_wait_s=max_wait_s,
+              pad_to_full=max_batch > 1, inline=not elastic,
+              ring_bytes=ring_bytes_for(cfg, max_batch))
+    for stage, n in counts.items():
+        for i in range(n):
+            ws.add_instance(f"{stage}_{i}", stage=stage, **kw)
+    # nm_managed: the live control loop keeps (T_X, K) tracking the actual
+    # entrance-stage instance count as it rebalances (§5)
+    mon = RequestMonitor(t_entrance_s=1.0 / max(admit_rate, 1e-9), k_entrance=1,
+                         window_s=2.0, nm_managed=elastic)
+    ws.add_proxy("p0", monitor=mon)
+    return ws
+
+
+def serve(ws: WorkflowSet, reqs: List[Dict[str, Any]], *,
+          batched: bool = False,
+          timeout_s: float = 600.0) -> Tuple[List[Any], int, float]:
+    """Submit ``reqs`` through the set's proxy and wait for every result.
+    -> (results in request order, results lost, wall seconds).  A request
+    that times out is counted as lost (§9: the data plane may drop and never
+    retransmits; a production client resubmits)."""
+    proxy = ws.proxies[0]
+    t0 = time.perf_counter()
+    with ws:
+        if batched:
+            uids = proxy.submit_many(APP_I2V, reqs)  # one doorbell-batched burst
+        else:
+            uids = []
+            for r in reqs:
+                while True:
+                    try:
+                        uids.append(proxy.submit(APP_I2V, r))
+                        break
+                    except Rejected:
+                        time.sleep(0.05)  # fast-rejected: retry (client behavior)
+        outs, lost = [], len(reqs) - len(uids)
+        for u in uids:
+            try:
+                outs.append(proxy.wait_result(u, timeout_s=timeout_s))
+            except TimeoutError:
+                lost += 1
+    return outs, lost, time.perf_counter() - t0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--requests", type=int, default=2)
+    ap.add_argument("--profile", default="port", choices=sorted(PROFILES))
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' runs the plain "
+                         "PyTorch path)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--workflow", default="chain", choices=["chain", "dag"],
+                    help="stage topology: linear chain or the "
+                         "branch-parallel Wan DAG")
+    ap.add_argument("--max-batch", type=int, default=1,
+                    help="stage-level microbatch size (1 = per-request)")
+    args = ap.parse_args()
+
+    pipe = WanI2VPipeline(cfg=PROFILES[args.profile], seed=args.seed,
+                          device=args.device)
+    cfg = pipe.cfg
+    spec, times = workflow_spec(args.workflow, pipe)
+    print("stage times (s):", {k: round(v, 4) for k, v in times.items()})
+
+    # Theorem 1 per path: instance counts that rate-match the entrance
+    deps = spec.resolved_deps()
+    counts = plan_dag(times, deps, k_entrance=1)
+    print("Theorem-1 plan:", counts)
+    cp_latency, cp = critical_path(times, deps)
+    print(f"critical path: {' -> '.join(cp)} = {cp_latency:.4f}s "
+          f"(serialized sum {sum(times.values()):.4f}s)")
+
+    entrance_t = max(times[s] for s in spec.entrance_stages())
+    ws = build_set(spec, counts=counts, admit_rate=1.0 / entrance_t, cfg=cfg,
+                   max_batch=args.max_batch)
+    rng = np.random.default_rng(args.seed)
+    reqs = [make_request(cfg, rng, i) for i in range(args.requests)]
+    videos, lost, wall = serve(ws, reqs, batched=args.max_batch > 1)
+
+    for v in videos:
+        assert np.isfinite(v).all()
+    if videos:
+        print(f"{len(videos)} videos of shape {videos[0].shape} in {wall:.2f}s "
+              f"({len(videos)/wall:.2f} req/s) on {pipe.device}")
+    if lost:
+        print(f"{lost}/{len(reqs)} results lost (dropped or timed out)")
+    print("per-instance processed:",
+          {n: i.stats.processed for n, i in ws.instances.items()})
+    js = ws.joins.stats
+    if js.offered:
+        print(f"joins: {js.completed} assembled from {js.offered} partials, "
+              f"{js.aborted_joins} aborted, pending={ws.joins.pending_joins()}")
+    stats = ws.transport_stats()
+    print(f"transport: {stats.sent} sent, {stats.dropped} dropped, "
+          f"{stats.bytes_sent/1e6:.1f} MB")
+    return 0 if not lost and stats.dropped == 0 else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

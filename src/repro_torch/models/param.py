@@ -1,0 +1,73 @@
+"""Parameter specs without JAX.
+
+Every model declares an abstract parameter tree of :class:`ParamSpec`
+leaves with the same names, shapes and init rules as the JAX package's
+``abstract_params``; :func:`init_tree` materializes one with an explicit
+``torch.Generator`` on an explicit device.  The tree keeps the JAX layout
+(layer-stacked ``[nl, ...]`` leaves, HWIO convs); ``repro_torch.convert``
+turns it into the layout the modules run on.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple, Optional, Tuple
+
+import torch
+
+
+class ParamSpec(NamedTuple):
+    shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]
+    dtype: Any = "bfloat16"
+    init: str = "normal"   # normal | zeros | ones | small (0.006 normal)
+    scale: float = 1.0
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def spec_leaves(tree):
+    """(path, spec) pairs in sorted-key order, the order ``jax.tree``
+    flattens a dict in."""
+    if is_spec(tree):
+        return [((), tree)]
+    out = []
+    for k in sorted(tree):
+        out += [((k,) + p, s) for p, s in spec_leaves(tree[k])]
+    return out
+
+
+def count(tree) -> int:
+    return sum(math.prod(s.shape) for _, s in spec_leaves(tree))
+
+
+def materialize(spec: ParamSpec, generator: torch.Generator,
+                device: torch.device) -> torch.Tensor:
+    """Normal with std ``scale / sqrt(fan_in)`` (fan_in = shape[0] for
+    matrices), 0.006 * scale for ``small``, or zeros/ones."""
+    dtype = getattr(torch, spec.dtype)
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    fan_in = spec.shape[0] if len(spec.shape) >= 2 else max(spec.shape[-1], 1)
+    if spec.init == "small":
+        std = 0.006 * spec.scale
+    else:
+        std = spec.scale / math.sqrt(max(fan_in, 1))
+    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                    device=device) * std
+    return x.to(dtype)
+
+
+def init_tree(spec_tree, generator: torch.Generator, device) -> dict:
+    """Materialize every leaf of a ParamSpec tree, drawn in sorted-key
+    order from ``generator``."""
+    out: dict = {}
+    for path, spec in spec_leaves(spec_tree):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = materialize(spec, generator, device)
+    return out

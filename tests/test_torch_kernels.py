@@ -1,0 +1,119 @@
+"""The port's kernels held against the JAX package's.
+
+On the CPU each wrapper of ``repro_torch.kernels`` runs its plain PyTorch
+version; here that version is compared with the Pallas kernel run in
+interpret mode (and the DDIM step also with the JAX two-step oracle), on the
+same inputs made with numpy from a seed.  Tolerance: float32 2e-5, as
+docs/kernels.md gives it.  The CUDA kernels themselves run only on the card
+(``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
+"""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ddim_step import ddim_step as jax_ddim_step
+from repro.kernels.ddim_step.ref import ddim_step_ref as jax_ddim_two_step
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro_torch.kernels import ddim_step, flash_attention
+from repro_torch.kernels.ddim_step import ddim_coefs
+from repro_torch.kernels.flash_attention import attention_ref
+from repro_torch.models.aigc.dit import schedule
+
+#: Small shapes gain nothing from many intra-op threads; the suite's other
+#: workers (some timing-sensitive) share the machine's cores.
+torch.set_num_threads(2)
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+FLASH_CASES = [
+    # b, sq, sk, h, kv, d, causal
+    (1, 64, 64, 2, 2, 32, False),      # square, one block
+    (2, 40, 24, 4, 4, 64, False),      # cross attention, Sq != Sk
+    (2, 33, 97, 6, 2, 32, False),      # GQA, Sq != Sk, neither a block multiple
+    (1, 70, 70, 4, 2, 32, True),       # causal GQA, ragged tail
+    (1, 150, 150, 2, 1, 128, True),    # causal, head_dim 128, past one block
+]
+
+
+def _qkv(seed, b, sq, sk, h, kv, d):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, sk, kv, d)).astype(np.float32)
+    v = rng.standard_normal((b, sk, kv, d)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", FLASH_CASES)
+def test_flash_plain_matches_pallas_interpret(b, sq, sk, h, kv, d, causal):
+    q, k, v = _qkv(0, b, sq, sk, h, kv, d)
+    ours = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), causal=causal)
+    ref = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    causal=causal, block_q=32, block_k=32, interpret=True)
+    assert ours.shape == (b, sq, h, d)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TOL)
+
+
+def test_flash_plain_chunks_query_rows():
+    """Chunking the query rows (how the plain version bounds its memory at
+    the DiT's 18,900 tokens) does not change the result."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 1, 45, 45, 2, 1, 32))
+    whole = attention_ref(q, k, v, causal=True)
+    chunked = attention_ref(q, k, v, causal=True, q_chunk=8)
+    torch.testing.assert_close(chunked, whole, atol=0, rtol=0)
+
+
+def test_flash_rejects_what_it_does_not_take():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 1, 16, 24, 2, 2, 32))
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="do not group"):
+        flash_attention(torch.zeros(1, 16, 3, 32), k, v)
+    # off the CPU, a tensor that is not on a CUDA device raises: there is no
+    # quiet fall-back to the plain version
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 16), (1, 1000), (3, 5, 7, 4)])
+@pytest.mark.parametrize("steps,i", [(4, 0), (4, 2), (50, 49), (8, 3)])
+def test_ddim_plain_matches_pallas_and_two_step(shape, steps, i):
+    alphas, ts = schedule(steps)
+    a_t = alphas[ts[i]]
+    a_p = alphas[ts[i + 1]] if i + 1 < steps else alphas[0]
+    rng = np.random.default_rng(i)
+    x = rng.standard_normal(shape).astype(np.float32)
+    eps = rng.standard_normal(shape).astype(np.float32)
+    ours = ddim_step(torch.from_numpy(x), torch.from_numpy(eps), a_t, a_p).numpy()
+    fused = jax_ddim_step(jnp.asarray(x), jnp.asarray(eps), a_t, a_p,
+                          interpret=True)
+    two_step = jax_ddim_two_step(jnp.asarray(x), jnp.asarray(eps), a_t, a_p)
+    np.testing.assert_allclose(ours, np.asarray(fused), **TOL)
+    np.testing.assert_allclose(ours, np.asarray(two_step), **TOL)
+
+
+def test_ddim_coefs_are_float32():
+    c1, c2 = ddim_coefs(np.float32(0.5), np.float32(0.9))
+    assert np.float32(c1) == c1 and np.float32(c2) == c2
+    assert c1 == pytest.approx(np.sqrt(0.9 / 0.5), rel=1e-6)
+    assert c2 == pytest.approx(np.sqrt(0.1) - np.sqrt(0.9 / 0.5) * np.sqrt(0.5),
+                               rel=1e-5)
+
+
+def test_ddim_rejects_what_it_does_not_take():
+    x = torch.zeros(4, 8)
+    with pytest.raises(ValueError, match="differ"):
+        ddim_step(x, torch.zeros(4, 9), 0.5, 0.9)
+    with pytest.raises(ValueError, match="CUDA"):
+        ddim_step(x.to("meta"), x.to("meta"), 0.5, 0.9)
+
+
+def test_cpu_calls_do_not_count_as_launches():
+    before = (flash_attention.launches, ddim_step.launches)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(3, 1, 8, 8, 1, 1, 32))
+    flash_attention(q, k, v)
+    ddim_step(q, k, 0.5, 0.9)
+    assert (flash_attention.launches, ddim_step.launches) == before
