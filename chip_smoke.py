@@ -9,20 +9,28 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernels built from the sources in this checkout (``nvcc``, ``sm_90a``,
    into ``build/``), and the card's name and power limit from ``nvidia-smi``.
 2. Kernels: each hand-written kernel against its plain PyTorch version at
-   the shapes the Wan I2V path gives it at the ``PORT`` profile (full
-   widths), plus a small causal GQA case and a ragged case for flash
-   attention.  For each: the largest absolute error against the stated
+   the shapes its path gives it: flash attention (float32) and the DDIM step
+   at the Wan I2V ``PORT`` profile (full widths), plus a small causal GQA
+   case and a ragged case; flash-decode over a bfloat16 and an int8 cache in
+   both layouts at B 8, KV 8, G 2, D 128, S 32768 with a mixed per-row index
+   and a full-cache scalar index, and at the served S 1024 with a mixed
+   index; the bfloat16 flash prefill at qwen3-1.7b's heads.  For each: the largest absolute error against the stated
    tolerance, the kernel's time (CUDA events, median), the plain version's,
    one PyTorch library call's where one computes the same function, and the
-   bound: the larger of bytes over 3.35 TB/s and flops over 67 TFLOP/s
-   (float32 outside the tensor cores; H100 SXM data sheet).
-3. The port on a small input: the SMALL pipeline's latents and frames on the
-   card against the same computation on the CPU (the plain path the CPU
-   tests hold against the JAX package), with the same weights and noise.
-4. Serving: 2 requests through the chain and 2 through the DAG Workflow Set
-   at ``PORT``, one instance per stage.  Every request answered, nothing
-   dropped, the launch counters risen by the expected launches per request,
-   and one request's frames equal to ``WanI2VPipeline.generate``.
+   bound: the larger of the bytes this call's data needs over 3.35 TB/s and
+   its operations over the peak rate of their type (67 TFLOP/s float32
+   outside the tensor cores, 989 TFLOP/s bfloat16; H100 SXM data sheet).
+3. The port on small inputs, card against CPU on the same weights: the SMALL
+   Wan pipeline's latents and frames (same noise), and the reduced float32
+   qwen3 engine's prefill logits and greedy tokens.
+4. Serving, the main paths, each with the launch counters set to 0 just
+   before and read just after: 2 requests through the Wan chain and 2
+   through the DAG Workflow Set at ``PORT``, one instance per stage; then
+   qwen3-1.7b at full width and depth in bfloat16 through the ``llm_disagg``
+   Workflow Set, once with the bfloat16 cache (8 requests) and once with the
+   int8 cache (4 requests).  Every request answered, nothing dropped, the
+   counters risen by the expected launches, frames equal to
+   ``WanI2VPipeline.generate`` and tokens equal to ``ServingEngine.generate``.
 5. A ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -42,9 +50,20 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 F32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM, bfloat16 tensor cores, dense
+INT8_OPS_PER_S = 1979e12       # H100 SXM, int8 tensor cores, dense
 #: docs/kernels.md bench tolerances: attention family 1e-4, ddim 1e-5
 FLASH_TOL = 1e-4
 DDIM_TOL = 1e-5
+#: bfloat16 outputs (the flash prefill, and the decode over the bfloat16 and
+#: the int8 cache, both with bfloat16 queries): kernel and plain version
+#: compute in float32 and each rounds to bfloat16, so an element differs by
+#: at most one bfloat16 step, 2^-7 of its value, where the two float32
+#: results straddle a rounding boundary.  Each element is held to
+#: |a - b| <= BF16_RTOL |b| + BF16_ATOL; the absolute part covers float32
+#: summation order near zero.
+BF16_RTOL = 2 ** -7
+BF16_ATOL = 1e-5
 SERVE_FRAME_TOL = 1e-4         # served vs generate: the same ops on one card
 SERVE_LATENT_RTOL = 1e-4       # served vs the pipeline, of the largest latent
 SMALL_LATENT_RTOL = 1e-4       # card vs CPU, relative to the largest latent
@@ -89,8 +108,16 @@ def kernel_and_plain_ms(torch, kernel, plain, reps: int, flush=None):
     return statistics.median(k), statistics.median(p)
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+def bf16_errs(out, ref):
+    """-> (largest |a - b|, largest |a - b| / (BF16_ATOL + BF16_RTOL |b|)):
+    the elementwise bfloat16 check holds where the second is at most 1."""
+    a, b = out.float(), ref.float()
+    d = (a - b).abs()
+    return float(d.max()), float((d / (BF16_ATOL + BF16_RTOL * b.abs())).max())
+
+
+def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -217,6 +244,9 @@ def main() -> int:
     check(ddim_err <= DDIM_TOL, f"ddim: max_err {ddim_err} > {DDIM_TOL}")
     del x, eps, out, scratch
 
+    decode_rows = decode_kernel_phase(torch, F, dev, randn)
+    flash_bf16_rows = flash_bf16_phase(torch, F, dev, randn)
+
     # --------------------------------------------- 3. small input, card vs CPU
     small = WanI2VPipeline(cfg=SMALL, seed=0, device="cpu")
     small_gpu = WanI2VPipeline(cfg=SMALL, device=dev, params={
@@ -254,6 +284,7 @@ def main() -> int:
     check(lat_err <= SMALL_LATENT_RTOL, "small: latents differ from the CPU path")
     check(frame_err <= SMALL_FRAME_TOL, "small: frames differ from the CPU path")
     del small, small_gpu
+    llm_small_phase(torch, np, dev)
 
     # ------------------------------------------------------------- 4. serve
     t0 = time.perf_counter()
@@ -329,6 +360,10 @@ def main() -> int:
               f"max_err={lat_err:.3g} (tol {SERVE_LATENT_RTOL} x max|x| = {tol:.3g})")
         check(lat_err <= tol, f"{workflow}: served latents differ")
 
+    del pipe, spec, ws, st   # the stage fns hold the pipeline's 6 GB of weights
+    torch.cuda.empty_cache()
+    llm = llm_serving_phase(torch, np, dev)
+
     # ------------------------------------------------------------ 5. result
     dom = next(r for r in flash_rows if r["shape"] == "dit_self")
     kernels = [
@@ -347,11 +382,300 @@ def main() -> int:
              ms=ddim_ms, plain_ms=ddim_plain_ms, bound_ms=ddim_bound_ms,
              bound_by=ddim_bound_by, library_ms=None, at="latent [1,18900,64]"),
     ]
+    fb = next(r for r in flash_bf16_rows if r["shape"] == "qwen3_prefill_512")
+    kernels.append(dict(
+        name="flash_attention_bf16", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:36",
+        launches=llm["flash_attention"],
+        max_abs_err=max(r["max_abs_err"] for r in flash_bf16_rows),
+        ms=fb["ms"], plain_ms=fb["plain_ms"], bound_ms=fb["bound_ms"],
+        bound_by=fb["bound_by"], library_ms=fb["library_ms"],
+        at="qwen3_prefill_512", shapes=flash_bf16_rows))
+    for name, cache_kind, counter, replaces in (
+            ("decode_attention", "fp", "decode_attention_grouped",
+             "src/repro/kernels/decode_attention/kernel.py:64"),
+            ("decode_attention_int8", "int8", "decode_attention_int8_grouped",
+             "src/repro/kernels/decode_attention/kernel.py:91")):
+        rows = [r for r in decode_rows if r["kind"] == cache_kind]
+        main = next(r for r in rows if r["shape"] == f"{cache_kind}_cache_vector")
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+            replaces=replaces, launches=llm[counter],
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+            bound_by=main["bound_by"], library_ms=main["library_ms"],
+            at=main["shape"], shapes=rows))
     print(f"total {time.perf_counter() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def decode_kernel_phase(torch, F, dev, randn) -> list:
+    """Flash-decode, float (bfloat16) and int8 cache, both layouts, at B 8,
+    KV 8, G 2, D 128, S 32768: a mixed per-row index and a full-cache scalar
+    index; and at the served shape, S 1024 in the serving layout, with a
+    mixed index on both sides of the 256-position chunk edges.  The bound
+    counts the cache positions this call's indices cover."""
+    from repro_torch.kernels import decode_attention as K
+
+    b, kv, g, d, s_long, s_served = 8, 8, 2, 128, 32768, 1024
+    cur_long = [32767, 20000, 4095, 1, 0, 32767, 16383, 8191]
+    cur_served = [1023, 700, 511, 256, 255, 1, 0, 64]
+    q = randn(b, kv, g, d).bfloat16()
+    kc, vc = randn(b, kv, s_long, d).bfloat16(), randn(b, kv, s_long, d).bfloat16()
+    kn, vn = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    (kqn, ks), (vqn, vs) = K.quantize_kv(kn), K.quantize_kv(vn)
+    kqc, vqc = kqn.transpose(1, 2).contiguous(), vqn.transpose(1, 2).contiguous()
+
+    def served(*xs):    # the first 1024 positions, [B,KV,S,...] caches
+        return tuple(x[:, :, :s_served].contiguous() for x in xs)
+    fp = (K.decode_attention_grouped, K.decode_ref)
+    i8 = (K.decode_attention_int8_grouped, K.decode_int8_ref)
+    cases = [
+        # name, kind, (kernel, plain), cache args, seq_axis, S, index
+        ("fp_cache_vector", "fp", fp, (kc, vc), 2, s_long, cur_long),
+        ("fp_native_vector", "fp", fp, (kn, vn), 1, s_long, cur_long),
+        ("fp_cache_scalar", "fp", fp, (kc, vc), 2, s_long, s_long - 1),
+        ("fp_served_vector", "fp", fp, served(kc, vc), 2, s_served, cur_served),
+        ("int8_cache_vector", "int8", i8, (kqc, vqc, ks, vs), 2, s_long, cur_long),
+        ("int8_native_vector", "int8", i8, (kqn, vqn, ks, vs), 1, s_long, cur_long),
+        ("int8_cache_scalar", "int8", i8, (kqc, vqc, ks, vs), 2, s_long, s_long - 1),
+        ("int8_served_vector", "int8", i8, served(kqc, vqc, ks, vs), 2, s_served,
+         cur_served),
+    ]
+    rows = []
+    for name, kind, (kernel, plain), cache, seq_axis, s, cur_list in cases:
+        vector = isinstance(cur_list, list)
+        cur = (torch.tensor(cur_list, dtype=torch.int32, device=dev) if vector
+               else cur_list)
+
+        def run_kernel():
+            return kernel(q, *cache, cur, seq_axis=seq_axis)
+
+        def run_plain():
+            return plain(q, *cache, cur, seq_axis=seq_axis)
+        out = run_kernel()
+        torch.cuda.synchronize()
+        err, use = bf16_errs(out, run_plain())
+        ms, plain_ms = kernel_and_plain_ms(torch, run_kernel, run_plain, 10)
+        positions = sum(min(c, s - 1) + 1 for c in (cur_list if vector else [cur] * b))
+        qo_bytes = 2 * b * kv * g * d * 2
+        if kind == "fp":
+            nbytes = positions * kv * d * 2 * 2 + qo_bytes
+            bound_ms, bound_by = bound(nbytes, 4 * positions * kv * g * d,
+                                       BF16_FLOPS_PER_S)
+            mask = (torch.arange(s, device=dev)[None, :]
+                    <= (cur if vector else torch.full((b,), cur, device=dev))[:, None])
+            qh = q.reshape(b, kv * g, 1, d)
+            kl, vl = (cache if seq_axis == 2 else
+                      tuple(x.transpose(1, 2) for x in cache))
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    qh, kl, vl, attn_mask=mask[:, None, None, :], enable_gqa=True)
+            lib_err = float((library().reshape(out.shape).float()
+                             - out.float()).abs().max())
+            library_ms = statistics.median(cuda_times(torch, library, 10))
+        else:
+            nbytes = positions * kv * (d * 2 + 4 * 2) + qo_bytes
+            bound_ms, bound_by = bound(nbytes, 4 * positions * kv * g * d,
+                                       INT8_OPS_PER_S)
+            library_ms, lib_err = None, None
+        row = dict(shape=name, kind=kind, q=[b, kv, g, d], seq_len=s,
+                   layout="[B,KV,S,D]" if seq_axis == 2 else "[B,S,KV,D]",
+                   cur_index=cur_list, max_abs_err=err, bf16_limit_use=use,
+                   ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=library_ms, bytes=nbytes)
+        rows.append(row)
+        print(f"decode {name:18s} q={row['q']} S={s} {row['layout']}: "
+              f"max_err={err:.3g} ({use:.3f} of the bf16 limit) ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms if library_ms is None else round(library_ms, 4)} "
+              f"(library vs kernel {lib_err if lib_err is None else round(lib_err, 5)}) "
+              f"bound_ms={bound_ms:.4f} ({bound_by}, {nbytes / 1e9:.3f} GB)")
+        check(use <= 1.0, f"decode {name}: max_err {err}, {use} of the bf16 limit "
+                          f"|a-b| <= {BF16_RTOL} |b| + {BF16_ATOL}")
+    return rows
+
+
+def flash_bf16_phase(torch, F, dev, randn) -> list:
+    """The bfloat16 flash prefill at qwen3-1.7b's heads (16 query heads over 8
+    kv heads of 128), causal, for a 512-token prompt and one over 2048."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import attention_ref
+
+    rows = []
+    for name, sq in (("qwen3_prefill_512", 512), ("qwen3_prefill_2500", 2500)):
+        b, h, kv, d = 1, 16, 8, 128
+        q = randn(b, sq, h, d).bfloat16()
+        k, v = randn(b, sq, kv, d).bfloat16(), randn(b, sq, kv, d).bfloat16()
+        out = flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err, use = bf16_errs(out, attention_ref(q, k, v, causal=True))
+        ms, plain_ms = kernel_and_plain_ms(
+            torch, lambda: flash_attention(q, k, v, causal=True),
+            lambda: attention_ref(q, k, v, causal=True), 10)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = statistics.median(cuda_times(
+            torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 10))
+        pairs = sq * (sq + 1) // 2
+        bound_ms, bound_by = bound(2 * (2 * b * sq * h * d + 2 * b * sq * kv * d),
+                                   4.0 * b * h * pairs * d, BF16_FLOPS_PER_S)
+        row = dict(shape=name, q=[b, sq, h, d], kv=[b, sq, kv, d], causal=True,
+                   dtype="bfloat16", max_abs_err=err, bf16_limit_use=use,
+                   ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        rows.append(row)
+        print(f"flash {name} q={row['q']} kv={row['kv']} bf16 causal: "
+              f"max_err={err:.3g} ({use:.3f} of the bf16 limit) ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} "
+              f"sdpa_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+        check(use <= 1.0, f"flash bf16 {name}: max_err {err}, {use} of the bf16 "
+                          f"limit |a-b| <= {BF16_RTOL} |b| + {BF16_ATOL}")
+    return rows
+
+
+#: card vs CPU, float32: prefill logits within this share of the largest
+LLM_SMALL_RTOL = 1e-4
+
+
+def llm_small_phase(torch, np, dev) -> None:
+    """The reduced float32 qwen3 engine on the card against the same engine
+    on the CPU, on the same weights: prefill logits, greedy tokens."""
+    from repro_torch.kernels import decode_attention_grouped, flash_attention
+    from repro_torch.launch.serve import llm_config
+    from repro_torch.serving import ServingEngine
+
+    cfg = llm_config("qwen3-1.7b", "small")
+    cpu = ServingEngine(cfg, max_len=64, seed=0, device="cpu")
+    card = ServingEngine(cfg, params=_to(torch, cpu.params, dev), max_len=64,
+                         device=dev)
+    prompts = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    launches = (flash_attention.launches, decode_attention_grouped.launches)
+    lc, lg = cpu.prefill(prompts)[0], card.prefill(prompts)[0].cpu()
+    err = float((lc - lg).abs().max() / lc.abs().max())
+    toks_cpu = cpu.generate(prompts, steps=16).tokens
+    toks_card = card.generate(prompts, steps=16).tokens
+    print(f"small llm: {cfg.name} reduced float32, prefill logits card vs cpu "
+          f"max_err/max|l|={err:.3g} (tol {LLM_SMALL_RTOL}); greedy tokens equal: "
+          f"{bool(np.array_equal(toks_cpu, toks_card))}")
+    check(flash_attention.launches > launches[0]
+          and decode_attention_grouped.launches > launches[1],
+          "the small LLM run on the card did not launch the kernels")
+    check(err <= LLM_SMALL_RTOL, "small llm: prefill logits differ from the CPU")
+    check(np.array_equal(toks_cpu, toks_card), "small llm: greedy tokens differ")
+
+
+def llm_serving_phase(torch, np, dev) -> dict:
+    """qwen3-1.7b at full width and depth in bfloat16 through the llm_disagg
+    Workflow Set: 8 requests with the bfloat16 cache, 4 with the int8 cache.
+    Returns the launch counts of the served runs."""
+    import dataclasses
+
+    from repro_torch.kernels import (
+        decode_attention_grouped,
+        decode_attention_int8_grouped,
+        flash_attention,
+    )
+    from repro_torch.launch.serve import check_served, llm_config, llm_requests, serve
+    from repro_torch.models import registry
+    from repro_torch.serving import APP_LLM_DISAGG, ServingEngine, build_llm_disagg_set
+    from repro_torch.serving.disagg import ring_bytes_for
+
+    max_len, slots, segment, steps = 1024, 8, 8, 32
+    cfg = llm_config("qwen3-1.7b", "port")
+    print(f"llm: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+          f"before the engine")
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, max_len=max_len, seed=0)
+    torch.cuda.synchronize()
+    n_params = registry.count_params(cfg)
+    print(f"llm: {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model} "
+          f"{cfg.num_heads}/{cfg.resolved_kv_heads} heads of {cfg.resolved_head_dim} "
+          f"d_ff {cfg.d_ff} vocab {cfg.vocab_padded} in {cfg.dtype}: "
+          f"{n_params / 1e9:.3f} B params on {engine.device} in "
+          f"{time.perf_counter() - t0:.1f}s; decode inbox "
+          f"{ring_bytes_for(cfg, max_len) / 1e6:.1f} MB")
+
+    # does a slot batch's width change a request's numbers?  One decode step
+    # of one request at batch 1 and padded to the slot batch's width
+    rng = np.random.default_rng(5)
+    p0 = rng.integers(0, cfg.vocab_size, (1, 200)).astype(np.int32)
+    logits, cache = engine.prefill(p0)
+    wl, wc = engine.widen(logits, cache, slots)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    l1 = registry.decode_step(engine.params, cache, tok, p0.shape[1], cfg)
+    tok8 = torch.zeros(slots, dtype=torch.int32, device=dev)
+    tok8[0] = tok[0]
+    l8 = registry.decode_step(engine.params, wc, tok8, p0.shape[1], cfg)[:1]
+    width_diff = float((l1 - l8).abs().max())
+    print(f"llm: one decode step at batch 1 vs batch {slots}: largest logit "
+          f"difference {width_diff:.6g} (max |logit| {float(l1.abs().max()):.4g})")
+    del logits, cache, wl, wc
+
+    counts = {}
+    runs = (("bf16 cache", cfg, [64, 512, 128, 256, 384, 96, 200, 448],
+             decode_attention_grouped, "decode_attention_grouped"),
+            ("int8 cache", dataclasses.replace(cfg, cache_dtype="int8"),
+             [64, 512, 160, 320], decode_attention_int8_grouped,
+             "decode_attention_int8_grouped"))
+    for label, rcfg, prompt_lens, decode_kernel, counter in runs:
+        eng = engine if rcfg is cfg else ServingEngine(
+            rcfg, params=engine.params, max_len=max_len)
+        reqs = llm_requests(rcfg, rng, prompt_lens, steps, [0.0, 0.7])
+        ws, decoder = build_llm_disagg_set(eng, name=f"llm_{rcfg.resolved_cache_dtype}",
+                                           max_slots=slots, segment_len=segment)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        decode_attention_grouped.launches = 0
+        decode_attention_int8_grouped.launches = 0
+        outs, lost, wall = serve(ws, reqs, app=APP_LLM_DISAGG, batched=True)
+        stats = ws.transport_stats()
+        fl, dc = flash_attention.launches, decode_kernel.launches
+        peak = torch.cuda.max_memory_allocated()
+        counts["flash_attention"] = counts.get("flash_attention", 0) + fl
+        counts[counter] = dc
+        decode_steps = decoder.stats["segments"] * segment
+        print(f"serve llm {label}: {len(outs)}/{len(reqs)} answered, lost={lost}, "
+              f"dropped={stats.dropped}, {wall:.2f}s wall, "
+              f"{len(outs) * steps / wall:.1f} tokens/s, {stats.kv_pages} KVPages "
+              f"{stats.kv_bytes / 1e6:.1f} MB, segments={decoder.stats['segments']} "
+              f"max_resident={decoder.stats['max_resident']}/{slots}; launches "
+              f"flash={fl} ({fl / len(reqs):.0f} per prefill) decode={dc} "
+              f"({dc / max(decode_steps, 1):.0f} per decode step), "
+              f"max_memory_allocated={peak / 2**30:.2f} GiB")
+        check(lost == 0 and len(outs) == len(reqs), f"llm {label}: requests lost")
+        check(stats.dropped == 0, f"llm {label}: {stats.dropped} messages dropped")
+        check(fl == cfg.num_layers * len(reqs), f"llm {label}: flash launches {fl}")
+        check(dc == cfg.num_layers * decode_steps and dc > 0,
+              f"llm {label}: decode launches {dc} for {decode_steps} steps")
+
+        for i, (r, out) in enumerate(zip(reqs, outs)):
+            check(out.shape == (1, r["prompt"].shape[1] + steps),
+                  f"llm {label}: request {i} tokens of shape {out.shape}")
+            flash_attention.launches = decode_kernel.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            check_served(eng, [r], [out])     # raises if they differ
+            dt = time.perf_counter() - t1
+            print(f"  request {i}: prompt {r['prompt'].shape[1]} temperature "
+                  f"{r['temperature']}: solo generate {dt * 1e3:.1f} ms "
+                  f"({steps / dt:.1f} tokens/s), launches flash="
+                  f"{flash_attention.launches} decode={decode_kernel.launches} "
+                  f"({decode_kernel.launches / steps:.0f} per step), "
+                  f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                  f"GiB; served tokens equal solo generate")
+        print(f"serve llm {label}: every request's tokens equal solo generate")
+        del ws, decoder
+    return counts
 
 
 def _tap(fn, workflow, store, request_seeds):

@@ -7,7 +7,9 @@ list of per-layer dicts and convolves in NCHW with OIHW weights.  This is
 the one place where a layout changes:
 
 * a ``layers`` subtree of stacked ``[nl, ...]`` leaves becomes a list of
-  ``nl`` dicts of per-layer views;
+  ``nl`` dicts of per-layer views (the Wan stages and the language models
+  alike: ``models/transformer.py`` loops over that list, and its layer i
+  reads views into the stacked tensors, so nothing is copied);
 * every leaf under ``encoder`` / ``decoder`` (the VAE's convs) goes from
   HWIO to OIHW.
 
@@ -51,7 +53,9 @@ def _to_torch(tree, device: torch.device):
 
 
 def params_from_numpy(tree: Tree, device: DeviceLike = None) -> Tree:
-    """One of the JAX pipeline's ``text_params`` / ``vae_params`` /
-    ``dit_params``, as nested dicts of numpy arrays, -> the port's tree of
-    tensors on ``device`` (``cuda`` unless the caller names another)."""
+    """A JAX parameter tree (one of the Wan pipeline's ``text_params`` /
+    ``vae_params`` / ``dit_params``, or a language model's
+    ``abstract_params`` tree), as nested dicts of numpy arrays, -> the
+    port's tree of tensors on ``device`` (``cuda`` unless the caller names
+    another)."""
     return to_port_layout(_to_torch(tree, resolve_device(device)))

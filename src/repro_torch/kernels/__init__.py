@@ -1,5 +1,7 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) that replace the JAX
-package's Pallas TPU kernels on the Wan I2V path.
+package's Pallas TPU kernels on the port's paths: flash attention (the Wan
+DiT and the LM's causal prefill), the fused DDIM step, and flash-decode over
+a float or an int8 KV cache.
 
 Each kernel package has:
   csrc/*.cu — the CUDA C++ source, a plain C entry point bound with ctypes
@@ -9,6 +11,11 @@ Each kernel package has:
 ``_build`` compiles all sources into one library at first use.
 """
 from repro_torch.kernels.ddim_step import ddim_step
+from repro_torch.kernels.decode_attention import (
+    decode_attention_grouped,
+    decode_attention_int8_grouped,
+)
 from repro_torch.kernels.flash_attention import flash_attention
 
-__all__ = ["ddim_step", "flash_attention"]
+__all__ = ["ddim_step", "decode_attention_grouped", "decode_attention_int8_grouped",
+           "flash_attention"]

@@ -29,9 +29,13 @@ CFLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                        "-Xptxas", "-v"]
 
 #: C signatures of the entry points, (argtypes, restype).
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {
     "repro_flash_attention_f32": ([_P, _P, _P, _P] + [_I] * 7 + [_F, _P], _I),
+    "repro_flash_attention_bf16": ([_P, _P, _P, _P] + [_I] * 7 + [_F, _P], _I),
+    "repro_decode_attention": ([_P] * 7 + [_I] * 5 + [_L] * 3 + [_I, _F, _P], _I),
+    "repro_decode_attention_int8": ([_P] * 9 + [_I] * 5 + [_L] * 3 + [_I, _F, _P], _I),
+    "repro_decode_attention_chunk": ([], _I),
     "repro_ddim_step_f32": ([_P, _P, _P, ctypes.c_int64, _F, _F, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }

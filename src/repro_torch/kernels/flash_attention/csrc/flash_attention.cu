@@ -1,4 +1,5 @@
-// Flash attention forward in float32 for Hopper (sm_90a).
+// Flash attention forward for Hopper (sm_90a), float32 or bfloat16 in and
+// out, float32 inside.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` behind
 // `flash_attention_bhsd` (src/repro/kernels/flash_attention/kernel.py):
@@ -9,7 +10,10 @@
 // Layout: q and o are [B, Sq, H, D], k and v are [B, Sk, KV, D], all
 // contiguous, so the kernel reads the model's layout directly and the
 // wrapper transposes and pads nothing.  Rows past Sq are never written and
-// keys past Sk are masked inside the kernel.
+// keys past Sk are masked inside the kernel.  The bfloat16 instantiation
+// (the LM's causal prefill) converts each element to float32 as it loads a
+// tile into shared memory and rounds the output back on the store; the
+// tiles, the scores, the softmax and the accumulator are float32 in both.
 //
 // Design: one block of 256 threads per (b*h, tile of 64 query rows).  The
 // scaled Q tile stays in shared memory for the whole kv loop; each K/V tile
@@ -26,9 +30,12 @@
 // outside the tensor cores (67 TFLOP/s peak), not with wgmma on bf16 or
 // tf32; the register tiling above is what it does to stay near the FMA
 // pipe rather than the shared-memory pipe.  Moving to wgmma with TMA-fed
-// tiles is later work.
+// tiles is later work.  For bfloat16 inputs the bound is the tensor cores'
+// bfloat16 rate (989 TFLOP/s), which these float32 FMAs cannot approach: the
+// bfloat16 instantiation halves the bytes read, not the time of the math.
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -74,6 +81,20 @@ __device__ __forceinline__ void load_vec(const float* src, float* dst) {
   }
 }
 
+// Four consecutive elements of a row as float32 (16 or 8 bytes).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
 __device__ __forceinline__ float half_warp_max(float x) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -86,11 +107,11 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(NT)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o,
-              int H, int KV, int Sq, int Sk, int causal, float scale) {
+flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, T* __restrict__ o,
+          int H, int KV, int Sq, int Sk, int causal, float scale) {
   using L = Layout<D>;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem + L::q_off;   // [BQ][QS], pre-scaled
@@ -109,16 +130,16 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   const size_t q_row = (size_t)H * D;
   const size_t k_row = (size_t)KV * D;
-  const float* qb = q + (size_t)b * Sq * q_row + (size_t)h * D;
-  const float* kb = k + (size_t)b * Sk * k_row + (size_t)kvh * D;
-  const float* vb = v + (size_t)b * Sk * k_row + (size_t)kvh * D;
-  float* ob = o + (size_t)b * Sq * q_row + (size_t)h * D;
+  const T* qb = q + (size_t)b * Sq * q_row + (size_t)h * D;
+  const T* kb = k + (size_t)b * Sk * k_row + (size_t)kvh * D;
+  const T* vb = v + (size_t)b * Sk * k_row + (size_t)kvh * D;
+  T* ob = o + (size_t)b * Sq * q_row + (size_t)h * D;
 
   constexpr int D4 = D / 4;
   for (int idx = tid; idx < BQ * D4; idx += NT) {
     const int r = idx / D4, d = (idx % D4) * 4;
     float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < Sq) t = *reinterpret_cast<const float4*>(qb + (size_t)(q0 + r) * q_row + d);
+    if (q0 + r < Sq) t = load4(qb + (size_t)(q0 + r) * q_row + d);
     t.x *= scale; t.y *= scale; t.z *= scale; t.w *= scale;
     *reinterpret_cast<float4*>(Qs + r * L::QS + d) = t;
   }
@@ -140,7 +161,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       // consecutive threads take consecutive keys: conflict-free transposed stores
       const int c = idx % BK, d = (idx / BK) * 4;
       float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + c < Sk) t = *reinterpret_cast<const float4*>(kb + (size_t)(k0 + c) * k_row + d);
+      if (k0 + c < Sk) t = load4(kb + (size_t)(k0 + c) * k_row + d);
       Kt[(d + 0) * L::KS + c] = t.x;
       Kt[(d + 1) * L::KS + c] = t.y;
       Kt[(d + 2) * L::KS + c] = t.z;
@@ -149,7 +170,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int idx = tid; idx < BK * D4; idx += NT) {
       const int c = idx / D4, d = (idx % D4) * 4;
       float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + c < Sk) t = *reinterpret_cast<const float4*>(vb + (size_t)(k0 + c) * k_row + d);
+      if (k0 + c < Sk) t = load4(vb + (size_t)(k0 + c) * k_row + d);
       *reinterpret_cast<float4*>(Vs + c * L::VS + d) = t;
     }
     __syncthreads();
@@ -228,37 +249,54 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / fmaxf(half_warp_sum(l[i]), 1e-30f);
     const int qpos = q0 + ty + 16 * i;
     if (qpos < Sq) {
-      float* orow = ob + (size_t)qpos * q_row;
+      T* orow = ob + (size_t)qpos * q_row;
 #pragma unroll
-      for (int n = 0; n < L::NV; ++n) orow[L::col(tx, n)] = acc[i][n] * inv;
+      for (int n = 0; n < L::NV; ++n) store1(orow + L::col(tx, n), acc[i][n] * inv);
     }
   }
 }
 
-template <int D>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o,
+template <typename T, int D>
+cudaError_t launch(const T* q, const T* k, const T* v, T* o,
                    int B, int H, int KV, int Sq, int Sk, int causal,
                    float scale, cudaStream_t stream) {
   constexpr size_t bytes = Layout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fwd_f32<D><<<grid, NT, bytes, stream>>>(q, k, v, o, H, KV, Sq, Sk, causal, scale);
+  flash_fwd<T, D><<<grid, NT, bytes, stream>>>(q, k, v, o, H, KV, Sq, Sk, causal, scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int B, int H,
+                     int KV, int Sq, int Sk, int D, int causal, float scale,
+                     void* stream) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(o);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch<T, 32>(qt, kt, vt, ot, B, H, KV, Sq, Sk, causal, scale, s);
+    case 64: return launch<T, 64>(qt, kt, vt, ot, B, H, KV, Sq, Sk, causal, scale, s);
+    case 128: return launch<T, 128>(qt, kt, vt, ot, B, H, KV, Sq, Sk, causal, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes.  Returns a cudaError_t; 0 on success.
-extern "C" int repro_flash_attention_f32(const float* q, const float* k, const float* v,
-                                         float* o, int B, int H, int KV, int Sq, int Sk,
+// C entry points, bound with ctypes.  Return a cudaError_t; 0 on success.
+extern "C" int repro_flash_attention_f32(const void* q, const void* k, const void* v,
+                                         void* o, int B, int H, int KV, int Sq, int Sk,
                                          int D, int causal, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return launch<32>(q, k, v, o, B, H, KV, Sq, Sk, causal, scale, s);
-    case 64: return launch<64>(q, k, v, o, B, H, KV, Sq, Sk, causal, scale, s);
-    case 128: return launch<128>(q, k, v, o, B, H, KV, Sq, Sk, causal, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return launch_d<float>(q, k, v, o, B, H, KV, Sq, Sk, D, causal, scale, stream);
+}
+
+extern "C" int repro_flash_attention_bf16(const void* q, const void* k, const void* v,
+                                          void* o, int B, int H, int KV, int Sq, int Sk,
+                                          int D, int causal, float scale, void* stream) {
+  return launch_d<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Sk, D, causal, scale, stream);
 }

@@ -1,4 +1,5 @@
-"""Public flash-attention wrapper: [B,S,H,D] layout, native GQA.
+"""Public flash-attention wrapper: [B,S,H,D] layout, native GQA, float32 or
+bfloat16.
 
 A tensor on the CPU goes to the plain version (``ref.attention_ref``); a
 tensor on the card launches the CUDA kernel
@@ -13,6 +14,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (32, 64, 128)
+_ENTRY = {torch.float32: "repro_flash_attention_f32",
+          torch.bfloat16: "repro_flash_attention_bf16"}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -37,8 +40,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.device != q.device or t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}; the kernel needs all "
                              f"of q, k, v on one CUDA device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} is {t.dtype}; the kernel takes float32")
+        if t.dtype != q.dtype or t.dtype not in _ENTRY:
+            raise TypeError(f"{name} is {t.dtype}, q {q.dtype}; the kernel "
+                            f"takes float32 or bfloat16, the same for all")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if d not in HEAD_DIMS:
@@ -48,7 +52,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     o = torch.empty_like(q)
     lib = _build.library()
-    err = lib.repro_flash_attention_f32(
+    err = getattr(lib, _ENTRY[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         b, h, kv, sq, sk, d, int(causal), scale,
         torch.cuda.current_stream(q.device).cuda_stream)

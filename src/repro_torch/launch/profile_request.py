@@ -1,13 +1,19 @@
-"""Where a request's device time goes: one monolithic ``generate`` at a
-profile's widths under ``torch.profiler``, on the card.
+"""Where a request's device time goes, on the card, under ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_request --profile port
+    PYTHONPATH=src python -m repro_torch.launch.profile_request --workflow llm
 
-Prints the per-stage wall times, then the device time by kernel (top rows
-of ``key_averages``), the kernels' summed device time against the
-request's wall time (the device's busy share; overlapping kernels would
-count twice, and this eager path runs one stream), and the launch counts of
-the port's own kernels.  Needs a CUDA device.
+``--workflow wan`` (the default): one monolithic ``generate`` of the Wan I2V
+pipeline at a profile's widths, after the per-stage wall times.
+``--workflow llm``: one request (a 256-token prompt, 32 new tokens) served
+through the ``llm_disagg`` Workflow Set with qwen3-1.7b at full width and
+depth in bfloat16, after one warm-up request.
+
+Prints the request's wall time, the device time by kernel (top rows of
+``key_averages``), the kernels' summed device time against the wall time
+(the device's busy share; overlapping kernels would count twice, and these
+eager paths issue work from one stream per thread), and the launch counts
+of the port's own kernels.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -19,40 +25,80 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs.wan_i2v import PROFILES
-from repro_torch.kernels import ddim_step, flash_attention
-from repro_torch.launch.serve import make_request
-from repro_torch.models.aigc import WanI2VPipeline
-from repro_torch.models.aigc.pipeline import measure_stage_times
+from repro_torch.kernels import (
+    ddim_step,
+    decode_attention_grouped,
+    decode_attention_int8_grouped,
+    flash_attention,
+)
+
+KERNELS = (flash_attention, ddim_step, decode_attention_grouped,
+           decode_attention_int8_grouped)
+
+
+def wan_request(profile_name: str):
+    """-> a function that runs one Wan request, warmed up."""
+    from repro_torch.launch.serve import make_request
+    from repro_torch.models.aigc import WanI2VPipeline
+    from repro_torch.models.aigc.pipeline import measure_stage_times
+
+    pipe = WanI2VPipeline(cfg=PROFILES[profile_name], seed=0)
+    times = measure_stage_times(pipe, n_warm=1, n_iter=1)
+    print("stage wall (s):", {k: round(v, 4) for k, v in times.items()})
+    req = make_request(pipe.cfg, np.random.default_rng(0), 0)
+    run = lambda: pipe.generate(req["tokens"], req["image"], seed=0)  # noqa: E731
+    run()
+    return run
+
+
+def llm_request(cache_dtype: str):
+    """-> a function that serves one qwen3-1.7b request through a fresh
+    llm_disagg Workflow Set, warmed up."""
+    from repro_torch.launch.serve import llm_config, llm_requests
+    from repro_torch.serving import APP_LLM_DISAGG, ServingEngine, build_llm_disagg_set
+
+    engine = ServingEngine(llm_config("qwen3-1.7b", "port", cache_dtype),
+                           max_len=1024, seed=0)
+    rng = np.random.default_rng(0)
+
+    def run():
+        req = llm_requests(engine.cfg, rng, [256], 32, [0.0])[0]
+        ws, _ = build_llm_disagg_set(engine, max_slots=8, segment_len=8)
+        with ws:
+            proxy = ws.proxies[0]
+            proxy.wait_result(proxy.submit(APP_LLM_DISAGG, req), timeout_s=600)
+    run()
+    return run
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--profile", default="port", choices=sorted(PROFILES))
+    ap.add_argument("--workflow", default="wan", choices=["wan", "llm"])
+    ap.add_argument("--profile", default="port", choices=sorted(PROFILES),
+                    help="--workflow wan: the pipeline profile")
+    ap.add_argument("--cache-dtype", default="", choices=["", "int8"],
+                    help="--workflow llm: KV cache type ('' = bfloat16)")
     ap.add_argument("--rows", type=int, default=12)
     args = ap.parse_args()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    pipe = WanI2VPipeline(cfg=PROFILES[args.profile], seed=0)
-    cfg = pipe.cfg
     print(f"device: {torch.cuda.get_device_name(0)}")
-    times = measure_stage_times(pipe, n_warm=1, n_iter=1)
-    print("stage wall (s):", {k: round(v, 4) for k, v in times.items()})
-
-    req = make_request(cfg, np.random.default_rng(0), 0)
-    pipe.generate(req["tokens"], req["image"], seed=0)  # warm
+    run = (wan_request(args.profile) if args.workflow == "wan"
+           else llm_request(args.cache_dtype))
     torch.cuda.synchronize()
-    flash_attention.launches = ddim_step.launches = 0
+    for k in KERNELS:
+        k.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.generate(req["tokens"], req["image"], seed=0)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_us = sum(e.self_device_time_total for e in events)
     print(f"request wall {wall * 1e3:.1f} ms; device busy {busy_us / 1e3:.1f} ms "
-          f"({busy_us / 1e4 / wall:.1f} %); launches flash="
-          f"{flash_attention.launches} ddim={ddim_step.launches}")
+          f"({busy_us / 1e4 / wall:.1f} %); launches "
+          + " ".join(f"{k.__name__}={k.launches}" for k in KERNELS))
     print(f"{'device ms':>10} {'share':>6} {'calls':>6}  kernel")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:args.rows]:
         print(f"{e.self_device_time_total / 1e3:10.2f} "

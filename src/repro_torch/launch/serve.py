@@ -1,17 +1,25 @@
-"""Serving launcher: stand up a complete OnePiece Workflow Set around the
-Wan-style I2V pipeline on the card and push requests through it.
+"""Serving launcher: stand up a complete OnePiece Workflow Set on the card
+and push requests through it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 2
     PYTHONPATH=src python -m repro_torch.launch.serve --workflow dag
+    PYTHONPATH=src python -m repro_torch.launch.serve --workflow llm
     PYTHONPATH=src python -m repro_torch.launch.serve --profile small --device cpu
 
-Workflows (docs/workflows.md):
-  * chain — the linear 4-stage pipeline (text -> vae -> dit -> decode);
+Workflows (docs/workflows.md, docs/disaggregation.md):
+  * chain — the Wan I2V pipeline as a linear 4-stage chain (text -> vae ->
+            dit -> decode);
   * dag   — the paper's real Wan2.1 topology: text encoder ∥ image/VAE
-            encoder as independent branches joining into the DiT.
+            encoder as independent branches joining into the DiT;
+  * llm   — disaggregated prefill/decode LLM serving: prefill ships each
+            request's KV cache as KVPages over the fabric into a
+            continuous-batching decode stage; every token stream is checked
+            against the engine's own ``generate``.
 
-Profiles: ``port`` (the default) is FULL's widths at cut depth, the size
-served on one H100; ``small`` is the CPU-sized parity profile.
+Profiles: ``port`` (the default) is the size served on one H100 — for the
+Wan workflows FULL's widths at cut depth, for ``llm`` the model at full
+width and depth in bfloat16; ``small`` is the CPU-sized parity profile (for
+``llm`` the reduced float32 config).
 
 Each instance's inbox ring is sized from the configuration's largest stage
 payload: at ``port`` widths a diffusion-stage message is about 13 MB, more
@@ -21,12 +29,14 @@ than the 4 MiB default ring, and a message that does not fit is dropped
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.cluster import Rejected, StageSpec, WorkflowSet, WorkflowSpec
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.wan_i2v import PROFILES, WanPipelineConfig
 from repro_torch.core import RequestMonitor, critical_path, plan_dag
 from repro_torch.models.aigc import (
@@ -36,6 +46,7 @@ from repro_torch.models.aigc import (
     build_stage_fns,
 )
 from repro_torch.models.aigc.pipeline import measure_stage_times
+from repro_torch.serving import APP_LLM_DISAGG, ServingEngine, build_llm_disagg_set
 
 APP_I2V = 1
 STAGES = ("text_encode", "vae_encode", "diffusion", "vae_decode")
@@ -124,10 +135,11 @@ def build_set(spec: WorkflowSpec, *, counts, admit_rate: float,
     return ws
 
 
-def serve(ws: WorkflowSet, reqs: List[Dict[str, Any]], *,
+def serve(ws: WorkflowSet, reqs: List[Dict[str, Any]], *, app: int = APP_I2V,
           batched: bool = False,
           timeout_s: float = 600.0) -> Tuple[List[Any], int, float]:
-    """Submit ``reqs`` through the set's proxy and wait for every result.
+    """Submit ``reqs`` of workflow ``app`` through the set's proxy and wait
+    for every result; ``batched`` submits them in one burst.
     -> (results in request order, results lost, wall seconds).  A request
     that times out is counted as lost (§9: the data plane may drop and never
     retransmits; a production client resubmits)."""
@@ -135,13 +147,13 @@ def serve(ws: WorkflowSet, reqs: List[Dict[str, Any]], *,
     t0 = time.perf_counter()
     with ws:
         if batched:
-            uids = proxy.submit_many(APP_I2V, reqs)  # one doorbell-batched burst
+            uids = proxy.submit_many(app, reqs)  # one doorbell-batched burst
         else:
             uids = []
             for r in reqs:
                 while True:
                     try:
-                        uids.append(proxy.submit(APP_I2V, r))
+                        uids.append(proxy.submit(app, r))
                         break
                     except Rejected:
                         time.sleep(0.05)  # fast-rejected: retry (client behavior)
@@ -154,6 +166,67 @@ def serve(ws: WorkflowSet, reqs: List[Dict[str, Any]], *,
     return outs, lost, time.perf_counter() - t0
 
 
+def llm_config(arch: str, profile: str, cache_dtype: str = ""):
+    """The ``llm`` workflow's model: full width and depth in bfloat16 at
+    ``port``, the reduced float32 config at ``small``."""
+    cfg = get_config(arch)
+    if profile == "small":
+        cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
+    return dataclasses.replace(cfg, cache_dtype=cache_dtype)
+
+
+def llm_requests(cfg, rng, prompt_lens, steps: int, temperatures):
+    """One request per prompt length: random prompt tokens, ``steps`` new
+    tokens, temperatures in turn, seed = request index."""
+    return [{"prompt": rng.integers(0, cfg.vocab_size, (1, p)).astype(np.int32),
+             "steps": steps, "temperature": float(temperatures[i % len(temperatures)]),
+             "seed": i} for i, p in enumerate(prompt_lens)]
+
+
+def check_served(engine, reqs, outs) -> None:
+    """Hold every served token stream against the engine's solo ``generate``
+    of that request; raises AssertionError naming the first that differs.
+    The RNG contract makes a request's tokens independent of the slot batch
+    that served it."""
+    for i, (o, r) in enumerate(zip(outs, reqs)):
+        solo = engine.generate(r["prompt"], steps=r["steps"],
+                               temperature=r["temperature"], seed=r["seed"]).tokens
+        if not np.array_equal(o, solo):
+            raise AssertionError(f"request {i}: served tokens differ from solo "
+                                 f"generate")
+
+
+def run_llm(args) -> int:
+    """--workflow llm: the two-stage llm_disagg Workflow Set end to end."""
+    cfg = llm_config(args.llm_arch, args.profile, args.cache_dtype)
+    max_len = args.max_len or (64 if args.profile == "small" else 1024)
+    engine = ServingEngine(cfg, max_len=max_len, seed=args.seed,
+                           device=args.device)
+    ws, decoder = build_llm_disagg_set(
+        engine, name="llm", max_slots=args.llm_slots,
+        segment_len=args.llm_segment, prefill_batch=args.max_batch)
+    rng = np.random.default_rng(args.seed)
+    reqs = llm_requests(cfg, rng, [max_len // 16] * args.requests,
+                        args.llm_steps, [0.7])
+    outs, lost, wall = serve(ws, reqs, app=APP_LLM_DISAGG, batched=True)
+    stats = ws.transport_stats()
+    n_tok = sum(r["steps"] for r in reqs[:len(outs)])
+    print(f"{cfg.name} ({cfg.dtype}, cache {cfg.resolved_cache_dtype}) on "
+          f"{engine.device}: {len(outs)}/{len(reqs)} requests x "
+          f"{args.llm_steps} tokens in {wall:.2f}s ({n_tok / wall:.1f} tokens/s), "
+          f"lost={lost}, dropped={stats.dropped}")
+    print(f"decode slots: admitted={decoder.stats['admitted']} "
+          f"segments={decoder.stats['segments']} "
+          f"max_resident={decoder.stats['max_resident']}/{args.llm_slots}")
+    print(f"kv shipping: {stats.kv_pages} KVPages messages, "
+          f"{stats.kv_bytes / 1e6:.1f} MB of cache over the fabric")
+    if lost or stats.dropped:
+        return 1
+    check_served(engine, reqs, outs)
+    print("served tokens equal the engine's solo generate")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=2)
@@ -162,12 +235,29 @@ def main() -> int:
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch path)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--workflow", default="chain", choices=["chain", "dag"],
-                    help="stage topology: linear chain or the "
-                         "branch-parallel Wan DAG")
+    ap.add_argument("--workflow", default="chain", choices=["chain", "dag", "llm"],
+                    help="stage topology: linear chain, the branch-parallel "
+                         "Wan DAG, or disaggregated prefill/decode LLM serving")
     ap.add_argument("--max-batch", type=int, default=1,
                     help="stage-level microbatch size (1 = per-request)")
+    ap.add_argument("--llm-arch", default="qwen3-1.7b", choices=ARCH_IDS,
+                    help="--workflow llm: model config")
+    ap.add_argument("--llm-steps", type=int, default=16,
+                    help="--workflow llm: decode tokens per request")
+    ap.add_argument("--llm-slots", type=int, default=8,
+                    help="--workflow llm: continuous-batching decode slots")
+    ap.add_argument("--llm-segment", type=int, default=4,
+                    help="--workflow llm: tokens per decode segment "
+                         "(join/leave granularity)")
+    ap.add_argument("--max-len", type=int, default=0,
+                    help="--workflow llm: decode cache length (default 1024 "
+                         "at port, 64 at small)")
+    ap.add_argument("--cache-dtype", default="", choices=["", "int8"],
+                    help="--workflow llm: KV cache type ('' = the model's)")
     args = ap.parse_args()
+
+    if args.workflow == "llm":
+        return run_llm(args)
 
     pipe = WanI2VPipeline(cfg=PROFILES[args.profile], seed=args.seed,
                           device=args.device)

@@ -117,13 +117,13 @@ def dit_forward(params: Tree, noisy_tokens: torch.Tensor, t: torch.Tensor,
         h = L.rms_norm(x, lp["attn_norm"]) * (1 + sc1) + sh1
         att = L.attention_full(L.project_heads(h, lp["wq"]),
                                L.project_heads(h, lp["wk"]),
-                               L.project_heads(h, lp["wv"]))
+                               L.project_heads(h, lp["wv"]), causal=False)
         x = x + g1 * L.merge_heads(att, lp["wo"])
         # text cross attention
         hx = L.rms_norm(x, lp["x_norm"])
         attx = L.attention_full(L.project_heads(hx, lp["x_wq"]),
                                 L.project_heads(ctx, lp["x_wk"]),
-                                L.project_heads(ctx, lp["x_wv"]))
+                                L.project_heads(ctx, lp["x_wv"]), causal=False)
         x = x + L.merge_heads(attx, lp["x_wo"])
         h = L.rms_norm(x, lp["mlp_norm"]) * (1 + sc2) + sh2
         x = x + g2 * (F.gelu(h @ lp["w1"], approximate="tanh") @ lp["w2"])

@@ -41,7 +41,7 @@ def encode_text(params: Tree, tokens: torch.Tensor,
         h = L.rms_norm(x, lp["attn_norm"])
         att = L.attention_full(L.project_heads(h, lp["wq"]),
                                L.project_heads(h, lp["wk"]),
-                               L.project_heads(h, lp["wv"]))
+                               L.project_heads(h, lp["wv"]), causal=False)
         x = x + L.merge_heads(att, lp["wo"])
         h = L.rms_norm(x, lp["mlp_norm"])
         x = x + F.gelu(h @ lp["w1"], approximate="tanh") @ lp["w2"]

@@ -1,5 +1,6 @@
-"""Shared model layers of the Wan I2V path: RMS norm, RoPE frequencies,
-head projections, full attention and the DDIM update.
+"""Shared model layers: RMS norm, RoPE, head projections, attention (causal
+and non-causal flash prefill, flash-decode over a float or an int8 cache),
+the per-token int8 quantizer, the SwiGLU MLP and the DDIM update.
 
 The path is chosen by the tensor's device and nothing else: a CUDA tensor
 goes through the hand-written kernels in ``repro_torch.kernels`` (which
@@ -9,8 +10,20 @@ is no switch that sends a CUDA tensor to the plain version.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels import ddim_step, flash_attention
+from repro_torch.kernels import (
+    ddim_step,
+    decode_attention_grouped,
+    decode_attention_int8_grouped,
+    flash_attention,
+)
+
+#: Windowed (sliding-window) attention belongs to gemma3's local layers,
+#: which the port does not carry yet.
+_WINDOW_TODO = ("windowed attention is not ported: gemma3's local/global "
+                "layers and their ring caches are the next slice (ROADMAP "
+                "Queue 1, item 1)")
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -33,6 +46,23 @@ def rope_freqs(positions: torch.Tensor, head_dim: int, theta: float,
     return torch.sin(ang), torch.cos(ang)
 
 
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
+               rotary_dim: int = 0) -> torch.Tensor:
+    """x [B,S,H,hd]; sin/cos [B,S,rd/2] or [S,rd/2].  Rotates the first rd
+    dims as interleaved pairs and passes the rest through."""
+    rd = rotary_dim or x.shape[-1]
+    if sin.dim() == 2:  # [S, rd/2] -> [1,S,1,rd/2]
+        sin, cos = sin[None, :, None, :], cos[None, :, None, :]
+    else:  # [B,S,rd/2] -> [B,S,1,rd/2]
+        sin, cos = sin[:, :, None, :], cos[:, :, None, :]
+    xr, xp = x[..., :rd], x[..., rd:]
+    x1, x2 = xr[..., ::2], xr[..., 1::2]
+    o1 = x1 * cos - x2 * sin
+    o2 = x2 * cos + x1 * sin
+    rot = torch.stack([o1, o2], dim=-1).reshape(xr.shape).to(x.dtype)
+    return torch.cat([rot, xp], dim=-1) if rd < x.shape[-1] else rot
+
+
 def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [B,S,D] @ w [D,H,hd] -> contiguous [B,S,H,hd]."""
     b, s, _ = x.shape
@@ -45,12 +75,67 @@ def merge_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, s, -1) @ w.reshape(-1, w.shape[-1])
 
 
-def attention_full(q: torch.Tensor, k: torch.Tensor,
-                   v: torch.Tensor) -> torch.Tensor:
-    """Non-causal attention, q: [B,Sq,H,hd]; k, v: [B,Sk,KV,hd] ->
-    [B,Sq,H,hd], through the flash kernel.  The Wan path needs no causal
-    mask, window or explicit query positions."""
-    return flash_attention(q, k, v, causal=False)
+def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: [B,Sq,H,hd]; k, v: [B,Sk,KV,hd] -> [B,Sq,H,hd], through the flash
+    kernel.  Causal needs Sq == Sk."""
+    if window:
+        raise NotImplementedError(_WINDOW_TODO)
+    return flash_attention(q, k, v, causal=causal)
+
+
+def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """The JAX package's memory-safe attention for long prompts (S > 2048).
+    The flash kernel never forms the [S, S] scores, so the port runs it
+    there too."""
+    if window:
+        raise NotImplementedError(_WINDOW_TODO)
+    return flash_attention(q, k, v, causal=causal)
+
+
+def _group(q: torch.Tensor, kv: int) -> torch.Tensor:
+    b, h, d = q.shape
+    return q.reshape(b, kv, h // kv, d)
+
+
+def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cur_index, *,
+                     window: int = 0) -> torch.Tensor:
+    """One new token per row against the serving-layout cache.  q [B,H,hd];
+    k/v cache [B,KV,Smax,hd]; cur_index an int (lockstep batch) or a [B]
+    tensor (one position per slot).  -> [B,H,hd] through the flash-decode
+    kernel, for both forms of the index."""
+    if window:
+        raise NotImplementedError(_WINDOW_TODO)
+    out = decode_attention_grouped(_group(q, k_cache.shape[1]), k_cache,
+                                   v_cache, cur_index)
+    return out.reshape(q.shape)
+
+
+def quantize_token_kv(x: torch.Tensor):
+    """x [B,KV,T,hd] -> (int8 values, float32 scales [B,KV,T]): absmax per
+    (head, token)."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def attention_decode_int8(q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,
+                          k_s: torch.Tensor, v_s: torch.Tensor,
+                          cur_index) -> torch.Tensor:
+    """int8-cache decode: q [B,H,hd]; int8 k/v [B,KV,Smax,hd]; float32
+    scales [B,KV,Smax]; the scales fold into the scores (k) and the
+    probabilities (v) inside the kernel."""
+    out = decode_attention_int8_grouped(_group(q, k_q.shape[1]), k_q, v_q,
+                                        k_s, v_s, cur_index)
+    return out.reshape(q.shape)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
 def ddim_update(x: torch.Tensor, eps: torch.Tensor, alpha_t,

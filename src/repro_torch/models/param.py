@@ -38,6 +38,37 @@ def spec_leaves(tree):
     return out
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts, tuples and lists, in ``jax.tree``
+    flatten order (dict keys sorted, sequences in order); a ParamSpec is a
+    leaf."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)) and not is_spec(tree):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and of trees of the same
+    structure in ``rest``), keeping the structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (tuple, list)) and not is_spec(tree):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s structure whose leaves are ``leaves``, taken in
+    flatten order."""
+    it = iter(leaves)
+    out = tree_map(lambda _: next(it), like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
 def count(tree) -> int:
     return sum(math.prod(s.shape) for _, s in spec_leaves(tree))
 
@@ -59,6 +90,12 @@ def materialize(spec: ParamSpec, generator: torch.Generator,
     x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                     device=device) * std
     return x.to(dtype)
+
+
+def zeros(spec_tree, device):
+    """A tree of zero tensors for a ParamSpec tree (a decode cache)."""
+    return tree_map(lambda s: torch.zeros(s.shape, dtype=getattr(torch, s.dtype),
+                                          device=device), spec_tree)
 
 
 def init_tree(spec_tree, generator: torch.Generator, device) -> dict:

@@ -1,0 +1,59 @@
+"""Uniform model API over the families the port carries (dense, for now).
+
+  abstract_params(cfg)                      -> ParamSpec tree (JAX layout)
+  init_params(cfg, generator, device)       -> the port's tree of tensors
+  prefill(params, tokens, cfg, max_len=)    -> (logits, cache)
+  decode_step(params, cache, tokens, cur_index, cfg) -> logits
+  abstract_cache(cfg, B, S)                 -> ParamSpec tree
+
+A family without a port raises ``NotImplementedError`` naming the ROADMAP
+item that will bring it.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.convert import to_port_layout
+from repro_torch.models import transformer
+from repro_torch.models.param import count, init_tree
+
+Tree = Dict[str, Any]
+
+_FAMILY = {"dense": transformer}
+
+
+def module_for(cfg: ModelConfig):
+    if cfg.family not in _FAMILY:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported (ROADMAP Queue 1)")
+    return _FAMILY[cfg.family]
+
+
+def abstract_params(cfg: ModelConfig) -> Tree:
+    return module_for(cfg).abstract_params(cfg)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: torch.device) -> Tree:
+    """Random weights by the JAX init rules, in the port's layout."""
+    return to_port_layout(init_tree(abstract_params(cfg), generator, device))
+
+
+def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, **kw):
+    return module_for(cfg).prefill(params, tokens, cfg, **kw)
+
+
+def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor, cur_index,
+                cfg: ModelConfig) -> torch.Tensor:
+    return module_for(cfg).decode_step(params, cache, tokens, cur_index, cfg)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int) -> Tree:
+    return module_for(cfg).abstract_cache(cfg, batch, seq_len)
+
+
+def count_params(cfg: ModelConfig) -> int:
+    return count(abstract_params(cfg))

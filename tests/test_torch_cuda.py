@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build, ddim_step, flash_attention
+from repro_torch.kernels import decode_attention as K
 from repro_torch.kernels.ddim_step import ddim_coefs, ddim_step_ref
 from repro_torch.kernels.flash_attention import attention_ref
 from repro_torch.models.aigc.dit import schedule
@@ -31,10 +32,30 @@ FLASH_CASES = [
     (1, 512, 512, 16, 16, 64, False),
 ]
 
+#: docs/kernels.md: float32 2e-5, the int8 decode over float32 queries 1e-4.
+#: bfloat16 outputs: kernel and plain version compute in float32 and each
+#: rounds to bfloat16, so an element differs by at most one bfloat16 step
+#: (2^-7 of its value); the absolute 1e-5 covers float32 summation order
+#: near zero.
+TOLS = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+        torch.bfloat16: dict(atol=1e-5, rtol=2 ** -7)}
+INT8_TOLS = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+             torch.bfloat16: TOLS[torch.bfloat16]}
+
+DECODE_CASES = [
+    # b, s, h, kv, d, cur (int: scalar index; list: one per row)
+    (2, 64, 4, 2, 32, 37),
+    (3, 600, 8, 2, 64, [599, 0, 256]),
+    (8, 1024, 16, 8, 128, [1023, 700, 255, 256, 1, 0, 512, 64]),
+    (2, 300, 24, 2, 128, [299, 100]),   # 12 query heads per kv head
+    (1, 96, 8, 8, 128, 95),             # one query head per kv head
+]
+
 
 def test_every_binding_has_a_c_entry_point():
     sources = {p.name for p in _build.sources()}
-    assert sources == {"flash_attention.cu", "ddim_step.cu", "runtime.cu"}
+    assert sources == {"flash_attention.cu", "ddim_step.cu", "decode_attention.cu",
+                       "runtime.cu"}
     text = "".join(p.read_text() for p in _build.sources())
     entries = set(re.findall(r'extern "C" [\w\s*]+?\b(repro_\w+)\(', text))
     assert entries == set(_build.SIGNATURES)
@@ -80,3 +101,61 @@ def test_ddim_kernel_matches_plain_on_card(cuda, n):
     c1, c2 = ddim_coefs(alphas[ts[1]], alphas[ts[2]])
     torch.testing.assert_close(out, ddim_step_ref(x, eps, c1, c2),
                                atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_in_both_types_matches_plain_on_card(cuda, dtype, causal):
+    """qwen3's prefill shapes: 16 query heads over 8 kv heads of 128."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((1, 333, 16, 128), (1, 333, 8, 128), (1, 333, 8, 128)))
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    ref = attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
+
+
+def _cur(cur, cuda):
+    return cur if isinstance(cur, int) else torch.tensor(cur, dtype=torch.int32,
+                                                          device=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seq_axis", [1, 2])
+@pytest.mark.parametrize("b,s,h,kv,d,cur", DECODE_CASES)
+def test_decode_kernel_matches_plain_on_card(cuda, dtype, seq_axis, b, s, h, kv, d, cur):
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    q = torch.randn(b, kv, h // kv, d, generator=gen, device=cuda).to(dtype)
+    shape = (b, s, kv, d) if seq_axis == 1 else (b, kv, s, d)
+    kc, vc = (torch.randn(shape, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    launches = K.decode_attention_grouped.launches
+    out = K.decode_attention_grouped(q, kc, vc, _cur(cur, cuda), seq_axis=seq_axis)
+    torch.cuda.synchronize()
+    assert K.decode_attention_grouped.launches == launches + 1
+    ref = K.decode_ref(q, kc, vc, _cur(cur, cuda), seq_axis=seq_axis)
+    torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seq_axis", [1, 2])
+@pytest.mark.parametrize("b,s,h,kv,d,cur", DECODE_CASES)
+def test_decode_int8_kernel_matches_plain_on_card(cuda, dtype, seq_axis, b, s, h, kv,
+                                                  d, cur):
+    gen = torch.Generator(device=cuda).manual_seed(s + 1)
+    q = torch.randn(b, kv, h // kv, d, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(b, s, kv, d, generator=gen, device=cuda) for _ in range(2))
+    (kq, ks), (vq, vs) = K.quantize_kv(k), K.quantize_kv(v)
+    if seq_axis == 2:
+        kq, vq = kq.transpose(1, 2).contiguous(), vq.transpose(1, 2).contiguous()
+    launches = K.decode_attention_int8_grouped.launches
+    out = K.decode_attention_int8_grouped(q, kq, vq, ks, vs, _cur(cur, cuda),
+                                          seq_axis=seq_axis)
+    torch.cuda.synchronize()
+    assert K.decode_attention_int8_grouped.launches == launches + 1
+    ref = K.decode_int8_ref(q, kq, vq, ks, vs, _cur(cur, cuda), seq_axis=seq_axis)
+    torch.testing.assert_close(out.float(), ref.float(), **INT8_TOLS[dtype])

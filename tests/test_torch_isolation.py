@@ -41,7 +41,11 @@ def imported_roots(path: pathlib.Path):
 
 def test_importing_every_port_module_loads_no_jax_and_no_repro():
     mods = port_modules()
-    assert "repro_torch.kernels.flash_attention.ops" in mods
+    for m in ("repro_torch.kernels.flash_attention.ops",
+              "repro_torch.kernels.decode_attention.ops",
+              "repro_torch.models.transformer", "repro_torch.serving.disagg",
+              "repro_torch.serving.engine", "repro_torch.configs.qwen3_1p7b"):
+        assert m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -92,6 +96,29 @@ def test_serve_launcher_without_a_device_raises_without_cuda(no_cuda, monkeypatc
     from repro_torch.launch import serve
 
     monkeypatch.setattr(sys, "argv", ["serve", "--profile", "small"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main()
+
+
+def test_serving_engine_without_a_device_raises_without_cuda(no_cuda):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServingEngine
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(), dtype="float32")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cfg, max_len=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cfg, max_len=16, device="cuda")
+    assert ServingEngine(cfg, max_len=16, device="cpu").device.type == "cpu"
+
+
+def test_llm_serve_launcher_without_a_device_raises_without_cuda(no_cuda, monkeypatch):
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(sys, "argv", ["serve", "--workflow", "llm",
+                                      "--profile", "small"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main()
 
