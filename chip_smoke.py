@@ -14,7 +14,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    case and a ragged case; flash-decode over a bfloat16 and an int8 cache in
    both layouts at B 8, KV 8, G 2, D 128, S 32768 with a mixed per-row index
    and a full-cache scalar index, and at the served S 1024 with a mixed
-   index; the bfloat16 flash prefill at qwen3-1.7b's heads.  For each: the largest absolute error against the stated
+   index; the bfloat16 flash prefill at qwen3-1.7b's heads; the WKV6
+   recurrence at rwkv6-7b's heads (a served 512-token prompt, a ragged 97, a
+   long batch of 8 x 4096, and a float32 case at the reduced head size).
+   For each: the largest absolute error against the stated
    tolerance, the kernel's time (CUDA events, median), the plain version's,
    one PyTorch library call's where one computes the same function, and the
    bound: the larger of the bytes this call's data needs over 3.35 TB/s and
@@ -22,13 +25,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    outside the tensor cores, 989 TFLOP/s bfloat16; H100 SXM data sheet).
 3. The port on small inputs, card against CPU on the same weights: the SMALL
    Wan pipeline's latents and frames (same noise), and the reduced float32
-   qwen3 engine's prefill logits and greedy tokens.
+   qwen3 and rwkv6 engines' prefill logits and greedy tokens.
 4. Serving, the main paths, each with the launch counters set to 0 just
    before and read just after: 2 requests through the Wan chain and 2
    through the DAG Workflow Set at ``PORT``, one instance per stage; then
    qwen3-1.7b at full width and depth in bfloat16 through the ``llm_disagg``
    Workflow Set, once with the bfloat16 cache (8 requests) and once with the
-   int8 cache (4 requests).  Every request answered, nothing dropped, the
+   int8 cache (4 requests); then, with the Wan pipeline and the qwen3
+   engines freed, rwkv6-7b at full width and depth in bfloat16 through the
+   same Workflow Set (8 requests, prompts of 64 to 3000 tokens).  Every
+   request answered, nothing dropped, the
    counters risen by the expected launches, frames equal to
    ``WanI2VPipeline.generate`` and tokens equal to ``ServingEngine.generate``.
 5. A ``{"kernels": [...]}`` line, then the last line
@@ -38,6 +44,7 @@ It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -246,6 +253,7 @@ def main() -> int:
 
     decode_rows = decode_kernel_phase(torch, F, dev, randn)
     flash_bf16_rows = flash_bf16_phase(torch, F, dev, randn)
+    wkv_rows = wkv6_kernel_phase(torch, dev, randn)
 
     # --------------------------------------------- 3. small input, card vs CPU
     small = WanI2VPipeline(cfg=SMALL, seed=0, device="cpu")
@@ -285,6 +293,7 @@ def main() -> int:
     check(frame_err <= SMALL_FRAME_TOL, "small: frames differ from the CPU path")
     del small, small_gpu
     llm_small_phase(torch, np, dev)
+    rwkv_small_phase(torch, np, dev)
 
     # ------------------------------------------------------------- 4. serve
     t0 = time.perf_counter()
@@ -363,6 +372,9 @@ def main() -> int:
     del pipe, spec, ws, st   # the stage fns hold the pipeline's 6 GB of weights
     torch.cuda.empty_cache()
     llm = llm_serving_phase(torch, np, dev)
+    gc.collect()              # the qwen3 engines and their Workflow Sets
+    torch.cuda.empty_cache()
+    rwkv_launches = rwkv_serving_phase(torch, np, dev)
 
     # ------------------------------------------------------------ 5. result
     dom = next(r for r in flash_rows if r["shape"] == "dit_self")
@@ -407,6 +419,16 @@ def main() -> int:
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],
             at=main["shape"], shapes=rows))
+    served = next(r for r in wkv_rows if r["shape"] == "served_512")
+    kernels.append(dict(
+        name="wkv6", route="cuda",
+        source="src/repro_torch/kernels/rwkv6_wkv/csrc/wkv6.cu",
+        replaces="src/repro/kernels/rwkv6_wkv/kernel.py:23",
+        launches=rwkv_launches,
+        max_abs_err=max(r["max_abs_err"] for r in wkv_rows),
+        ms=served["ms"], plain_ms=served["plain_ms"], bound_ms=served["bound_ms"],
+        bound_by=served["bound_by"], library_ms=None, at="served_512",
+        shapes=wkv_rows))
     print(f"total {time.perf_counter() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -603,22 +625,8 @@ def llm_serving_phase(torch, np, dev) -> dict:
           f"{time.perf_counter() - t0:.1f}s; decode inbox "
           f"{ring_bytes_for(cfg, max_len) / 1e6:.1f} MB")
 
-    # does a slot batch's width change a request's numbers?  One decode step
-    # of one request at batch 1 and padded to the slot batch's width
+    batch_width_diff(torch, np, engine, slots, dev, "llm")
     rng = np.random.default_rng(5)
-    p0 = rng.integers(0, cfg.vocab_size, (1, 200)).astype(np.int32)
-    logits, cache = engine.prefill(p0)
-    wl, wc = engine.widen(logits, cache, slots)
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    l1 = registry.decode_step(engine.params, cache, tok, p0.shape[1], cfg)
-    tok8 = torch.zeros(slots, dtype=torch.int32, device=dev)
-    tok8[0] = tok[0]
-    l8 = registry.decode_step(engine.params, wc, tok8, p0.shape[1], cfg)[:1]
-    width_diff = float((l1 - l8).abs().max())
-    print(f"llm: one decode step at batch 1 vs batch {slots}: largest logit "
-          f"difference {width_diff:.6g} (max |logit| {float(l1.abs().max()):.4g})")
-    del logits, cache, wl, wc
-
     counts = {}
     runs = (("bf16 cache", cfg, [64, 512, 128, 256, 384, 96, 200, 448],
              decode_attention_grouped, "decode_attention_grouped"),
@@ -676,6 +684,227 @@ def llm_serving_phase(torch, np, dev) -> dict:
         print(f"serve llm {label}: every request's tokens equal solo generate")
         del ws, decoder
     return counts
+
+
+#: WKV6 y against its plain version, element by element:
+#: |a - b| <= rtol |b| + WKV_ATOL_SHARE max|b|.  Kernel and plain version sum
+#: y's products in another order, and float32 differences of that sum reach
+#: 1e-5 where y is near zero, so the absolute part is scaled to the largest
+#: |y|.  rtol: float32 2e-5; bfloat16 one bfloat16 step (2^-7), since both
+#: round the same float32 y once.  The float32 state: 1e-4 absolute and
+#: relative (the JAX package's WKV6 tests).
+WKV_RTOL = {"float32": 2e-5, "bfloat16": 2 ** -7}
+WKV_ATOL_SHARE = 1e-5
+WKV_STATE_TOL = 1e-4
+
+
+def wkv6_kernel_phase(torch, dev, randn) -> list:
+    """The WKV6 recurrence against its plain version: rwkv6-7b's 64 heads of
+    64 in bfloat16 for a served 512-token prompt from a zero state, a ragged
+    97-token one and a batch of 8 x 4096 from a nonzero state; and the
+    reduced head size 32 in float32.  Inputs drawn as the JAX package's
+    tests draw them.  The bound counts each input and output once (bytes)
+    and 5 K^2 float32 operations per (b, h, t); the T steps depend on each
+    other, so the serial length T, not either roofline, bounds this kernel."""
+    from repro_torch.kernels import wkv6
+    from repro_torch.kernels.rwkv6_wkv import wkv6_ref
+
+    cases = [
+        # name, B, T, H, K, dtype, nonzero initial state, repetitions
+        ("served_512", 1, 512, 64, 64, torch.bfloat16, False, 10),
+        ("ragged_97", 1, 97, 64, 64, torch.bfloat16, True, 10),
+        ("long_4096", 8, 4096, 64, 64, torch.bfloat16, True, 3),
+        ("small_f32", 2, 33, 8, 32, torch.float32, True, 10),
+    ]
+    rows = []
+    for name, b, t, h, kk, dtype, nonzero, reps in cases:
+        r, k, v = randn(b, t, h, kk), randn(b, t, h, kk) * 0.3, randn(b, t, h, kk)
+        w = torch.sigmoid(randn(b, t, h, kk)) * 0.5 + 0.45
+        u = randn(h, kk) * 0.1
+        r, k, v, w, u = (x.to(dtype) for x in (r, k, v, w, u))
+        s0 = (randn(b, h, kk, kk) * 0.5 if nonzero
+              else torch.zeros(b, h, kk, kk, device=dev))
+        y, s = wkv6(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        ry, rs = wkv6_ref(r, k, v, w, u, s0)
+        tname = str(dtype).removeprefix("torch.")
+        a, ref = y.float(), ry.float()
+        y_err = float((a - ref).abs().max())
+        y_use = float(((a - ref).abs() / (WKV_RTOL[tname] * ref.abs()
+                                          + WKV_ATOL_SHARE * ref.abs().max())).max())
+        s_err = float((s - rs).abs().max())
+        s_use = float(((s - rs).abs() / (WKV_STATE_TOL * (1 + rs.abs()))).max())
+        del y, s, ry, rs, a, ref
+        ms, plain_ms = kernel_and_plain_ms(
+            torch, lambda: wkv6(r, k, v, w, u, s0),
+            lambda: wkv6_ref(r, k, v, w, u, s0), reps)
+        nbytes = 5 * b * t * h * kk * r.element_size() + u.numel() * u.element_size() \
+            + 2 * b * h * kk * kk * 4
+        bound_ms, bound_by = bound(nbytes, 5.0 * b * t * h * kk * kk)
+        row = dict(shape=name, b=b, t=t, h=h, k=kk, dtype=tname,
+                   nonzero_state=nonzero, max_abs_err=y_err, y_limit_use=y_use,
+                   state_max_abs_err=s_err, state_limit_use=s_use, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=None, serial_steps=t)
+        rows.append(row)
+        print(f"wkv6 {name:10s} B={b} T={t} H={h} K={kk} {tname}: y max_err={y_err:.3g} "
+              f"({y_use:.3f} of the limit |a-b| <= {WKV_RTOL[tname]:.3g} |b| + "
+              f"{WKV_ATOL_SHARE} max|b|), state max_err={s_err:.3g} ({s_use:.3f} of "
+              f"{WKV_STATE_TOL} (1 + |b|)) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library: none bound_ms={bound_ms:.4f} ({bound_by}, "
+              f"{nbytes / 1e6:.1f} MB) serial length T={t} (T dependent steps "
+              f"bound this kernel, not either roofline)")
+        check(y_use <= 1.0 and s_use <= 1.0,
+              f"wkv6 {name}: y {y_use:.3g}, state {s_use:.3g} of their limits")
+        del r, k, v, w, u, s0
+    return rows
+
+
+def batch_width_diff(torch, np, engine, slots, dev, label, steps=4) -> None:
+    """Does a slot batch's width change a request's numbers?  One request
+    decoded ``steps`` greedy steps alone and as row 0 of a batch of
+    ``slots`` (the other rows zero): the largest difference of its logits
+    and of its cache leaves (for rwkv6 the recurrent state, which a decay
+    that rounds the other way moves while the logits still agree)."""
+    from repro_torch.models import registry
+    from repro_torch.models.param import tree_leaves
+
+    cfg = engine.cfg
+    p0 = np.random.default_rng(5).integers(0, cfg.vocab_size, (1, 200)).astype(np.int32)
+    logits, cache = engine.prefill(p0)
+    _, wide = engine.widen(logits, cache, slots)
+    d_logits = 0.0
+    for i in range(steps):
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        tok_w = torch.zeros(slots, dtype=torch.int32, device=dev)
+        tok_w[0] = tok[0]
+        logits = registry.decode_step(engine.params, cache, tok, p0.shape[1] + i, cfg)
+        row0 = registry.decode_step(engine.params, wide, tok_w, p0.shape[1] + i, cfg)[:1]
+        d_logits = max(d_logits, float((logits - row0).abs().max()))
+    d_cache = max(float((a.float() - b.narrow(ax, 0, 1).float()).abs().max())
+                  for a, b, ax in zip(tree_leaves(cache), tree_leaves(wide),
+                                      tree_leaves(engine.batch_axes)))
+    print(f"{label}: {steps} decode steps alone vs as row 0 of batch {slots}: "
+          f"largest logit difference {d_logits:.6g} (max |logit| "
+          f"{float(logits.abs().max()):.4g}), largest cache difference {d_cache:.6g}")
+
+
+def rwkv_small_phase(torch, np, dev) -> None:
+    """The reduced float32 rwkv6 engine on the card against the same engine
+    on the CPU, on the same weights: prefill logits, greedy tokens."""
+    from repro_torch.kernels import wkv6
+    from repro_torch.launch.serve import llm_config
+    from repro_torch.serving import ServingEngine
+
+    cfg = llm_config("rwkv6-7b", "small")
+    cpu = ServingEngine(cfg, max_len=64, seed=0, device="cpu")
+    card = ServingEngine(cfg, params=_to(torch, cpu.params, dev), max_len=64,
+                         device=dev)
+    prompts = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    launches = wkv6.launches
+    lc, lg = cpu.prefill(prompts)[0], card.prefill(prompts)[0].cpu()
+    err = float((lc - lg).abs().max() / lc.abs().max())
+    toks_cpu = cpu.generate(prompts, steps=16).tokens
+    toks_card = card.generate(prompts, steps=16).tokens
+    print(f"small rwkv6: {cfg.name} reduced float32, prefill logits card vs cpu "
+          f"max_err/max|l|={err:.3g} (tol {LLM_SMALL_RTOL}); greedy tokens equal: "
+          f"{bool(np.array_equal(toks_cpu, toks_card))}; wkv6 launches "
+          f"{wkv6.launches - launches}")
+    check(wkv6.launches - launches == 2 * cfg.num_layers,
+          "the small rwkv6 run on the card did not launch wkv6 once per layer "
+          "and prefill")
+    check(err <= LLM_SMALL_RTOL, "small rwkv6: prefill logits differ from the CPU")
+    check(np.array_equal(toks_cpu, toks_card), "small rwkv6: greedy tokens differ")
+
+
+def rwkv_serving_phase(torch, np, dev) -> int:
+    """rwkv6-7b at full width and depth in bfloat16 through the llm_disagg
+    Workflow Set: 8 requests, prompts of 64 to 3000 tokens, 32 new tokens,
+    half greedy and half at 0.7.  Returns the served run's wkv6 launches."""
+    from repro_torch.kernels import (
+        decode_attention_grouped,
+        decode_attention_int8_grouped,
+        flash_attention,
+        wkv6,
+    )
+    from repro_torch.launch.serve import check_served, llm_config, llm_requests, serve
+    from repro_torch.models import registry
+    from repro_torch.serving import APP_LLM_DISAGG, ServingEngine, build_llm_disagg_set
+    from repro_torch.serving.disagg import make_prefill_fn, ring_bytes_for
+
+    attention = (flash_attention, decode_attention_grouped, decode_attention_int8_grouped)
+    max_len, slots, segment, steps = 4096, 8, 8, 32
+    cfg = llm_config("rwkv6-7b", "port")
+    print(f"rwkv6: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+          f"before the engine")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, max_len=max_len, seed=0)
+    torch.cuda.synchronize()
+    print(f"rwkv6: {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model} "
+          f"{cfg.num_heads} WKV heads of {cfg.resolved_head_dim} d_ff {cfg.d_ff} "
+          f"vocab {cfg.vocab_padded} in {cfg.dtype}: "
+          f"{registry.count_params(cfg) / 1e9:.3f} B params on {engine.device} in "
+          f"{time.perf_counter() - t0:.1f}s (peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB while drawing them); decode inbox "
+          f"{ring_bytes_for(cfg, max_len) / 1e6:.1f} MB")
+
+    batch_width_diff(torch, np, engine, slots, dev, "rwkv6")
+    rng = np.random.default_rng(6)
+
+    # the message a request ships does not grow with its prompt
+    prefill_fn = make_prefill_fn(engine)
+    sizes = {n: prefill_fn({"prompt": rng.integers(0, cfg.vocab_size, (1, n)).astype(
+        np.int32), "steps": 1}).nbytes for n in (97, 3000)}
+    print(f"rwkv6: state pages per request: {sizes[97]} B at 97 tokens, "
+          f"{sizes[3000]} B at 3000")
+    check(sizes[97] == sizes[3000], "rwkv6: the shipped state depends on the prompt")
+
+    prompt_lens = [64, 512, 97, 256, 3000, 200, 1000, 384]
+    reqs = llm_requests(cfg, rng, prompt_lens, steps, [0.0, 0.7])
+    ws, decoder = build_llm_disagg_set(engine, name="rwkv6", max_slots=slots,
+                                       segment_len=segment)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in (wkv6,) + attention:
+        k.launches = 0
+    outs, lost, wall = serve(ws, reqs, app=APP_LLM_DISAGG, batched=True)
+    stats = ws.transport_stats()
+    wk, att = wkv6.launches, sum(k.launches for k in attention)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"serve rwkv6: {len(outs)}/{len(reqs)} answered, lost={lost}, "
+          f"dropped={stats.dropped}, {wall:.2f}s wall, "
+          f"{len(outs) * steps / wall:.1f} tokens/s, {stats.kv_pages} KVPages "
+          f"{stats.kv_bytes / 1e6:.1f} MB ({stats.kv_bytes // max(stats.kv_pages, 1)} B "
+          f"each), segments={decoder.stats['segments']} "
+          f"max_resident={decoder.stats['max_resident']}/{slots}; launches "
+          f"wkv6={wk} ({wk / len(reqs):.0f} per prefill), attention kernels={att}, "
+          f"max_memory_allocated={peak / 2**30:.2f} GiB")
+    check(lost == 0 and len(outs) == len(reqs), "rwkv6: requests lost")
+    check(stats.dropped == 0, f"rwkv6: {stats.dropped} messages dropped")
+    check(wk == cfg.num_layers * len(reqs), f"rwkv6: wkv6 launches {wk}")
+    check(att == 0, f"rwkv6: {att} attention-kernel launches")
+    check(stats.kv_bytes == len(reqs) * sizes[97], "rwkv6: shipped state size")
+
+    for i, (r, out) in enumerate(zip(reqs, outs)):
+        check(out.shape == (1, r["prompt"].shape[1] + steps),
+              f"rwkv6: request {i} tokens of shape {out.shape}")
+        for k in (wkv6,) + attention:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        check_served(engine, [r], [out])     # raises if they differ
+        dt = time.perf_counter() - t1
+        print(f"  request {i}: prompt {r['prompt'].shape[1]} temperature "
+              f"{r['temperature']}: solo generate {dt * 1e3:.1f} ms, launches "
+              f"wkv6={wkv6.launches} attention={sum(k.launches for k in attention)}; "
+              f"served tokens equal solo generate")
+        check(wkv6.launches == cfg.num_layers and not any(k.launches for k in attention),
+              f"rwkv6: request {i} solo generate launches")
+    print("serve rwkv6: every request's tokens equal solo generate")
+    del ws, decoder, engine
+    return wk
 
 
 def _tap(fn, workflow, store, request_seeds):

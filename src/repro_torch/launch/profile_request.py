@@ -2,12 +2,14 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_request --profile port
     PYTHONPATH=src python -m repro_torch.launch.profile_request --workflow llm
+    PYTHONPATH=src python -m repro_torch.launch.profile_request --workflow llm --llm-arch rwkv6-7b
 
 ``--workflow wan`` (the default): one monolithic ``generate`` of the Wan I2V
 pipeline at a profile's widths, after the per-stage wall times.
 ``--workflow llm``: one request (a 256-token prompt, 32 new tokens) served
-through the ``llm_disagg`` Workflow Set with qwen3-1.7b at full width and
-depth in bfloat16, after one warm-up request.
+through the ``llm_disagg`` Workflow Set with ``--llm-arch`` (qwen3-1.7b by
+default, or rwkv6-7b) at full width and depth in bfloat16, after one
+warm-up request.
 
 Prints the request's wall time, the device time by kernel (top rows of
 ``key_averages``), the kernels' summed device time against the wall time
@@ -24,16 +26,18 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.configs import ARCH_IDS
 from repro_torch.configs.wan_i2v import PROFILES
 from repro_torch.kernels import (
     ddim_step,
     decode_attention_grouped,
     decode_attention_int8_grouped,
     flash_attention,
+    wkv6,
 )
 
 KERNELS = (flash_attention, ddim_step, decode_attention_grouped,
-           decode_attention_int8_grouped)
+           decode_attention_int8_grouped, wkv6)
 
 
 def wan_request(profile_name: str):
@@ -51,13 +55,13 @@ def wan_request(profile_name: str):
     return run
 
 
-def llm_request(cache_dtype: str):
-    """-> a function that serves one qwen3-1.7b request through a fresh
+def llm_request(arch: str, cache_dtype: str):
+    """-> a function that serves one request of ``arch`` through a fresh
     llm_disagg Workflow Set, warmed up."""
     from repro_torch.launch.serve import llm_config, llm_requests
     from repro_torch.serving import APP_LLM_DISAGG, ServingEngine, build_llm_disagg_set
 
-    engine = ServingEngine(llm_config("qwen3-1.7b", "port", cache_dtype),
+    engine = ServingEngine(llm_config(arch, "port", cache_dtype),
                            max_len=1024, seed=0)
     rng = np.random.default_rng(0)
 
@@ -76,8 +80,11 @@ def main() -> int:
     ap.add_argument("--workflow", default="wan", choices=["wan", "llm"])
     ap.add_argument("--profile", default="port", choices=sorted(PROFILES),
                     help="--workflow wan: the pipeline profile")
+    ap.add_argument("--llm-arch", default="qwen3-1.7b", choices=ARCH_IDS,
+                    help="--workflow llm: model config")
     ap.add_argument("--cache-dtype", default="", choices=["", "int8"],
-                    help="--workflow llm: KV cache type ('' = bfloat16)")
+                    help="--workflow llm: KV cache type ('' = bfloat16; "
+                         "refused for the attention-free rwkv6)")
     ap.add_argument("--rows", type=int, default=12)
     args = ap.parse_args()
 
@@ -85,7 +92,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"device: {torch.cuda.get_device_name(0)}")
     run = (wan_request(args.profile) if args.workflow == "wan"
-           else llm_request(args.cache_dtype))
+           else llm_request(args.llm_arch, args.cache_dtype))
     torch.cuda.synchronize()
     for k in KERNELS:
         k.launches = 0

@@ -4,6 +4,7 @@ and push requests through it.
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 2
     PYTHONPATH=src python -m repro_torch.launch.serve --workflow dag
     PYTHONPATH=src python -m repro_torch.launch.serve --workflow llm
+    PYTHONPATH=src python -m repro_torch.launch.serve --workflow llm --llm-arch rwkv6-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --profile small --device cpu
 
 Workflows (docs/workflows.md, docs/disaggregation.md):
@@ -12,9 +13,9 @@ Workflows (docs/workflows.md, docs/disaggregation.md):
   * dag   — the paper's real Wan2.1 topology: text encoder ∥ image/VAE
             encoder as independent branches joining into the DiT;
   * llm   — disaggregated prefill/decode LLM serving: prefill ships each
-            request's KV cache as KVPages over the fabric into a
-            continuous-batching decode stage; every token stream is checked
-            against the engine's own ``generate``.
+            request's KV cache (rwkv6: its recurrent state) as KVPages over
+            the fabric into a continuous-batching decode stage; every token
+            stream is checked against the engine's own ``generate``.
 
 Profiles: ``port`` (the default) is the size served on one H100 — for the
 Wan workflows FULL's widths at cut depth, for ``llm`` the model at full
@@ -168,8 +169,14 @@ def serve(ws: WorkflowSet, reqs: List[Dict[str, Any]], *, app: int = APP_I2V,
 
 def llm_config(arch: str, profile: str, cache_dtype: str = ""):
     """The ``llm`` workflow's model: full width and depth in bfloat16 at
-    ``port``, the reduced float32 config at ``small``."""
+    ``port``, the reduced float32 config at ``small``.  An attention-free
+    model (rwkv6) has no KV cache, so a cache type is refused for it."""
     cfg = get_config(arch)
+    if cache_dtype and cfg.attention_free:
+        raise ValueError(
+            f"--cache-dtype {cache_dtype}: {arch} is attention-free; its decode "
+            f"state (token shifts and the WKV state) has no KV cache to store "
+            f"in {cache_dtype}")
     if profile == "small":
         cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
     return dataclasses.replace(cfg, cache_dtype=cache_dtype)
@@ -211,7 +218,9 @@ def run_llm(args) -> int:
     outs, lost, wall = serve(ws, reqs, app=APP_LLM_DISAGG, batched=True)
     stats = ws.transport_stats()
     n_tok = sum(r["steps"] for r in reqs[:len(outs)])
-    print(f"{cfg.name} ({cfg.dtype}, cache {cfg.resolved_cache_dtype}) on "
+    state = ("recurrent state" if cfg.attention_free
+             else f"cache {cfg.resolved_cache_dtype}")
+    print(f"{cfg.name} ({cfg.dtype}, {state}) on "
           f"{engine.device}: {len(outs)}/{len(reqs)} requests x "
           f"{args.llm_steps} tokens in {wall:.2f}s ({n_tok / wall:.1f} tokens/s), "
           f"lost={lost}, dropped={stats.dropped}")
@@ -253,10 +262,15 @@ def main() -> int:
                     help="--workflow llm: decode cache length (default 1024 "
                          "at port, 64 at small)")
     ap.add_argument("--cache-dtype", default="", choices=["", "int8"],
-                    help="--workflow llm: KV cache type ('' = the model's)")
+                    help="--workflow llm: KV cache type ('' = the model's; "
+                         "refused for the attention-free rwkv6)")
     args = ap.parse_args()
 
     if args.workflow == "llm":
+        try:
+            llm_config(args.llm_arch, args.profile, args.cache_dtype)
+        except ValueError as e:
+            ap.error(str(e))
         return run_llm(args)
 
     pipe = WanI2VPipeline(cfg=PROFILES[args.profile], seed=args.seed,

@@ -26,11 +26,30 @@ _WINDOW_TODO = ("windowed attention is not ported: gemma3's local/global "
                 "Queue 1, item 1)")
 
 
+#: PyTorch's CUDA reduction sets how many lanes share one row's sum by the
+#: number of rows, up to 16 (``setReduceConfig`` in ATen's Reduce.cuh), and
+#: so a row's summation order: a decode step of one request at batch 1 would
+#: norm its activations in another order than the same request in a slot
+#: batch of 8, and its tokens could drift apart.  Means over the last axis
+#: are therefore taken over at least this many rows (zero rows padded).
+MIN_REDUCE_ROWS = 16
+
+
+def row_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the last axis, keepdim, with a summation order that does
+    not depend on how many rows ``x`` has (``MIN_REDUCE_ROWS``)."""
+    rows = x.reshape(-1, x.shape[-1])
+    n = rows.shape[0]
+    if n < MIN_REDUCE_ROWS:
+        rows = F.pad(rows, (0, 0, 0, MIN_REDUCE_ROWS - n))
+    return rows.mean(dim=-1)[:n].reshape(*x.shape[:-1], 1)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Scales by ``1 + w``, in float32."""
     dt = x.dtype
     x = x.float()
-    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    x = x * torch.rsqrt(row_mean(x * x) + eps)
     return (x * (1.0 + w.float())).to(dt)
 
 

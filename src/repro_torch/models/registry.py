@@ -1,4 +1,5 @@
-"""Uniform model API over the families the port carries (dense, for now).
+"""Uniform model API over the families the port carries: dense (the
+transformer) and ssm (rwkv6).
 
   abstract_params(cfg)                      -> ParamSpec tree (JAX layout)
   init_params(cfg, generator, device)       -> the port's tree of tensors
@@ -17,18 +18,19 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import to_port_layout
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer
 from repro_torch.models.param import count, init_tree
 
 Tree = Dict[str, Any]
 
-_FAMILY = {"dense": transformer}
+_FAMILY = {"dense": transformer, "ssm": rwkv6}
 
 
 def module_for(cfg: ModelConfig):
     if cfg.family not in _FAMILY:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported (ROADMAP Queue 1)")
+            f"{cfg.name}: family {cfg.family!r} is not ported (ROADMAP Queue 1, "
+            f"remaining families)")
     return _FAMILY[cfg.family]
 
 

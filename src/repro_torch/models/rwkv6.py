@@ -1,0 +1,245 @@
+"""RWKV6 "Finch" (arXiv:2404.05892): attention-free, data-dependent decay;
+prefill and decode steps for serving.
+
+Per layer: a TimeMix block (token-shift ddlerp and the WKV6 linear-attention
+recurrence with per-channel data-dependent decay w_t and bonus u) and a
+ChannelMix block (token shift and a squared-ReLU FFN).  The WKV recurrence
+carries a state S [H, K, V] per sequence:
+
+    y_t = S^T r_t + (u . k_t . r_t) v_t
+    S  <- diag(w_t) S + k_t v_t^T
+
+Weights keep the JAX tree's names, shapes, logical axes and init rules
+(``abstract_params``); the stacked ``[L, ...]`` leaves reach this module as
+a list of per-layer views (``repro_torch.convert.to_port_layout``).  The
+JAX package's deviations from the reference implementation are kept:
+RMSNorm instead of LayerNorm, and one shared rank-32 LoRA producing all five
+ddlerp deltas.
+
+The decode state is the JAX tree too: ``{"rwkv": (xp_att, xp_ffn, S)}`` with
+the token-shift leaves [L, B, D] in the model's type and S [L, B, H, K, K]
+in float32, batch axis 1 on every leaf, the same size at any prompt length.
+Unlike the JAX functions, which return a new cache, ``decode_step`` writes
+the cache it is given in place; ``prefill`` returns a fresh one
+(``max_len`` has no meaning for a state that does not grow).  ``cur_index``
+is accepted and ignored: the state holds the position.
+
+The prefill's recurrence runs through the hand-written WKV6 kernel for any
+prompt length (``kernels.wkv6``: the CUDA kernel for a CUDA tensor, its
+plain version on the CPU).  A decode step stays plain PyTorch (``wkv6_step``),
+as the JAX package keeps it out of the kernel.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import wkv6
+from repro_torch.models import layers as L
+from repro_torch.models.param import ParamSpec, zeros
+
+Tree = Dict[str, Any]
+LORA_MIX = 32
+LORA_DECAY = 64
+GROUP_NORM_EPS = 64e-5
+#: A decode step's two skinny projections (to the 5 x 32 LoRA inputs and to
+#: the 64 decay inputs) have too few outputs to fill the card, so cuBLAS
+#: splits their 4096-long sums, and it picks the split by the number of
+#: rows: a slot batch of 8 and a request alone sum in another order, and a
+#: decay that rounds the other way in bfloat16 moves the recurrent state.
+#: They run on blocks of exactly this many rows (zero-padded), so that a
+#: request decodes the same bits in any slot batch.
+DECODE_ROWS = 16
+
+
+def abstract_params(cfg: ModelConfig) -> Tree:
+    dt = cfg.dtype
+    d, f, nl = cfg.d_model, cfg.d_ff, cfg.num_layers
+    h, k = cfg.num_heads, cfg.resolved_head_dim
+
+    layer = {
+        "ln_att": ParamSpec((nl, d), ("layers", "embed"), dt, "zeros"),
+        "ln_ffn": ParamSpec((nl, d), ("layers", "embed"), dt, "zeros"),
+        # ddlerp token-shift mixing
+        "mu_x": ParamSpec((nl, d), ("layers", "embed"), dt, "zeros"),
+        "mu_rkvwg": ParamSpec((nl, 5, d), ("layers", None, "embed"), dt, "zeros"),
+        "lora_a": ParamSpec((nl, d, 5 * LORA_MIX), ("layers", "embed", None), dt),
+        "lora_b": ParamSpec((nl, 5, LORA_MIX, d), ("layers", None, None, "embed"), dt, "small"),
+        # data-dependent decay
+        "w0": ParamSpec((nl, d), ("layers", "embed"), dt, "zeros"),
+        "wa": ParamSpec((nl, d, LORA_DECAY), ("layers", "embed", None), dt),
+        "wb": ParamSpec((nl, LORA_DECAY, d), ("layers", None, "embed"), dt, "small"),
+        "bonus_u": ParamSpec((nl, h, k), ("layers", "ssm_heads", None), dt, "zeros"),
+        # projections
+        "w_r": ParamSpec((nl, d, d), ("layers", "embed", "ssm_inner"), dt),
+        "w_k": ParamSpec((nl, d, d), ("layers", "embed", "ssm_inner"), dt),
+        "w_v": ParamSpec((nl, d, d), ("layers", "embed", "ssm_inner"), dt),
+        "w_g": ParamSpec((nl, d, d), ("layers", "embed", "ssm_inner"), dt),
+        "w_o": ParamSpec((nl, d, d), ("layers", "ssm_inner", "embed"), dt),
+        "gn_w": ParamSpec((nl, d), ("layers", "embed"), dt, "zeros"),
+        # channel mix
+        "mu_k2": ParamSpec((nl, d), ("layers", "embed"), dt, "zeros"),
+        "mu_r2": ParamSpec((nl, d), ("layers", "embed"), dt, "zeros"),
+        "w_k2": ParamSpec((nl, d, f), ("layers", "embed", "mlp"), dt),
+        "w_v2": ParamSpec((nl, f, d), ("layers", "mlp", "embed"), dt),
+        "w_r2": ParamSpec((nl, d, d), ("layers", "embed", "ssm_inner"), dt),
+    }
+    return {
+        "embedding": ParamSpec((cfg.vocab_padded, d), ("vocab", "embed"), dt, "small"),
+        "final_norm": ParamSpec((d,), ("embed",), dt, "zeros"),
+        "unembed": ParamSpec((d, cfg.vocab_padded), ("embed", "vocab"), dt, "small"),
+        "layers": layer,
+    }
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int) -> Tree:
+    """The decode state's ParamSpec tree: the same size at any ``seq_len``."""
+    d, h, k, nl = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim, cfg.num_layers
+    return {
+        "rwkv": (
+            ParamSpec((nl, batch, d), ("layers", "batch", "act_embed"), cfg.dtype, "zeros"),
+            ParamSpec((nl, batch, d), ("layers", "batch", "act_embed"), cfg.dtype, "zeros"),
+            ParamSpec((nl, batch, h, k, k), ("layers", "batch", "ssm_heads", None, None),
+                      "float32", "zeros"),
+        )
+    }
+
+
+# ------------------------------------------------------------------ wkv core
+def wkv6_step(r, k, v, w, u, state):
+    """One decode step, plain PyTorch in float32.  r/k/v/w: [B,H,K]; u:
+    [H,K]; state: [B,H,K,V] float32.  Returns (y [B,H,V] float32, state).
+
+    Both sums run over one axis of elementwise products, over B*H >= 64
+    rows at rwkv6-7b's widths (``layers.MIN_REDUCE_ROWS``), so each row's
+    arithmetic does not depend on the batch it decodes in."""
+    rf, kf, vf, wf, uf = (x.float() for x in (r, k, v, w, u))
+    y = (rf[..., None] * state).sum(dim=-2)
+    y = y + (uf[None] * kf * rf).sum(dim=-1, keepdim=True) * vf
+    state = wf[..., None] * state + kf[..., None] * vf[:, :, None, :]
+    return y, state
+
+
+def _group_norm(x: torch.Tensor, w: torch.Tensor, h: int,
+                eps: float = GROUP_NORM_EPS) -> torch.Tensor:
+    """Per-head LayerNorm over the value dim (RWKV GroupNorm(H)), scaled by
+    ``1 + w``, in float32."""
+    b, t, d = x.shape
+    xh = x.reshape(b, t, h, d // h).float()
+    mu = L.row_mean(xh)
+    var = L.row_mean((xh - mu) ** 2)
+    xh = (xh - mu) * torch.rsqrt(var + eps)
+    return (xh.reshape(b, t, d) * (1.0 + w.float())).to(x.dtype)
+
+
+# -------------------------------------------------------------------- blocks
+def _shifted(xn: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
+    """The token shift: each position's predecessor, ``x_prev`` before the
+    first."""
+    return torch.cat([x_prev[:, None], xn[:, :-1]], dim=1)
+
+
+def _row_blocks_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` over blocks of exactly ``DECODE_ROWS`` rows of x [..., D],
+    zero-padded."""
+    rows = x.reshape(-1, x.shape[-1])
+    n = rows.shape[0]
+    rows = F.pad(rows, (0, 0, 0, -n % DECODE_ROWS))
+    blocks = [blk @ w for blk in rows.split(DECODE_ROWS)]
+    out = blocks[0] if len(blocks) == 1 else torch.cat(blocks)
+    return out[:n].reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _ddlerp(x, xx, lp, matmul=torch.matmul):
+    """Data-dependent lerp producing the (r, k, v, w, g) inputs
+    [B,T,5,D].  x/xx: [B,T,D]."""
+    delta = xx - x
+    base = x + delta * lp["mu_x"]
+    lora = torch.tanh(matmul(base, lp["lora_a"]))   # [B,T,5*R]
+    b, t, _ = lora.shape
+    lora = lora.reshape(b, t, 5, LORA_MIX)
+    dd = torch.einsum("btcr,crd->btcd", lora, lp["lora_b"])
+    mix = lp["mu_rkvwg"][None, None] + dd
+    return x[:, :, None] + delta[:, :, None] * mix
+
+
+def _time_mix(x, lp, cfg: ModelConfig, x_prev, wkv_state, seq_mode: bool):
+    """Returns (out, new x_prev, new wkv state).  The token shift reads the
+    normed input, and the new x_prev is its last position."""
+    b, t, d = x.shape
+    h, kdim = cfg.num_heads, cfg.resolved_head_dim
+    xn = L.rms_norm(x, lp["ln_att"], cfg.norm_eps)
+    xx = _shifted(xn, x_prev) if seq_mode else x_prev[:, None]
+    skinny = torch.matmul if seq_mode else _row_blocks_matmul
+    mixed = _ddlerp(xn, xx, lp, skinny)
+    xr, xk, xv, xw, xg = (mixed[:, :, i] for i in range(5))
+    r = (xr @ lp["w_r"]).reshape(b, t, h, kdim)
+    kk = (xk @ lp["w_k"]).reshape(b, t, h, kdim)
+    vv = (xv @ lp["w_v"]).reshape(b, t, h, kdim)
+    g = F.silu(xg @ lp["w_g"])
+    # the decay in float32, then cast to the model's type before the
+    # recurrence, as the JAX package does
+    w = torch.exp(-torch.exp(
+        (lp["w0"] + torch.tanh(skinny(xw, lp["wa"])) @ lp["wb"]).float()
+    )).to(x.dtype).reshape(b, t, h, kdim)
+    if seq_mode:
+        y, new_state = wkv6(r, kk, vv, w, lp["bonus_u"], wkv_state)
+    else:
+        y, new_state = wkv6_step(r[:, 0], kk[:, 0], vv[:, 0], w[:, 0],
+                                 lp["bonus_u"], wkv_state)
+        y = y[:, None]
+    y = _group_norm(y.reshape(b, t, d).to(x.dtype), lp["gn_w"], h)
+    out = ((y * g) @ lp["w_o"]).to(x.dtype)
+    return out, xn[:, -1], new_state
+
+
+def _channel_mix(x, lp, cfg: ModelConfig, x_prev, seq_mode: bool):
+    xn = L.rms_norm(x, lp["ln_ffn"], cfg.norm_eps)
+    xx = _shifted(xn, x_prev) if seq_mode else x_prev[:, None]
+    delta = xx - xn
+    xk = xn + delta * lp["mu_k2"]
+    xr = xn + delta * lp["mu_r2"]
+    kk = torch.square(torch.relu(xk @ lp["w_k2"]))
+    out = torch.sigmoid(xr @ lp["w_r2"]) * (kk @ lp["w_v2"])
+    return out, xn[:, -1]
+
+
+def _stack(params: Tree, x: torch.Tensor, cfg: ModelConfig, cache: Tree,
+           seq_mode: bool) -> torch.Tensor:
+    """Every layer over x, writing each layer's new state into its views of
+    ``cache`` in place; returns the final-normed activations."""
+    xp_att, xp_ffn, st = cache["rwkv"]
+    for i, lp in enumerate(params["layers"]):
+        att, nxa, nst = _time_mix(x, lp, cfg, xp_att[i], st[i], seq_mode)
+        x = x + att
+        ffn, nxf = _channel_mix(x, lp, cfg, xp_ffn[i], seq_mode)
+        x = x + ffn
+        xp_att[i].copy_(nxa)
+        xp_ffn[i].copy_(nxf)
+        st[i].copy_(nst)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+# ----------------------------------------------------------------- public API
+def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
+            max_len: Optional[int] = None) -> Tuple[torch.Tensor, Tree]:
+    """tokens [B,S] -> (last-token logits [B,V] float32, decode state).
+    ``max_len`` is checked against the prompt and otherwise ignored."""
+    b, s = tokens.shape
+    if max_len is not None and s > max_len:
+        raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
+    cache = zeros(abstract_cache(cfg, b, s), tokens.device)
+    x = _stack(params, params["embedding"][tokens], cfg, cache, True)
+    return (x[:, -1] @ params["unembed"]).float(), cache
+
+
+def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor, cur_index,
+                cfg: ModelConfig) -> torch.Tensor:
+    """tokens [B] -> logits [B,V] float32; the state in ``cache`` advances
+    in place.  ``cur_index`` is ignored."""
+    del cur_index
+    x = _stack(params, params["embedding"][tokens[:, None]], cfg, cache, False)
+    return (x[:, 0] @ params["unembed"]).float()

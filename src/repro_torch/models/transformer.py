@@ -49,8 +49,9 @@ def check_supported(cfg: ModelConfig) -> None:
             f"remaining families)")
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported (ROADMAP Queue 1, "
-            f"remaining families)")
+            f"{cfg.name}: family {cfg.family!r} is not the dense transformer's "
+            f"(models/registry.py routes each ported family; ROADMAP Queue 1 "
+            f"lists the rest)")
 
 
 # ---------------------------------------------------------------- param spec

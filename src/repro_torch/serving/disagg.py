@@ -24,8 +24,11 @@ layer's generic encoder refuses them.
 A whole padded cache is one message: at qwen3-1.7b's widths and ``max_len``
 1024 it is 28 x 2 x 8 x 1024 x 128 x 2 B = 117.4 MB, over 7x the 16 MiB
 inbox ring the JAX package defaults to, and a message that does not fit a
-ring is dropped (§9).  ``build_llm_disagg_set`` therefore sizes each inbox
-from the shapes (``ring_bytes_for``).
+ring is dropped (§9).  rwkv6-7b's message is its recurrent state, the same
+34.08 MB at any prompt length (two bfloat16 token-shift leaves of 0.26 MB
+and the float32 WKV state, 32 x 64 x 64 x 64 x 4 B = 33.55 MB).
+``build_llm_disagg_set`` therefore sizes each inbox from the shapes
+(``ring_bytes_for``).
 
 Because of the engine's RNG contract, a request decoded in whatever slot mix
 is resident samples as it would alone, and its tokens equal a solo

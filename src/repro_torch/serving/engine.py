@@ -5,7 +5,8 @@ language models the port carries (the per-stage compute of an LM stage).
 back to back on the device; the sampled tokens stay on the card until one
 host sync fetches the finished block.  The prefill writes its cache
 straight into the ``max_len`` decode layout, zeros past the prompt, which is
-what the JAX engine's zero pad of the prefill cache gives.
+what the JAX engine's zero pad of the prefill cache gives (rwkv6's recurrent
+state has no positions and is the same size at any ``max_len``).
 
 RNG contract
 ------------

@@ -19,6 +19,8 @@ from repro_torch.kernels import _build, ddim_step, flash_attention
 from repro_torch.kernels import decode_attention as K
 from repro_torch.kernels.ddim_step import ddim_coefs, ddim_step_ref
 from repro_torch.kernels.flash_attention import attention_ref
+from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_ref
+from repro_torch.models.layers import rms_norm, row_mean
 from repro_torch.models.aigc.dit import schedule
 
 FLASH_CASES = [
@@ -55,7 +57,7 @@ DECODE_CASES = [
 def test_every_binding_has_a_c_entry_point():
     sources = {p.name for p in _build.sources()}
     assert sources == {"flash_attention.cu", "ddim_step.cu", "decode_attention.cu",
-                       "runtime.cu"}
+                       "wkv6.cu", "runtime.cu"}
     text = "".join(p.read_text() for p in _build.sources())
     entries = set(re.findall(r'extern "C" [\w\s*]+?\b(repro_\w+)\(', text))
     assert entries == set(_build.SIGNATURES)
@@ -159,3 +161,88 @@ def test_decode_int8_kernel_matches_plain_on_card(cuda, dtype, seq_axis, b, s, h
     assert K.decode_attention_int8_grouped.launches == launches + 1
     ref = K.decode_int8_ref(q, kq, vq, ks, vs, _cur(cur, cuda), seq_axis=seq_axis)
     torch.testing.assert_close(out.float(), ref.float(), **INT8_TOLS[dtype])
+
+
+#: WKV6 y against its plain version, element by element:
+#: |a - b| <= rtol |b| + WKV_ATOL_SHARE max|b|.  Kernel and plain version sum
+#: y's 64 products r_k S_kv (terms up to ~10 here) in another order, and
+#: float32 differences of that sum reach 1e-5 where y is near zero, so the
+#: absolute part is scaled to the tensor's largest |y| (1e-5 of it) rather
+#: than fixed.  rtol: float32 2e-5; bfloat16 one bfloat16 step, 2^-7 of the
+#: value, since both round the same float32 y once.  The float32 state: 1e-4
+#: absolute and relative, as the JAX package's WKV6 tests hold it.
+WKV_RTOL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -7}
+WKV_ATOL_SHARE = 1e-5
+WKV_STATE_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def wkv_inputs(gen, b, t, h, kk, dtype, nonzero_state, device):
+    """Drawn as tests/test_kernels.py draws them: w = sigmoid(.) 0.5 + 0.45,
+    k x 0.3, u x 0.1."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    r, k, v = randn(b, t, h, kk), randn(b, t, h, kk) * 0.3, randn(b, t, h, kk)
+    w = torch.sigmoid(randn(b, t, h, kk)) * 0.5 + 0.45
+    u = randn(h, kk) * 0.1
+    s0 = randn(b, h, kk, kk) * 0.5 if nonzero_state else torch.zeros(
+        b, h, kk, kk, device=device)
+    return [x.to(dtype) for x in (r, k, v, w, u)] + [s0]
+
+
+def assert_wkv_close(y, s, ref_y, ref_s, dtype):
+    a, b = y.float(), ref_y.float()
+    limit = WKV_RTOL[dtype] * b.abs() + WKV_ATOL_SHARE * b.abs().max()
+    worst = float(((a - b).abs() / limit).max())
+    assert worst <= 1.0, f"y differs: {worst:.3g} of the limit"
+    torch.testing.assert_close(s, ref_s, **WKV_STATE_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nonzero_state", [False, True])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("t", [1, 3, 64, 97, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kk,h", [(32, 8), (64, 4)])
+def test_wkv6_kernel_matches_plain_on_card(cuda, kk, h, dtype, t, b, nonzero_state):
+    gen = torch.Generator(device=cuda).manual_seed(t * 7 + b)
+    xs = wkv_inputs(gen, b, t, h, kk, dtype, nonzero_state, cuda)
+    launches = wkv6.launches
+    y, s = wkv6(*xs)
+    torch.cuda.synchronize()
+    assert wkv6.launches == launches + 1
+    assert y.dtype == dtype and s.dtype == torch.float32
+    assert_wkv_close(y, s, *wkv6_ref(*xs), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [2048, 4096])
+def test_norms_of_a_row_do_not_depend_on_the_batch_on_card(cuda, d):
+    """A decode step norms each slot's row with the arithmetic it gets
+    alone: the first b rows of a batch of 16 equal a batch of b, bit for
+    bit, for every b, at qwen3-1.7b's and rwkv6-7b's widths.  The float32
+    mean is where a plain ``mean(-1)`` differs (in about one draw of eight
+    between 1 and 8 rows on an H100)."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    for _ in range(8):
+        x = torch.randn(16, 1, d, generator=gen, device=cuda) * 3
+        w = torch.randn(d, generator=gen, device=cuda) * 0.1
+        means, normed = row_mean(x * x), rms_norm(x.bfloat16(), w.bfloat16())
+        for b in range(1, 16):
+            assert torch.equal(row_mean(x[:b] * x[:b]), means[:b]), b
+            assert torch.equal(rms_norm(x[:b].bfloat16(), w.bfloat16()), normed[:b]), b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [64, 160])
+def test_skinny_decode_projection_rows_do_not_depend_on_the_batch_on_card(cuda, n):
+    """rwkv6's decay and LoRA projections in a decode step: row 0 of a slot
+    batch equals the row alone, bit for bit, at rwkv6-7b's widths."""
+    from repro_torch.models.rwkv6 import _row_blocks_matmul
+
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    w = (torch.randn(4096, n, generator=gen, device=cuda) / 64).bfloat16()
+    for _ in range(8):
+        x = torch.randn(20, 1, 5, 4096, generator=gen, device=cuda).bfloat16()[:, :, 3]
+        full = _row_blocks_matmul(x, w)
+        for b in (1, 2, 8, 16):
+            assert torch.equal(_row_blocks_matmul(x[:b], w), full[:b]), b
