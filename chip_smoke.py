@@ -14,7 +14,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    case and a ragged case; flash-decode over a bfloat16 and an int8 cache in
    both layouts at B 8, KV 8, G 2, D 128, S 32768 with a mixed per-row index
    and a full-cache scalar index, and at the served S 1024 with a mixed
-   index; the bfloat16 flash prefill at qwen3-1.7b's heads; the WKV6
+   index; the bfloat16 flash prefill (on the tensor cores: its HGMMA count
+   from the SASS, its registers and spills from ptxas) at qwen3-1.7b's heads
+   for 512, 2500 and 4096 tokens, a causal GQA batch and a ragged non-causal
+   case, each timed beside SDPA; the WKV6
    recurrence at rwkv6-7b's heads (a served 512-token prompt, a ragged 97, a
    long batch of 8 x 4096, and a float32 case at the reduced head size).
    For each: the largest absolute error against the stated
@@ -252,6 +255,7 @@ def main() -> int:
     del x, eps, out, scratch
 
     decode_rows = decode_kernel_phase(torch, F, dev, randn)
+    hgmma = flash_bf16_build_report(lib_path)
     flash_bf16_rows = flash_bf16_phase(torch, F, dev, randn)
     wkv_rows = wkv6_kernel_phase(torch, dev, randn)
 
@@ -397,13 +401,13 @@ def main() -> int:
     fb = next(r for r in flash_bf16_rows if r["shape"] == "qwen3_prefill_512")
     kernels.append(dict(
         name="flash_attention_bf16", route="cuda",
-        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_bf16.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:36",
         launches=llm["flash_attention"],
         max_abs_err=max(r["max_abs_err"] for r in flash_bf16_rows),
         ms=fb["ms"], plain_ms=fb["plain_ms"], bound_ms=fb["bound_ms"],
         bound_by=fb["bound_by"], library_ms=fb["library_ms"],
-        at="qwen3_prefill_512", shapes=flash_bf16_rows))
+        at="qwen3_prefill_512", hgmma=hgmma, shapes=flash_bf16_rows))
     for name, cache_kind, counter, replaces in (
             ("decode_attention", "fp", "decode_attention_grouped",
              "src/repro/kernels/decode_attention/kernel.py:64"),
@@ -524,41 +528,108 @@ def decode_kernel_phase(torch, F, dev, randn) -> list:
     return rows
 
 
+#: The bfloat16 flash prefill's cases: name, (B, Sq, Sk, H, KV, D), causal,
+#: repetitions.  qwen3-1.7b's heads (16 query heads over 8 kv heads of 128)
+#: at a served 512-token prompt, one of 2500 and one of 4096; a causal GQA
+#: batch of 2 with a ragged tail; a non-causal Sq != Sk case with ragged
+#: tails at D 64.
+FLASH_BF16_CASES = [
+    ("qwen3_prefill_512", (1, 512, 512, 16, 8, 128), True, 10),
+    ("qwen3_prefill_2500", (1, 2500, 2500, 16, 8, 128), True, 10),
+    ("causal_gqa_333", (2, 333, 333, 16, 8, 128), True, 10),
+    ("ragged_1000_777", (1, 1000, 777, 8, 8, 64), False, 10),
+    ("long_4096", (1, 4096, 4096, 16, 8, 128), True, 5),
+]
+
+
+def flash_bf16_build_report(lib_path) -> int:
+    """The bfloat16 flash kernel's build: each instantiation's registers and
+    spills from ptxas, any wgmma serialisation ptxas reports, and the count
+    of warpgroup MMA instructions (HGMMA) in its SASS.  Fails if the count
+    is 0: the kernel would not be on the tensor cores."""
+    import re
+
+    from repro_torch.kernels import _build
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    entry, report = None, {}
+    for line in (_build.BUILD_DIR / "ptxas.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1) if "flash_fwd_bf16" in m.group(1) else None
+            continue
+        if entry is None:
+            continue
+        r = report.setdefault(entry, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            r["spill"] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            r["registers"] = int(m.group(1))
+        if "wgmma" in line:
+            note = line.split("info    :")[-1].split(" in the function")[0].strip()
+            r.setdefault("wgmma_notes", []).append(note)
+    sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
+                           str(lib_path)], capture_output=True, text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump: {sass.stderr.strip()[:500]}")
+    total = 0
+    for func in sass.stdout.split("Function : ")[1:]:
+        name = func.splitlines()[0].strip()
+        if "flash_fwd_bf16" not in name:
+            continue
+        n = func.count("HGMMA")
+        total += n
+        dim = re.search(r"flash_fwd_bf16ILi(\d+)E", name).group(1)
+        r = report.get(name, {})
+        print(f"flash bf16 build: D={dim}: "
+              f"HGMMA {n}, registers {r.get('registers')}, spill stores/loads "
+              f"{r.get('spill')} bytes; ptxas on wgmma: {r.get('wgmma_notes', 'nothing')}")
+    print(f"flash bf16 build: {total} HGMMA instructions in flash_fwd_bf16's SASS")
+    check(total > 0, "flash bf16: no HGMMA in the kernel's SASS")
+    return total
+
+
 def flash_bf16_phase(torch, F, dev, randn) -> list:
-    """The bfloat16 flash prefill at qwen3-1.7b's heads (16 query heads over 8
-    kv heads of 128), causal, for a 512-token prompt and one over 2048."""
+    """The bfloat16 flash prefill (``flash_attention_bf16.cu``, on the tensor
+    cores) against its plain version, each element within one bfloat16 step;
+    its time beside SDPA's (``scaled_dot_product_attention`` on the same
+    problem) and its bound by the bfloat16 tensor-core rate."""
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.flash_attention import attention_ref
 
     rows = []
-    for name, sq in (("qwen3_prefill_512", 512), ("qwen3_prefill_2500", 2500)):
-        b, h, kv, d = 1, 16, 8, 128
+    for name, (b, sq, sk, h, kv, d), causal, reps in FLASH_BF16_CASES:
         q = randn(b, sq, h, d).bfloat16()
-        k, v = randn(b, sq, kv, d).bfloat16(), randn(b, sq, kv, d).bfloat16()
-        out = flash_attention(q, k, v, causal=True)
+        k, v = randn(b, sk, kv, d).bfloat16(), randn(b, sk, kv, d).bfloat16()
+        out = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        err, use = bf16_errs(out, attention_ref(q, k, v, causal=True))
+        err, use = bf16_errs(out, attention_ref(q, k, v, causal=causal))
+        del out
         ms, plain_ms = kernel_and_plain_ms(
-            torch, lambda: flash_attention(q, k, v, causal=True),
-            lambda: attention_ref(q, k, v, causal=True), 10)
+            torch, lambda: flash_attention(q, k, v, causal=causal),
+            lambda: attention_ref(q, k, v, causal=causal), reps)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         library_ms = statistics.median(cuda_times(
             torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), 10))
-        pairs = sq * (sq + 1) // 2
-        bound_ms, bound_by = bound(2 * (2 * b * sq * h * d + 2 * b * sq * kv * d),
+                qt, kt, vt, is_causal=causal, enable_gqa=h != kv), reps))
+        pairs = sq * (sq + 1) // 2 if causal else sq * sk
+        bound_ms, bound_by = bound(2 * (2 * b * sq * h * d + 2 * b * sk * kv * d),
                                    4.0 * b * h * pairs * d, BF16_FLOPS_PER_S)
-        row = dict(shape=name, q=[b, sq, h, d], kv=[b, sq, kv, d], causal=True,
+        row = dict(shape=name, q=[b, sq, h, d], kv=[b, sk, kv, d], causal=causal,
                    dtype="bfloat16", max_abs_err=err, bf16_limit_use=use,
-                   ms=ms, plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                   ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms, vs_library=ms / library_ms,
+                   bound_share=bound_ms / ms)
         rows.append(row)
-        print(f"flash {name} q={row['q']} kv={row['kv']} bf16 causal: "
+        print(f"flash {name} q={row['q']} kv={row['kv']} bf16 causal={causal}: "
               f"max_err={err:.3g} ({use:.3f} of the bf16 limit) ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} "
-              f"sdpa_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+              f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
+              f"(kernel/sdpa {ms / library_ms:.2f}x) bound_ms={bound_ms:.4f} "
+              f"({bound_by}; {bound_ms / ms:.1%} of it)")
         check(use <= 1.0, f"flash bf16 {name}: max_err {err}, {use} of the bf16 "
                           f"limit |a-b| <= {BF16_RTOL} |b| + {BF16_ATOL}")
+        del q, k, v, qt, kt, vt
     return rows
 
 

@@ -1,5 +1,6 @@
-// Flash attention forward for Hopper (sm_90a), float32 or bfloat16 in and
-// out, float32 inside.
+// Flash attention forward for Hopper (sm_90a), float32 in and out and inside.
+// The bfloat16 route is its own kernel, on the tensor cores, in
+// flash_attention_bf16.cu.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` behind
 // `flash_attention_bhsd` (src/repro/kernels/flash_attention/kernel.py):
@@ -10,10 +11,7 @@
 // Layout: q and o are [B, Sq, H, D], k and v are [B, Sk, KV, D], all
 // contiguous, so the kernel reads the model's layout directly and the
 // wrapper transposes and pads nothing.  Rows past Sq are never written and
-// keys past Sk are masked inside the kernel.  The bfloat16 instantiation
-// (the LM's causal prefill) converts each element to float32 as it loads a
-// tile into shared memory and rounds the output back on the store; the
-// tiles, the scores, the softmax and the accumulator are float32 in both.
+// keys past Sk are masked inside the kernel.
 //
 // Design: one block of 256 threads per (b*h, tile of 64 query rows).  The
 // scaled Q tile stays in shared memory for the whole kv loop; each K/V tile
@@ -27,15 +25,12 @@
 // What bounds it on an H100: at the DiT's shapes (S = 18,900, D = 128) the
 // work is 4*S^2*D flops per head against 4*S*D*4 bytes of input and output,
 // so operations bound it.  This first version computes with float32 FMAs
-// outside the tensor cores (67 TFLOP/s peak), not with wgmma on bf16 or
-// tf32; the register tiling above is what it does to stay near the FMA
-// pipe rather than the shared-memory pipe.  Moving to wgmma with TMA-fed
-// tiles is later work.  For bfloat16 inputs the bound is the tensor cores'
-// bfloat16 rate (989 TFLOP/s), which these float32 FMAs cannot approach: the
-// bfloat16 instantiation halves the bytes read, not the time of the math.
+// outside the tensor cores (67 TFLOP/s peak), not with wgmma on tf32; the
+// register tiling above is what it does to stay near the FMA pipe rather
+// than the shared-memory pipe.  Moving to the tensor cores with TMA-fed
+// tiles, at float32 accuracy, is later work.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -81,19 +76,12 @@ __device__ __forceinline__ void load_vec(const float* src, float* dst) {
   }
 }
 
-// Four consecutive elements of a row as float32 (16 or 8 bytes).
+// Four consecutive elements of a row (16 bytes).
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 __device__ __forceinline__ float half_warp_max(float x) {
 #pragma unroll
@@ -288,15 +276,9 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int B
 
 }  // namespace
 
-// C entry points, bound with ctypes.  Return a cudaError_t; 0 on success.
+// C entry point, bound with ctypes.  Returns a cudaError_t; 0 on success.
 extern "C" int repro_flash_attention_f32(const void* q, const void* k, const void* v,
                                          void* o, int B, int H, int KV, int Sq, int Sk,
                                          int D, int causal, float scale, void* stream) {
   return launch_d<float>(q, k, v, o, B, H, KV, Sq, Sk, D, causal, scale, stream);
-}
-
-extern "C" int repro_flash_attention_bf16(const void* q, const void* k, const void* v,
-                                          void* o, int B, int H, int KV, int Sq, int Sk,
-                                          int D, int causal, float scale, void* stream) {
-  return launch_d<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Sk, D, causal, scale, stream);
 }

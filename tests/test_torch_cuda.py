@@ -44,6 +44,17 @@ TOLS = {torch.float32: dict(atol=2e-5, rtol=2e-5),
 INT8_TOLS = {torch.float32: dict(atol=1e-4, rtol=1e-4),
              torch.bfloat16: TOLS[torch.bfloat16]}
 
+#: Grids of the bfloat16 kernel (``flash_attention_bf16.cu``, a block per
+#: 64 query rows of a head) several times wider than the card's 132 SMs, at
+#: every head size.
+FLASH_BF16_WIDE_CASES = [
+    # b, sq, sk, h, kv, d, causal
+    (4, 300, 300, 32, 8, 32, True),
+    (2, 520, 600, 40, 40, 64, False),
+    (1, 700, 700, 64, 16, 128, True),
+    (1, 1000, 777, 160, 160, 128, False),
+]
+
 DECODE_CASES = [
     # b, s, h, kv, d, cur (int: scalar index; list: one per row)
     (2, 64, 4, 2, 32, 37),
@@ -56,8 +67,8 @@ DECODE_CASES = [
 
 def test_every_binding_has_a_c_entry_point():
     sources = {p.name for p in _build.sources()}
-    assert sources == {"flash_attention.cu", "ddim_step.cu", "decode_attention.cu",
-                       "wkv6.cu", "runtime.cu"}
+    assert sources == {"flash_attention.cu", "flash_attention_bf16.cu", "ddim_step.cu",
+                       "decode_attention.cu", "wkv6.cu", "runtime.cu"}
     text = "".join(p.read_text() for p in _build.sources())
     entries = set(re.findall(r'extern "C" [\w\s*]+?\b(repro_\w+)\(', text))
     assert entries == set(_build.SIGNATURES)
@@ -118,6 +129,55 @@ def test_flash_kernel_in_both_types_matches_plain_on_card(cuda, dtype, causal):
     assert out.dtype == dtype
     ref = attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
+
+
+def _bf16_qkv(cuda, seed, b, sq, sk, h, kv, d):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=cuda).bfloat16()
+            for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d))]
+
+
+def _check_bf16_flash(q, k, v, causal):
+    launches = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    ref = attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), **TOLS[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", FLASH_CASES + FLASH_BF16_WIDE_CASES)
+def test_flash_bf16_kernel_matches_plain_on_card(cuda, b, sq, sk, h, kv, d, causal):
+    """The tensor-core kernel at every head size, GQA, Sq != Sk, ragged
+    tails, causal or not, grids narrower and wider than the card."""
+    _check_bf16_flash(*_bf16_qkv(cuda, sq + d, b, sq, sk, h, kv, d), causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 2500])
+def test_flash_bf16_kernel_at_tile_edges_on_card(cuda, s, causal):
+    """Query and key counts on both sides of the 64-row warpgroup tile, the
+    128-row block and the 64-key kv tile, at qwen3-1.7b's heads."""
+    _check_bf16_flash(*_bf16_qkv(cuda, s, 1, s, s, 16, 8, 128), causal)
+
+
+@pytest.mark.gpu
+def test_flash_bf16_kernel_runs_on_the_tensor_cores(cuda):
+    """The bfloat16 kernel's SASS holds warpgroup MMAs (HGMMA)."""
+    import subprocess
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run([f"{CUDA_HOME}/bin/cuobjdump", "-sass", str(_build.build())],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = sass.split("Function : ")[1:]
+    bf16 = [f for f in funcs if "flash_fwd_bf16" in f.splitlines()[0]]
+    assert len(bf16) == 3                      # D 32, 64, 128
+    assert all("HGMMA" in f for f in bf16)
+    assert not any("HGMMA" in f for f in funcs if "flash_fwd_bf16" not in f.splitlines()[0])
 
 
 def _cur(cur, cuda):

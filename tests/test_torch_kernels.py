@@ -111,6 +111,64 @@ def test_ddim_rejects_what_it_does_not_take():
         ddim_step(x.to("meta"), x.to("meta"), 0.5, 0.9)
 
 
+#: The bfloat16 kernel's (``flash_attention_bf16.cu``) check on the card:
+#: each output element within one bfloat16 step of the exact-softmax plain
+#: version, |a - b| <= 2^-7 |b| + 1e-5.  Both compute in float32 and round
+#: once to bfloat16, so they differ by at most one step where the two float32
+#: results straddle a rounding boundary; the 1e-5 covers float32 summation
+#: order near zero.
+BF16_RTOL, BF16_ATOL = 2 ** -7, 1e-5
+KERNEL_BK = 64          # keys per kv tile in flash_attention_bf16.cu
+
+
+def _emulate_bf16_kernel(q, k, v, split_p: bool):
+    """The tensor-core kernel's arithmetic for one causal head, in torch on
+    the CPU: float32 scores of the bfloat16 inputs in log2 units, the online
+    softmax over key blocks of KERNEL_BK with m, l and the accumulator in
+    float32, l summed from the float32 p, and P V as hi V + lo V (hi =
+    bf16(p), lo = bf16(p - hi)) or, as the TPU kernel does, bf16(p) V; the
+    output rounded to bfloat16 once."""
+    sq, d = q.shape
+    scale = d ** -0.5 * 1.4426950408889634
+    m = torch.full((sq, 1), -torch.inf)
+    l = torch.zeros(sq, 1)
+    acc = torch.zeros(sq, d)
+    qpos = torch.arange(sq)[:, None]
+    for k0 in range(0, sq, KERNEL_BK):
+        kb, vb = k[k0:k0 + KERNEL_BK].float(), v[k0:k0 + KERNEL_BK].float()
+        s = (q.float() @ kb.T) * scale
+        s = s.masked_fill(torch.arange(k0, k0 + kb.shape[0])[None, :] > qpos, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        pv = hi @ vb + ((p - hi).bfloat16().float() @ vb if split_p else 0)
+        acc = acc * corr + pv
+        m = m_new
+    return (acc / l).bfloat16()
+
+
+@pytest.mark.parametrize("split_p", [True, False])
+def test_bf16_kernel_numerics_meet_one_bf16_step_only_with_split_p(split_p):
+    """Why the bfloat16 kernel takes P V as hi V + lo V: at S 512, causal, 2
+    heads of 128, with q, k, v ~ N(0, 1) in bfloat16, the emulated kernel
+    stays within one bfloat16 step of ``attention_ref``; rounding p to
+    bfloat16 once moves the early causal rows, where a few keys carry the
+    weight, by more than ten steps."""
+    rng = np.random.default_rng(16)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 512, 2, 128)).astype(np.float32))
+               .bfloat16() for _ in range(3))
+    ref = attention_ref(q, k, v, causal=True).float()
+    out = torch.stack([_emulate_bf16_kernel(q[0, :, h], k[0, :, h], v[0, :, h], split_p)
+                       for h in range(2)], dim=1)[None].float()
+    share = float(((out - ref).abs() / (BF16_ATOL + BF16_RTOL * ref.abs())).max())
+    if split_p:
+        assert share <= 1.0, share
+    else:
+        assert share > 10.0, share
+
+
 def test_cpu_calls_do_not_count_as_launches():
     before = (flash_attention.launches, ddim_step.launches)
     q, k, v = (torch.from_numpy(a) for a in _qkv(3, 1, 8, 8, 1, 1, 32))
