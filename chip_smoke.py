@@ -9,9 +9,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernels built from the sources in this checkout (``nvcc``, ``sm_90a``,
    into ``build/``), and the card's name and power limit from ``nvidia-smi``.
 2. Kernels: each hand-written kernel against its plain PyTorch version at
-   the shapes its path gives it: flash attention (float32) and the DDIM step
-   at the Wan I2V ``PORT`` profile (full widths), plus a small causal GQA
-   case and a ragged case; flash-decode over a bfloat16 and an int8 cache in
+   the shapes its path gives it: flash attention (float32, on the tensor
+   cores as 3xTF32: its HGMMA count from the SASS, its registers and spills
+   from ptxas) and the DDIM step at the Wan I2V ``PORT`` profile (full
+   widths), plus a small causal GQA case and a ragged case, each float32
+   flash case timed beside SDPA; flash-decode over a bfloat16 and an int8 cache in
    both layouts at B 8, KV 8, G 2, D 128, S 32768 with a mixed per-row index
    and a full-cache scalar index, and at the served S 1024 with a mixed
    index; the bfloat16 flash prefill (on the tensor cores: its HGMMA count
@@ -25,7 +27,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    one PyTorch library call's where one computes the same function, and the
    bound: the larger of the bytes this call's data needs over 3.35 TB/s and
    its operations over the peak rate of their type (67 TFLOP/s float32
-   outside the tensor cores, 989 TFLOP/s bfloat16; H100 SXM data sheet).
+   outside the tensor cores, 495 TFLOP/s TF32 and 989 TFLOP/s bfloat16 on
+   them; H100 SXM data sheet).  The float32 flash kernel's bound counts its
+   three TF32 products; the float32 FMA bound is printed beside it.
 3. The port on small inputs, card against CPU on the same weights: the SMALL
    Wan pipeline's latents and frames (same noise), and the reduced float32
    qwen3 and rwkv6 engines' prefill logits and greedy tokens.
@@ -60,10 +64,15 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 F32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM, TF32 tensor cores, dense
 BF16_FLOPS_PER_S = 989e12      # H100 SXM, bfloat16 tensor cores, dense
 INT8_OPS_PER_S = 1979e12       # H100 SXM, int8 tensor cores, dense
-#: docs/kernels.md bench tolerances: attention family 1e-4, ddim 1e-5
-FLASH_TOL = 1e-4
+#: float32 flash attention, element by element, as the card tests hold it
+#: (docs/kernels.md: float32 2e-5): |a - b| <= F32_RTOL |b| + F32_ATOL.  At
+#: the DiT's shapes outputs are small (|o| <= 0.05), so an absolute limit of
+#: 1e-4 would let a single TF32 product pass.
+F32_RTOL = F32_ATOL = 2e-5
+#: docs/kernels.md bench tolerance of the DDIM step
 DDIM_TOL = 1e-5
 #: bfloat16 outputs (the flash prefill, and the decode over the bfloat16 and
 #: the int8 cache, both with bfloat16 queries): kernel and plain version
@@ -118,12 +127,13 @@ def kernel_and_plain_ms(torch, kernel, plain, reps: int, flush=None):
     return statistics.median(k), statistics.median(p)
 
 
-def bf16_errs(out, ref):
-    """-> (largest |a - b|, largest |a - b| / (BF16_ATOL + BF16_RTOL |b|)):
-    the elementwise bfloat16 check holds where the second is at most 1."""
+def limit_errs(out, ref, atol=BF16_ATOL, rtol=BF16_RTOL):
+    """-> (largest |a - b|, largest |a - b| / (atol + rtol |b|)): the
+    elementwise check holds where the second is at most 1.  The default
+    limit is the bfloat16 one."""
     a, b = out.float(), ref.float()
     d = (a - b).abs()
-    return float(d.max()), float((d / (BF16_ATOL + BF16_RTOL * b.abs())).max())
+    return float(d.max()), float((d / (atol + rtol * b.abs())).max())
 
 
 def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
@@ -199,14 +209,15 @@ def main() -> int:
         ("causal_gqa", (2, 300, 300, 8, 2, 64), True, 10),
         ("ragged", (1, 1000, 777, 4, 4, 128), False, 10),
     ]
+    flash_hgmma = flash_build_report(lib_path, "flash_fwd_f32")
     flash_rows = []
     for name, (b, sq, sk, h, kv, d), causal, reps in flash_cases:
         q, k, v = randn(b, sq, h, d), randn(b, sk, kv, d), randn(b, sk, kv, d)
         out = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        ref = attention_ref(q, k, v, causal=causal)
-        err = float((out - ref).abs().max())
-        del out, ref
+        err, use = limit_errs(out, attention_ref(q, k, v, causal=causal),
+                              F32_ATOL, F32_RTOL)
+        del out
         ms, plain_ms = kernel_and_plain_ms(
             torch, lambda: flash_attention(q, k, v, causal=causal),
             lambda: attention_ref(q, k, v, causal=causal), reps)
@@ -222,16 +233,23 @@ def main() -> int:
         library_ms = statistics.median(cuda_times(torch, library, reps))
         pairs = sq * (sq + 1) // 2 if causal else sq * sk
         nbytes = 4 * (2 * b * sq * h * d + 2 * b * sk * kv * d)
-        bound_ms, bound_by = bound(nbytes, 4.0 * b * h * pairs * d)
+        flops = 4.0 * b * h * pairs * d
+        bound_ms, bound_by = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+        fma_bound_ms, _ = bound(nbytes, flops)
         row = dict(shape=name, q=[b, sq, h, d], kv=[b, sk, kv, d], causal=causal,
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, library_ms=library_ms)
+                   max_abs_err=err, f32_limit_use=use, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, fma_bound_ms=fma_bound_ms,
+                   library_ms=library_ms, vs_library=ms / library_ms,
+                   bound_share=bound_ms / ms)
         flash_rows.append(row)
         print(f"flash {name:10s} q={row['q']} kv={row['kv']} causal={causal}: "
-              f"max_err={err:.3g} (tol {FLASH_TOL}) ms={ms:.4f} "
+              f"max_err={err:.3g} ({use:.3f} of the f32 limit) ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
-              f"bound_ms={bound_ms:.4f} ({bound_by})")
-        check(err <= FLASH_TOL, f"flash {name}: max_err {err} > {FLASH_TOL}")
+              f"(kernel/sdpa {ms / library_ms:.2f}x) bound_ms={bound_ms:.4f} "
+              f"(3xTF32 {bound_by}; {bound_ms / ms:.1%} of it) "
+              f"fma_bound_ms={fma_bound_ms:.4f}")
+        check(use <= 1.0, f"flash {name}: max_err {err}, {use} of the f32 limit "
+                          f"|a-b| <= {F32_RTOL} |b| + {F32_ATOL}")
         del q, k, v, qt, kt, vt
 
     pd = PORT.patch ** 2 * PORT.vae_latent_ch
@@ -255,7 +273,7 @@ def main() -> int:
     del x, eps, out, scratch
 
     decode_rows = decode_kernel_phase(torch, F, dev, randn)
-    hgmma = flash_bf16_build_report(lib_path)
+    hgmma = flash_build_report(lib_path, "flash_fwd_bf16")
     flash_bf16_rows = flash_bf16_phase(torch, F, dev, randn)
     wkv_rows = wkv6_kernel_phase(torch, dev, randn)
 
@@ -390,7 +408,8 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in flash_rows),
              ms=dom["ms"], plain_ms=dom["plain_ms"], bound_ms=dom["bound_ms"],
              bound_by=dom["bound_by"], library_ms=dom["library_ms"],
-             at="dit_self", shapes=flash_rows),
+             fma_bound_ms=dom["fma_bound_ms"], at="dit_self", hgmma=flash_hgmma,
+             shapes=flash_rows),
         dict(name="ddim_step", route="cuda",
              source="src/repro_torch/kernels/ddim_step/csrc/ddim_step.cu",
              replaces="src/repro/kernels/ddim_step/kernel.py:33",
@@ -486,7 +505,7 @@ def decode_kernel_phase(torch, F, dev, randn) -> list:
             return plain(q, *cache, cur, seq_axis=seq_axis)
         out = run_kernel()
         torch.cuda.synchronize()
-        err, use = bf16_errs(out, run_plain())
+        err, use = limit_errs(out, run_plain())
         ms, plain_ms = kernel_and_plain_ms(torch, run_kernel, run_plain, 10)
         positions = sum(min(c, s - 1) + 1 for c in (cur_list if vector else [cur] * b))
         qo_bytes = 2 * b * kv * g * d * 2
@@ -542,21 +561,23 @@ FLASH_BF16_CASES = [
 ]
 
 
-def flash_bf16_build_report(lib_path) -> int:
-    """The bfloat16 flash kernel's build: each instantiation's registers and
-    spills from ptxas, any wgmma serialisation ptxas reports, and the count
-    of warpgroup MMA instructions (HGMMA) in its SASS.  Fails if the count
-    is 0: the kernel would not be on the tensor cores."""
+def flash_build_report(lib_path, kernel: str) -> int:
+    """A flash kernel's build (``kernel``: ``flash_fwd_f32`` or
+    ``flash_fwd_bf16``, both on the tensor cores): each instantiation's
+    registers and spills from ptxas, any wgmma serialisation ptxas reports,
+    and the count of warpgroup MMA instructions (HGMMA) in its SASS.  Fails
+    if an instantiation holds none: it would not be on the tensor cores."""
     import re
 
     from repro_torch.kernels import _build
     from torch.utils.cpp_extension import CUDA_HOME
 
+    label = kernel.rsplit("_", 1)[-1]
     entry, report = None, {}
     for line in (_build.BUILD_DIR / "ptxas.log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            entry = m.group(1) if "flash_fwd_bf16" in m.group(1) else None
+            entry = m.group(1) if kernel in m.group(1) else None
             continue
         if entry is None:
             continue
@@ -573,20 +594,21 @@ def flash_bf16_build_report(lib_path) -> int:
     sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
                            str(lib_path)], capture_output=True, text=True, timeout=300)
     check(sass.returncode == 0, f"cuobjdump: {sass.stderr.strip()[:500]}")
-    total = 0
+    total, found = 0, 0
     for func in sass.stdout.split("Function : ")[1:]:
         name = func.splitlines()[0].strip()
-        if "flash_fwd_bf16" not in name:
+        if kernel not in name:
             continue
         n = func.count("HGMMA")
-        total += n
-        dim = re.search(r"flash_fwd_bf16ILi(\d+)E", name).group(1)
+        total, found = total + n, found + 1
+        dim = re.search(kernel + r"ILi(\d+)E", name).group(1)
         r = report.get(name, {})
-        print(f"flash bf16 build: D={dim}: "
+        print(f"flash {label} build: D={dim}: "
               f"HGMMA {n}, registers {r.get('registers')}, spill stores/loads "
               f"{r.get('spill')} bytes; ptxas on wgmma: {r.get('wgmma_notes', 'nothing')}")
-    print(f"flash bf16 build: {total} HGMMA instructions in flash_fwd_bf16's SASS")
-    check(total > 0, "flash bf16: no HGMMA in the kernel's SASS")
+        check(n > 0, f"flash {label}: no HGMMA in {name}")
+    print(f"flash {label} build: {total} HGMMA instructions in {kernel}'s SASS")
+    check(found > 0, f"flash {label}: {kernel} not in the library's SASS")
     return total
 
 
@@ -604,7 +626,7 @@ def flash_bf16_phase(torch, F, dev, randn) -> list:
         k, v = randn(b, sk, kv, d).bfloat16(), randn(b, sk, kv, d).bfloat16()
         out = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        err, use = bf16_errs(out, attention_ref(q, k, v, causal=causal))
+        err, use = limit_errs(out, attention_ref(q, k, v, causal=causal))
         del out
         ms, plain_ms = kernel_and_plain_ms(
             torch, lambda: flash_attention(q, k, v, causal=causal),

@@ -1,277 +1,464 @@
-// Flash attention forward for Hopper (sm_90a), float32 in and out and inside.
-// The bfloat16 route is its own kernel, on the tensor cores, in
+// Flash attention forward in float32 on Hopper's tensor cores (sm_90a), as
+// three TF32 products (3xTF32).  The bfloat16 route is its own kernel, in
 // flash_attention_bf16.cu.
 //
-// Replaces the Pallas TPU kernel `_flash_kernel` behind
-// `flash_attention_bhsd` (src/repro/kernels/flash_attention/kernel.py):
-// online-softmax attention with the running max m, running sum l and the
-// output accumulator kept in float32, native GQA (kv head = q head / group),
+// Replaces the float32 route of the Pallas TPU kernel `_flash_kernel` behind
+// `flash_attention_bhsd` (src/repro/kernels/flash_attention/kernel.py:36):
+// online-softmax attention with the running max m, the running sum l and the
+// output accumulator in float32, native GQA (kv head = q head / group),
 // causal masking when Sq == Sk, and masking of the ragged key tail.
 //
-// Layout: q and o are [B, Sq, H, D], k and v are [B, Sk, KV, D], all
-// contiguous, so the kernel reads the model's layout directly and the
-// wrapper transposes and pads nothing.  Rows past Sq are never written and
-// keys past Sk are masked inside the kernel.
+// Layout: q and o are [B, Sq, H, D], k and v are [B, Sk, KV, D], contiguous
+// float32, D in {32, 64, 128}; the kernel reads that layout directly and the
+// wrapper pads nothing.  Rows past Sq are loaded as zeros and never stored;
+// keys past Sk are loaded as zeros and masked to -inf.
 //
-// Design: one block of 256 threads per (b*h, tile of 64 query rows).  The
-// scaled Q tile stays in shared memory for the whole kv loop; each K/V tile
-// of 64 keys is staged through shared memory (K transposed, so the score
-// loop reads 16-byte vectors).  A thread owns 4 query rows x 4 keys of the
-// score tile and 4 rows x D/16 columns of the output, so m, l and the
-// accumulator live in registers.  The probability tile reuses the K tile's
-// shared memory, which keeps a D = 128 block at about 100 KB and lets two
-// blocks share an SM.
+// What bounds it on an H100: operations.  Attention does 4 D flops for each
+// (query, key) pair of a head on 4 D values per row, far above the ~20 flops
+// a byte at which float32 work leaves memory behind.  Outside the tensor
+// cores (67 TFLOP/s) the DiT's self-attention, [1, 18900, 40, 128], takes at
+// least 109 ms; as three TF32 products on the tensor cores (495 TFLOP/s, so
+// 3 x the flops) at least 44 ms, reached only through `wgmma`.
 //
-// What bounds it on an H100: at the DiT's shapes (S = 18,900, D = 128) the
-// work is 4*S^2*D flops per head against 4*S*D*4 bytes of input and output,
-// so operations bound it.  This first version computes with float32 FMAs
-// outside the tensor cores (67 TFLOP/s peak), not with wgmma on tf32; the
-// register tiling above is what it does to stay near the FMA pipe rather
-// than the shared-memory pipe.  Moving to the tensor cores with TMA-fed
-// tiles, at float32 accuracy, is later work.
+// Numerics.  TF32 keeps 10 of float32's 23 mantissa bits, and one TF32
+// product misses the port's float32 check (|a - b| <= 2e-5 + 2e-5 |b|) many
+// times over.  So each operand x is split in two: hi is x itself, of which
+// the tensor core reads the sign, the exponent and the top 10 mantissa bits
+// (it drops the low 13), and lo = x - (x with its low 13 bits cleared),
+// exact in float32 and truncated by the tensor core in its turn.  Both
+// products are taken as lo hi' + hi lo' + hi hi' in the float32 accumulator:
+// S = (scale Q) K^T, and P V with P split after the exponent.  hi and lo must
+// come from the same rounding: a lo taken against a round-to-nearest hi while
+// the tensor core truncates hi misses the check too (tests/test_torch_kernels.py
+// emulates each choice; tests/test_torch_cuda.py holds the kernel on inputs
+// whose low 13 bits are all set).  The tensor core also truncates each sum it
+// adds into its accumulator, so O is not accumulated there: each tile's P V
+// goes into a zeroed accumulator (24 additions) and O = corr O + P V is one
+// rounded float32 FMA a tile.  Added into one accumulator, the 7,000 sums of
+// the DiT's 18,900 keys drift towards zero by up to most of the limit.  m,
+// l, the rescale factor and p are float32; l sums the float32 p.
+//
+// Design, simple first: one block of one warpgroup (128 threads) per (tile
+// of 64 query rows, b*h), the query tiles fastest, so the blocks on the card
+// at one time share a head's K and V in L2; causal grids start with the
+// longest tiles.  Shared memory holds six float32 tiles of 64 x D (192 KB at
+// D = 128, one block an SM): Q hi and lo for the whole kv loop, and one
+// 64-key tile each of K hi, K lo, V^T hi and V^T lo.  Every tile is K-major,
+// in chunks of 32 floats with rows of 128 bytes in the 128-byte swizzle
+// (16-byte unit u of row r at u ^ (r % 8)): TF32 `wgmma` reads both operands
+// from shared memory K-major only, so V is stored transposed.  K arrives by
+// 16-byte cp.async straight into its hi tile; V by 4-byte cp.async into V^T,
+// transposed on the way, with each group of 8 keys stored in the order
+// 0 2 4 6 1 3 5 7: the S accumulator holds keys 2t and 2t + 1 of a group
+// where a TF32 A fragment takes columns t and t + 4, so P goes from the
+// accumulator to the A registers of P V as it is.  A thread pass writes the
+// lo tiles.  Per kv tile t:
+//   1. S_t = Q K_t^T as 3 x D/8 `wgmma.m64n64k8`, Q and K from shared memory;
+//      meanwhile the warpgroup writes V_t^T lo;
+//   2. once every warp's S_t is done, K_{t+1} is fetched into the free tile;
+//   3. masks S_t in registers from the accumulator's (row, column) map (row
+//      16 warp + lane/4 (+8), column 8 j + 2 (lane % 4) (+1)) and takes the
+//      online softmax, two xor shuffles per row; p is hi, and lo is one
+//      subtraction;
+//   4. P V_t as 3 x 8 `wgmma.m64nDk8`, P from registers; meanwhile the
+//      warpgroup writes K_{t+1} lo; then O = corr O + P V_t;
+//   5. once every warp's P V is done, V_{t+1} is fetched.  Past the last
+//      tile the copies fill zeros: one path for every tile (ptxas 12.8
+//      crashes on this loop with the copies behind a branch at D = 32).
+// The copies run while the tensor cores work; the softmax (step 3) does not
+// overlap them.  No `wgmma` sits on a path that depends on the thread
+// (ptxas serialises those).  Two warpgroups ping-ponging, a producer warp
+// with TMA and double-buffered tiles are later work.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per tile
-constexpr int NT = 256;       // threads per block: 16 x 16
-constexpr int RQ = BQ / 16;   // query rows per thread (strided by 16)
-constexpr int RK = BK / 16;   // keys per thread (4 contiguous)
-constexpr float NEG_INF = -1e30f;
+constexpr int BQ = 64;     // query rows per block: one warpgroup's wgmma M
+constexpr int BK = 64;     // keys per kv tile
+constexpr int NT = 128;    // threads per block: one warpgroup
+constexpr float LOG2E = 1.4426950408889634f;
+static_assert(BQ == BK, "the Q, K and V^T tiles share one size: [64, D], [D, 64]");
+
+// The lo part of the split: x less what the tensor core reads of it.
+__device__ __forceinline__ float tf32_lo(float x) {
+  return x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+}
+
+__device__ __forceinline__ float4 tf32_lo(float4 x) {
+  return make_float4(tf32_lo(x.x), tf32_lo(x.y), tf32_lo(x.z), tf32_lo(x.w));
+}
+
+// Byte offset of 16-byte unit u (4 floats) of row r in a tile of R rows,
+// K-major: chunk u / 8 of 32 floats, then the 128-byte swizzle.
+template <int R>
+__device__ __forceinline__ uint32_t at(int r, int u) {
+  return (u >> 3) * (R * 128) + r * 128 + (((u & 7) ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return smem_desc(addr, 16, 1024, 1);  // 8-row atoms of 128-byte rows, 128B swizzle
+}
+
+__device__ __forceinline__ float4 lds4(uint32_t addr) {
+  float4 x;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+               : "r"(addr));
+  return x;
+}
+
+__device__ __forceinline__ void sts4(uint32_t addr, float4 x) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(x.x),
+               "f"(x.y), "f"(x.z), "f"(x.w)
+               : "memory");
+}
+
+// cp.async of 4 bytes; with ok false the destination is zero-filled.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// ---- wgmma: D[64 x N] (+)= A[64 x 8] B[8 x N], TF32 in, float32 out.
+// _ss: A and B K-major in shared memory.  _rs: A from registers (a0 row r
+// column t, a1 row r + 8 column t, a2 row r column t + 4, a3 row r + 8
+// column t + 4, for r = 16 warp + lane / 4 and t = lane % 4), B K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// The A fragment of P V's step kk (keys 8 kk .. 8 kk + 7) from P in the S
+// accumulator's layout: a0, a1 take keys 2t of rows r, r + 8 (accumulator
+// slots 4 kk, 4 kk + 2), a2, a3 keys 2t + 1 (slots 4 kk + 1, 4 kk + 3).
+template <int N>
+__device__ __forceinline__ void a_frag(const float (&p)[N], int kk, uint32_t (&a)[4]) {
+  a[0] = __float_as_uint(p[4 * kk]);
+  a[1] = __float_as_uint(p[4 * kk + 2]);
+  a[2] = __float_as_uint(p[4 * kk + 1]);
+  a[3] = __float_as_uint(p[4 * kk + 3]);
+}
 
 template <int D>
-struct Layout {
-  static constexpr int NV = D / 16;            // output columns per thread
-  static constexpr int VW = NV >= 4 ? 4 : NV;  // vector width of a column group
-  static constexpr int QS = D + 4;             // row strides in floats; +4 keeps
-  static constexpr int KS = BK + 4;            // 16-byte alignment and spreads
-  static constexpr int PS = BK + 4;            // rows over the banks
-  static constexpr int VS = D;
-  static constexpr int KP = (D * KS > BQ * PS) ? D * KS : BQ * PS;  // K^T or P
-  static constexpr int q_off = 0;
-  static constexpr int k_off = q_off + BQ * QS;
-  static constexpr int v_off = k_off + KP;
-  static constexpr int floats = v_off + BK * VS;
-  static constexpr size_t bytes = floats * sizeof(float);
-  // column of the output owned by thread tx in slot n
-  __device__ static int col(int tx, int n) {
-    return (n / VW) * (16 * VW) + tx * VW + (n % VW);
-  }
-};
-
-template <int W>
-__device__ __forceinline__ void load_vec(const float* src, float* dst) {
-  if constexpr (W == 4) {
-    float4 t = *reinterpret_cast<const float4*>(src);
-    dst[0] = t.x; dst[1] = t.y; dst[2] = t.z; dst[3] = t.w;
-  } else if constexpr (W == 2) {
-    float2 t = *reinterpret_cast<const float2*>(src);
-    dst[0] = t.x; dst[1] = t.y;
-  } else {
-#pragma unroll
-    for (int e = 0; e < W; ++e) dst[e] = src[e];
-  }
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4],
+                                         uint64_t db, int accumulate) {
+  if constexpr (D == 32) wgmma_rs_n32(d, a, db, accumulate);
+  else if constexpr (D == 64) wgmma_rs_n64(d, a, db, accumulate);
+  else wgmma_rs_n128(d, a, db, accumulate);
 }
 
-// Four consecutive elements of a row (16 bytes).
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o,
-          int H, int KV, int Sq, int Sk, int causal, float scale) {
-  using L = Layout<D>;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem + L::q_off;   // [BQ][QS], pre-scaled
-  float* Kt = smem + L::k_off;   // [D][KS]  (K transposed) ...
-  float* Ps = smem + L::k_off;   // ... or [BQ][PS] probabilities, same memory
-  float* Vs = smem + L::v_off;   // [BK][VS]
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o,
+              int H, int KV, int Sq, int Sk, int causal, float scale) {
+  constexpr uint32_t TILE = BQ * D * 4;  // bytes of each tile: Q, K [64, D]; V^T [D, 64]
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // the swizzle is a function of the address: align the tiles to 1024 bytes
+  const uint32_t base = ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_hi = base, q_lo = base + TILE, k_hi = base + 2 * TILE,
+                 k_lo = base + 3 * TILE, v_hi = base + 4 * TILE, v_lo = base + 5 * TILE;
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;       // key / output-column group
-  const int ty = tid / 16;       // query row group: rows ty + 16*i
+  const int warp = tid / 32;
+  const int lane = tid % 32;
   const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
+  const int b = bh / H, h = bh % H;
   const int kvh = h / (H / KV);  // native GQA: no repeated K/V
-  const int q0 = blockIdx.x * BQ;
+  // causal: the longest tiles (the last query rows) go first
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * BQ;
 
-  const size_t q_row = (size_t)H * D;
-  const size_t k_row = (size_t)KV * D;
-  const T* qb = q + (size_t)b * Sq * q_row + (size_t)h * D;
-  const T* kb = k + (size_t)b * Sk * k_row + (size_t)kvh * D;
-  const T* vb = v + (size_t)b * Sk * k_row + (size_t)kvh * D;
-  T* ob = o + (size_t)b * Sq * q_row + (size_t)h * D;
+  const size_t q_row = (size_t)H * D, k_row = (size_t)KV * D;
+  const float* qb = q + (size_t)b * Sq * q_row + (size_t)h * D;
+  const float* kb = k + (size_t)b * Sk * k_row + (size_t)kvh * D;
+  const float* vb = v + (size_t)b * Sk * k_row + (size_t)kvh * D;
+  float* ob = o + (size_t)b * Sq * q_row + (size_t)h * D;
 
-  constexpr int D4 = D / 4;
-  for (int idx = tid; idx < BQ * D4; idx += NT) {
-    const int r = idx / D4, d = (idx % D4) * 4;
-    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < Sq) t = load4(qb + (size_t)(q0 + r) * q_row + d);
-    t.x *= scale; t.y *= scale; t.z *= scale; t.w *= scale;
-    *reinterpret_cast<float4*>(Qs + r * L::QS + d) = t;
-  }
-
-  float m[RQ], l[RQ], acc[RQ][L::NV];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int n = 0; n < L::NV; ++n) acc[i][n] = 0.f;
-  }
-
-  // causal: tiles past this block's last query row hold only masked keys
+  // causal: tiles past the block's last query row hold only masked keys
   const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile's P and V reads are done
-    for (int idx = tid; idx < BK * D4; idx += NT) {
-      // consecutive threads take consecutive keys: conflict-free transposed stores
-      const int c = idx % BK, d = (idx / BK) * 4;
-      float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + c < Sk) t = load4(kb + (size_t)(k0 + c) * k_row + d);
-      Kt[(d + 0) * L::KS + c] = t.x;
-      Kt[(d + 1) * L::KS + c] = t.y;
-      Kt[(d + 2) * L::KS + c] = t.z;
-      Kt[(d + 3) * L::KS + c] = t.w;
-    }
-    for (int idx = tid; idx < BK * D4; idx += NT) {
-      const int c = idx / D4, d = (idx % D4) * 4;
-      float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + c < Sk) t = load4(vb + (size_t)(k0 + c) * k_row + d);
-      *reinterpret_cast<float4*>(Vs + c * L::VS + d) = t;
-    }
-    __syncthreads();
+  const int n_tiles = (k_end + BK - 1) / BK;
 
-    // scores s[i][j] = (scale*q_row) . k_col for rows ty+16i, keys 4tx+j
-    float s[RQ][RK];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int j = 0; j < RK; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float qr[RQ][4], kr[4][RK];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) load_vec<4>(Qs + (ty + 16 * i) * L::QS + d, qr[i]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) load_vec<4>(Kt + (d + e) * L::KS + tx * RK, kr[e]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-#pragma unroll
-        for (int i = 0; i < RQ; ++i)
-#pragma unroll
-          for (int j = 0; j < RK; ++j) s[i][j] = fmaf(qr[i][e], kr[e][j], s[i][j]);
-    }
+  // this thread's two rows of the block's 64, and their columns
+  const int row[2] = {q0 + warp * 16 + lane / 4, q0 + warp * 16 + lane / 4 + 8};
+  const int col = 2 * (lane % 4);
 
-    // online softmax, row by row; the 16 threads of a half-warp share a row
+  float m[2] = {-INFINITY, -INFINITY};    // running max, natural units
+  float ml[2] = {-INFINITY, -INFINITY};   // m log2(e), rounded once: the exponent's base
+  float l[2] = {0.f, 0.f};
+  float corr[2];                   // the rescale of O at this tile
+  float acc[D / 2], pv[D / 2];     // O; this tile's P V
+  float s[BK / 2], plo[BK / 2];    // S, then P (= hi); P lo
 #pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float mx = NEG_INF;
+  for (int i = 0; i < D / 2; ++i) acc[i] = pv[i] = 0.f;
 #pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        const int kpos = k0 + tx * RK + j;
-        if (kpos >= Sk || (causal && kpos > qpos)) s[i][j] = NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+
+  // Q and K tiles [64, D]: thread (rg, cu) = (tid / 8, tid % 8) takes rows
+  // rg + 16 a (a < 4) and 16-byte units cu + 8 j (j < D / 32), so a warp
+  // reads 4 rows of 128 contiguous bytes and writes 32 distinct banks, and
+  // every shared address is the thread's base plus a constant.  K_t goes
+  // by cp.async into K hi; a thread splits the units it copied itself, so
+  // its own cp.async wait is enough before it does.
+  const int rg = tid / 8, cu = tid % 8;
+  const uint32_t qk_base = at<BQ>(rg, cu);
+  auto load_k = [&](int t) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int key = t * BK + rg + 16 * a;
+      const bool ok = key < k_end;
+      const float* g = kb + (size_t)(ok ? key : 0) * k_row + 4 * cu;
+#pragma unroll
+      for (int j = 0; j < D / 32; ++j)
+        cp_async16(k_hi + qk_base + j * (BK * 128) + a * (16 * 128), g + 32 * j, ok);
+    }
+    cp_async_commit();
+  };
+  auto split_k = [&]() {
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int j = 0; j < D / 32; ++j) {
+        const uint32_t off = qk_base + j * (BK * 128) + a * (16 * 128);
+        sts4(k_lo + off, tf32_lo(lds4(k_hi + off)));
       }
-      mx = half_warp_max(mx);
-      const float m_new = fmaxf(fmaxf(m[i], mx), -1e29f);
-      const float corr = expf(m[i] - m_new);
-      float ps = 0.f;
+  };
+  // V_t^T: row d, position p (unit p / 4, float p % 4) holds key
+  // 8 (p / 8) + 2 (p % 4) + (p / 4) % 2.  Lane (dd, pp) = (lane % 8,
+  // lane / 8) of warp w takes units u = 4 c + w (c < 4) at position 4 u + pp
+  // of rows dd + 8 j (j < D / 8): one key a unit, so a warp reads 4 rows of
+  // 32 contiguous bytes and writes 32 distinct banks.
+  const int dd = lane & 7, pp = lane >> 3;
+  auto load_v = [&](int t) {
 #pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        ps += s[i][j];
+    for (int c = 0; c < 4; ++c) {
+      const int u = 4 * c + warp;
+      const int key = t * BK + 8 * (u / 2) + 2 * pp + (u & 1);
+      const bool ok = key < k_end;
+      const float* g = vb + (size_t)(ok ? key : 0) * k_row + dd;
+      const uint32_t dst = v_hi + (c / 2) * (D * 128) + dd * 128 + (((u & 7) ^ dd) << 4) + 4 * pp;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) cp_async4(dst + j * (8 * 128), g + 8 * j, ok);
+    }
+    cp_async_commit();
+  };
+  // V^T lo: thread tid takes unit tid % 16 of rows tid / 16 + 8 i
+  const uint32_t vt_base = at<D>(tid / 16, tid % 16);
+  auto split_v = [&]() {
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      const uint32_t off = vt_base + i * (8 * 128);
+      sts4(v_lo + off, tf32_lo(lds4(v_hi + off)));
+    }
+  };
+  // 1. S = (lo hi' + hi lo') + hi hi' over D / 8 steps of 8
+  auto start_s = [&]() {
+#pragma unroll
+    for (int pr = 0; pr < 3; ++pr)
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const uint32_t off = (kk / 4) * (BQ * 128) + (kk % 4) * 32;
+        wgmma_ss_n64(s, desc((pr == 0 ? q_lo : q_hi) + off),
+                     desc((pr == 1 ? k_lo : k_hi) + off), pr > 0 || kk > 0);
       }
-      l[i] = l[i] * corr + ps;  // this thread's share of the row sum
-      m[i] = m_new;
+    wgmma_commit();
+  };
+  // 4. P V = (lo hi' + hi lo') + hi hi' over the tile's 8 steps of 8 keys,
+  // into a zeroed accumulator
+  auto start_pv = [&]() {
 #pragma unroll
-      for (int n = 0; n < L::NV; ++n) acc[i][n] *= corr;
+    for (int pr = 0; pr < 3; ++pr)
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk) {
+        uint32_t a[4];
+        if (pr == 0) a_frag(plo, kk, a);
+        else a_frag(s, kk, a);
+        wgmma_pv<D>(pv, a,
+                    desc((pr == 1 ? v_lo : v_hi) + (kk / 4) * (D * 128) + (kk % 4) * 32),
+                    pr > 0 || kk > 0);
+      }
+    wgmma_commit();
+  };
+  // 3. mask, online softmax, P = hi + lo
+  auto softmax = [&](int t) {
+    const int k0 = t * BK;
+    const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > q0);
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int key = k0 + 8 * (i / 4) + col + (i & 1);
+      if (edge && (key >= Sk || (causal && key > row[(i >> 1) & 1]))) s[i] = -INFINITY;
+      mt[(i >> 1) & 1] = fmaxf(mt[(i >> 1) & 1], s[i]);
     }
-    __syncthreads();  // every thread is done reading K^T: P takes its place
 #pragma unroll
-    for (int i = 0; i < RQ; ++i)
-      *reinterpret_cast<float4*>(Ps + (ty + 16 * i) * L::PS + tx * RK) =
-          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
-    __syncthreads();
+    for (int rr = 0; rr < 2; ++rr) {
+      mt[rr] = fmaxf(mt[rr], __shfl_xor_sync(0xffffffffu, mt[rr], 1));
+      mt[rr] = fmaxf(mt[rr], __shfl_xor_sync(0xffffffffu, mt[rr], 2));
+      const float mn = fmaxf(m[rr], mt[rr]);
+      const float mln = mn == -INFINITY ? 0.f : mn * LOG2E;  // a row with no key yet
+      corr[rr] = ex2(ml[rr] - mln);
+      m[rr] = mn;
+      ml[rr] = mln;
+      l[rr] *= corr[rr];
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      s[i] = ex2(fmaf(s[i], LOG2E, -ml[(i >> 1) & 1]));
+      l[(i >> 1) & 1] += s[i];
+      plo[i] = tf32_lo(s[i]);
+    }
+  };
 
-    // acc += P @ V
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pr[RQ], vr[L::NV];
+  // Q, scaled, then split into its two tiles; it stays for the whole loop
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) pr[i] = Ps[(ty + 16 * i) * L::PS + c];
+  for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int g = 0; g < L::NV / L::VW; ++g)
-        load_vec<L::VW>(Vs + c * L::VS + g * 16 * L::VW + tx * L::VW, vr + g * L::VW);
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int n = 0; n < L::NV; ++n) acc[i][n] = fmaf(pr[i], vr[n], acc[i][n]);
+    for (int j = 0; j < D / 32; ++j) {
+      const int r = q0 + rg + 16 * a;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < Sq) x = *reinterpret_cast<const float4*>(qb + (size_t)r * q_row + 4 * cu + 32 * j);
+      x.x *= scale;
+      x.y *= scale;
+      x.z *= scale;
+      x.w *= scale;
+      const uint32_t off = qk_base + j * (BQ * 128) + a * (16 * 128);
+      sts4(q_hi + off, x);
+      sts4(q_lo + off, tf32_lo(x));
     }
+  load_k(0);
+  load_v(0);
+  cp_async_wait<1>();  // K_0
+  split_k();
+  for (int t = 0; t < n_tiles; ++t) {
+    fence_async_smem();
+    __syncthreads();  // K_t hi and lo (and Q) from every thread
+    pin(s);
+    wgmma_fence();
+    start_s();
+    cp_async_wait<0>();  // V_t
+    __syncthreads();     // ... from every thread
+    split_v();           // while the tensor cores take S_t
+    fence_async_smem();
+    wgmma_wait<0>();
+    pin(s);
+    __syncthreads();  // every warp's S_t is done: K's tiles are free; V_t^T lo is in
+    load_k(t + 1);  // past the last tile: zeros (step 5 in the notes above)
+    softmax(t);
+    pin(pv);
+    wgmma_fence();
+    start_pv();
+    cp_async_wait<0>();  // K_{t+1}
+    split_k();           // while the tensor cores take P V_t
+    wgmma_wait<0>();
+    pin(pv);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = fmaf(acc[i], corr[(i >> 1) & 1], pv[i]);
+    __syncthreads();  // every warp's P V_t is done: V's tiles are free
+    load_v(t + 1);
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const float inv = 1.f / fmaxf(half_warp_sum(l[i]), 1e-30f);
-    const int qpos = q0 + ty + 16 * i;
-    if (qpos < Sq) {
-      T* orow = ob + (size_t)qpos * q_row;
+  for (int rr = 0; rr < 2; ++rr) {
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+    l[rr] = 1.f / fmaxf(l[rr], 1e-30f);
+  }
 #pragma unroll
-      for (int n = 0; n < L::NV; ++n) store1(orow + L::col(tx, n), acc[i][n] * inv);
-    }
+  for (int i = 0; i < D / 2; i += 2) {
+    const int rr = (i >> 1) & 1;
+    if (row[rr] < Sq)
+      *reinterpret_cast<float2*>(ob + (size_t)row[rr] * q_row + 8 * (i / 4) + col) =
+          make_float2(acc[i] * l[rr], acc[i + 1] * l[rr]);
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const T* q, const T* k, const T* v, T* o,
-                   int B, int H, int KV, int Sq, int Sk, int causal,
-                   float scale, cudaStream_t stream) {
-  constexpr size_t bytes = Layout<D>::bytes;
+template <int D>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o, int B, int H,
+                   int KV, int Sq, int Sk, int causal, float scale, cudaStream_t stream) {
+  constexpr size_t bytes = (size_t)6 * BQ * D * 4 + 1024;  // six tiles + alignment
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fwd<T, D><<<grid, NT, bytes, stream>>>(q, k, v, o, H, KV, Sq, Sk, causal, scale);
+  flash_fwd_f32<D><<<grid, NT, bytes, stream>>>(q, k, v, o, H, KV, Sq, Sk, causal, scale);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int B, int H,
-                     int KV, int Sq, int Sk, int D, int causal, float scale,
-                     void* stream) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  T* ot = static_cast<T*>(o);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return launch<T, 32>(qt, kt, vt, ot, B, H, KV, Sq, Sk, causal, scale, s);
-    case 64: return launch<T, 64>(qt, kt, vt, ot, B, H, KV, Sq, Sk, causal, scale, s);
-    case 128: return launch<T, 128>(qt, kt, vt, ot, B, H, KV, Sq, Sk, causal, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -280,5 +467,15 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int B
 extern "C" int repro_flash_attention_f32(const void* q, const void* k, const void* v,
                                          void* o, int B, int H, int KV, int Sq, int Sk,
                                          int D, int causal, float scale, void* stream) {
-  return launch_d<float>(q, k, v, o, B, H, KV, Sq, Sk, D, causal, scale, stream);
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  float* ot = static_cast<float*>(o);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch<32>(qt, kt, vt, ot, B, H, KV, Sq, Sk, causal, scale, s);
+    case 64: return launch<64>(qt, kt, vt, ot, B, H, KV, Sq, Sk, causal, scale, s);
+    case 128: return launch<128>(qt, kt, vt, ot, B, H, KV, Sq, Sk, causal, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

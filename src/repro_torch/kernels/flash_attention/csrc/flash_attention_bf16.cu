@@ -60,6 +60,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -82,14 +84,11 @@ struct Tile {
   }
 };
 
-// wgmma shared-memory descriptor: start address, leading byte offset (K-major:
-// unused under a swizzle; MN-major: the step between chunks of columns),
-// stride byte offset (the step between 8-row atoms) and the swizzle mode.
+// wgmma descriptor of a tile (smem_desc in wgmma.cuh): 8-row atoms of RB-byte
+// rows in the tile's swizzle.
 template <int D>
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
-  using T = Tile<D>;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((8 * T::RB) >> 4) << 32) | (T::MODE << 62);
+  return smem_desc(addr, lbo, 8 * Tile<D>::RB, Tile<D>::MODE);
 }
 
 // Copy rows [row0, row0 + R) of a [*, D] matrix with row stride `stride`
@@ -107,40 +106,8 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, size_t 
     const bool ok = row0 + r < rows;
     const bf16* g = src + (size_t)(ok ? row0 + r : 0) * stride + u * 8;
     const uint32_t s = dst + (u / UPC) * (R * T::RB) + T::at(r, u % UPC);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(g),
-                 "r"(ok ? 16 : 0)
-                 : "memory");
+    cp_async16(s, g, ok);
   }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving accumulator reads and writes across the
-// asynchronous wgmma's start and wait.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
@@ -279,8 +246,8 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
 
   auto tiles_landed = [&]() {
-    cp_async_wait_all();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    cp_async_wait<0>();
+    fence_async_smem();
     // ... for every thread; and every warp is done with the stages the
     // next loads take (K_{t-1}, V_{t-2})
     __syncthreads();

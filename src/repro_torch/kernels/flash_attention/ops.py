@@ -2,9 +2,9 @@
 bfloat16.
 
 A tensor on the CPU goes to the plain version (``ref.attention_ref``); a
-tensor on the card launches the CUDA kernel of its type
-(float32: ``csrc/flash_attention.cu``; bfloat16, on the tensor cores:
-``csrc/flash_attention_bf16.cu``) or raises.  ``flash_attention.launches``
+tensor on the card launches the CUDA kernel of its type, both on the tensor
+cores (float32 as three TF32 products: ``csrc/flash_attention.cu``;
+bfloat16: ``csrc/flash_attention_bf16.cu``) or raises.  ``flash_attention.launches``
 counts the kernel launches and nothing else.
 """
 from __future__ import annotations

@@ -44,10 +44,9 @@ TOLS = {torch.float32: dict(atol=2e-5, rtol=2e-5),
 INT8_TOLS = {torch.float32: dict(atol=1e-4, rtol=1e-4),
              torch.bfloat16: TOLS[torch.bfloat16]}
 
-#: Grids of the bfloat16 kernel (``flash_attention_bf16.cu``, a block per
-#: 64 query rows of a head) several times wider than the card's 132 SMs, at
-#: every head size.
-FLASH_BF16_WIDE_CASES = [
+#: Grids of the flash kernels (a block per 64 query rows of a head) several
+#: times wider than the card's 132 SMs, at every head size.
+FLASH_WIDE_CASES = [
     # b, sq, sk, h, kv, d, causal
     (4, 300, 300, 32, 8, 32, True),
     (2, 520, 600, 40, 40, 64, False),
@@ -148,7 +147,7 @@ def _check_bf16_flash(q, k, v, causal):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", FLASH_CASES + FLASH_BF16_WIDE_CASES)
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", FLASH_CASES + FLASH_WIDE_CASES)
 def test_flash_bf16_kernel_matches_plain_on_card(cuda, b, sq, sk, h, kv, d, causal):
     """The tensor-core kernel at every head size, GQA, Sq != Sk, ragged
     tails, causal or not, grids narrower and wider than the card."""
@@ -166,7 +165,9 @@ def test_flash_bf16_kernel_at_tile_edges_on_card(cuda, s, causal):
 
 @pytest.mark.gpu
 def test_flash_bf16_kernel_runs_on_the_tensor_cores(cuda):
-    """The bfloat16 kernel's SASS holds warpgroup MMAs (HGMMA)."""
+    """Both flash kernels, bfloat16 (``flash_fwd_bf16``) and float32 as
+    3xTF32 (``flash_fwd_f32``), hold warpgroup MMAs (HGMMA) in the SASS of
+    every instantiation (D 32, 64, 128), and no other kernel does."""
     import subprocess
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -174,10 +175,66 @@ def test_flash_bf16_kernel_runs_on_the_tensor_cores(cuda):
     sass = subprocess.run([f"{CUDA_HOME}/bin/cuobjdump", "-sass", str(_build.build())],
                           capture_output=True, text=True, check=True).stdout
     funcs = sass.split("Function : ")[1:]
-    bf16 = [f for f in funcs if "flash_fwd_bf16" in f.splitlines()[0]]
-    assert len(bf16) == 3                      # D 32, 64, 128
-    assert all("HGMMA" in f for f in bf16)
-    assert not any("HGMMA" in f for f in funcs if "flash_fwd_bf16" not in f.splitlines()[0])
+    flash = ("flash_fwd_bf16", "flash_fwd_f32")
+    for kernel in flash:
+        inst = [f for f in funcs if kernel in f.splitlines()[0]]
+        assert len(inst) == 3, kernel          # D 32, 64, 128
+        assert all("HGMMA" in f for f in inst), kernel
+    assert not any("HGMMA" in f for f in funcs
+                   if not any(kernel in f.splitlines()[0] for kernel in flash))
+
+
+def _check_f32_flash(q, k, v, causal):
+    launches = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    torch.testing.assert_close(out, attention_ref(q, k, v, causal=causal),
+                               **TOLS[torch.float32])
+
+
+def _f32_qkv(cuda, seed, b, sq, sk, h, kv, d):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=cuda)
+            for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", FLASH_WIDE_CASES)
+def test_flash_f32_kernel_matches_plain_on_wide_grids_on_card(cuda, b, sq, sk, h, kv, d,
+                                                             causal):
+    """The 3xTF32 kernel on grids several times wider than the card, at
+    every head size, GQA, causal or Sq != Sk with ragged tails."""
+    _check_f32_flash(*_f32_qkv(cuda, sq + d, b, sq, sk, h, kv, d), causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 2500])
+def test_flash_f32_kernel_at_tile_edges_on_card(cuda, s, causal):
+    """Query and key counts on both sides of the 64-row query tile and the
+    64-key kv tile, 16 query heads over 8 kv heads of 128."""
+    _check_f32_flash(*_f32_qkv(cuda, s, 1, s, s, 16, 8, 128), causal)
+
+
+@pytest.mark.gpu
+def test_flash_f32_kernel_on_a_dit_band_on_card(cuda):
+    """256 query rows of the Wan DiT's self-attention against all 18,900
+    keys of its 40 heads of 128: the long rows where 3xTF32 has to hold."""
+    _check_f32_flash(*_f32_qkv(cuda, 18900, 1, 256, 18900, 40, 40, 128), False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_f32_kernel_with_every_low_bit_set_on_card(cuda, causal):
+    """q, k and v with all of their low 13 mantissa bits set: the kernel's
+    lo = x - (x with those bits cleared) adds up with hi = x only if the
+    tensor core drops those bits of hi (truncates); rounding them would put
+    hi + lo a TF32 step (2^-10 of x) off, far past the limit."""
+    q, k, v = (x.view(torch.int32).bitwise_or(0x1FFF).view(torch.float32)
+               for x in _f32_qkv(cuda, 13, 1, 300, 300, 8, 4, 128))
+    _check_f32_flash(q, k, v, causal)
 
 
 def _cur(cur, cuda):

@@ -169,6 +169,100 @@ def test_bf16_kernel_numerics_meet_one_bf16_step_only_with_split_p(split_p):
         assert share > 10.0, share
 
 
+LOG2E = 1.4426950408889634
+
+
+def _tf32(x):
+    """What a tensor core reads of a float32 as TF32: the low 13 mantissa
+    bits dropped (truncation)."""
+    return (x.view(torch.int32) & ~0x1fff).view(torch.float32)
+
+
+def _tf32_rna(x):
+    """float32 rounded to TF32 to nearest, ties away, as cvt.rna.tf32.f32."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1fff).view(torch.float32)
+
+
+def _tf32_product(a, b, split: str):
+    """a @ b as the tensor cores take it from float32 operands.  "one": a
+    single TF32 product.  "split": the kernel's 3xTF32, hi = x (read
+    truncated), lo = x - tf32(x) (read truncated in its turn), summed as
+    (lo hi' + hi lo') + hi hi'.  "mixed": the same with lo taken against a
+    hi rounded to nearest while the tensor core truncates hi."""
+    ah, bh = _tf32(a), _tf32(b)
+    if split == "one":
+        return ah @ bh
+    against = _tf32_rna if split == "mixed" else _tf32
+    al, bl = _tf32(a - against(a)), _tf32(b - against(b))
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _emulate_f32_kernel(q, k, v, causal: bool, qk: str, pv: str):
+    """The float32 kernel's arithmetic for one head, in torch on the CPU:
+    Q scaled, then S = Q K^T over key tiles of KERNEL_BK as ``qk`` says; the
+    online softmax with m, l and the accumulator in float32 and p = 2^(s
+    log2(e) - m log2(e)); l summed from the float32 p; P V as ``pv`` says."""
+    sq, d = q.shape
+    q = q * d ** -0.5
+    m = torch.full((sq, 1), -torch.inf)
+    ml = torch.full((sq, 1), -torch.inf)
+    l = torch.zeros(sq, 1)
+    acc = torch.zeros(sq, d)
+    qpos = torch.arange(sq)[:, None]
+    for k0 in range(0, k.shape[0], KERNEL_BK):
+        kb, vb = k[k0:k0 + KERNEL_BK], v[k0:k0 + KERNEL_BK]
+        s = _tf32_product(q, kb.T.contiguous(), qk)
+        if causal:
+            s = s.masked_fill(torch.arange(k0, k0 + kb.shape[0])[None, :] > qpos, -torch.inf)
+        mn = torch.maximum(m, s.amax(-1, keepdim=True))
+        mln = torch.where(mn == -torch.inf, torch.zeros_like(mn), mn * LOG2E)
+        corr = torch.exp2(ml - mln)
+        p = torch.exp2(s * LOG2E - mln)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + _tf32_product(p, vb, pv)
+        m, ml = mn, mln
+    return acc / l
+
+
+#: band (rows, keys, causal) and the arithmetic of S and of P V.  The
+#: kernel's split, 3xTF32 on both products, at a band of 64 DiT rows against
+#: all 18,900 keys of a head of 128 and at 300 causal keys; at 300 causal
+#: keys each shortcut: one TF32 product, one product unsplit, and a lo taken
+#: against the other rounding.
+F32_NUMERICS = [
+    ("dit_band", "split", "split"),
+    ("causal_300", "split", "split"),
+    ("causal_300", "one", "one"),
+    ("causal_300", "split", "one"),
+    ("causal_300", "one", "split"),
+    ("causal_300", "mixed", "mixed"),
+]
+F32_BANDS = {"dit_band": (64, 18900, False), "causal_300": (300, 300, True)}
+
+
+@pytest.mark.parametrize("band,qk,pv", F32_NUMERICS)
+def test_f32_kernel_numerics_meet_the_limit_only_with_3xtf32_on_both_products(band, qk, pv):
+    """Why the float32 kernel takes both products as 3xTF32 with hi and lo
+    from the same rounding: with q, k, v ~ N(0, 1) at D 128, the emulated
+    kernel stays within a tenth of the float32 limit of ``attention_ref``
+    (each element within ``TOL``, as the card tests hold the kernel);
+    every shortcut exceeds the limit at 300 causal keys, where a few keys
+    carry a row's weight."""
+    rows, keys, causal = F32_BANDS[band]
+    rng = np.random.default_rng(17)
+    q = torch.from_numpy(rng.standard_normal((rows, 128)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((keys, 128)).astype(np.float32))
+            for _ in range(2))
+    ref = attention_ref(q[None, :, None], k[None, :, None], v[None, :, None],
+                        causal=causal)[0, :, 0]
+    out = _emulate_f32_kernel(q, k, v, causal, qk, pv)
+    share = float(((out - ref).abs() / (TOL["atol"] + TOL["rtol"] * ref.abs())).max())
+    if qk == pv == "split":
+        assert share <= 0.1, share
+    else:
+        assert share > 1.0, share
+
+
 def test_cpu_calls_do_not_count_as_launches():
     before = (flash_attention.launches, ddim_step.launches)
     q, k, v = (torch.from_numpy(a) for a in _qkv(3, 1, 8, 8, 1, 1, 32))
