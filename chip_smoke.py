@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only decode    # set-up and the decode cases alone
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -13,18 +14,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    cores as 3xTF32: its HGMMA count from the SASS, its registers and spills
    from ptxas) and the DDIM step at the Wan I2V ``PORT`` profile (full
    widths), plus a small causal GQA case and a ragged case, each float32
-   flash case timed beside SDPA; flash-decode over a bfloat16 and an int8 cache in
-   both layouts at B 8, KV 8, G 2, D 128, S 32768 with a mixed per-row index
-   and a full-cache scalar index, and at the served S 1024 with a mixed
-   index; the bfloat16 flash prefill (on the tensor cores: its HGMMA count
+   flash case timed beside SDPA; flash-decode (its TMA bulk copies, UBLKCP,
+   from the SASS, its registers and spills from ptxas) over a bfloat16 and
+   an int8 cache in both layouts at B 8, KV 8, G 2, D 128, S 32768 with a
+   mixed per-row index and a full-cache scalar index, and at the served
+   S 1024 with a mixed index; the bfloat16 flash prefill (on the tensor cores: its HGMMA count
    from the SASS, its registers and spills from ptxas) at qwen3-1.7b's heads
    for 512, 2500 and 4096 tokens, a causal GQA batch and a ragged non-causal
    case, each timed beside SDPA; the WKV6
    recurrence at rwkv6-7b's heads (a served 512-token prompt, a ragged 97, a
    long batch of 8 x 4096, and a float32 case at the reduced head size).
    For each: the largest absolute error against the stated
-   tolerance, the kernel's time (CUDA events, median), the plain version's,
-   one PyTorch library call's where one computes the same function, and the
+   tolerance, the kernel's time, the plain version's, one PyTorch library
+   call's where one computes the same function (each by `device_ms`, the
+   device time of 50 launches with the inputs out of the L2, for every
+   decode case and wherever one call takes under 0.2 ms, else one call
+   between CUDA events; that single call's time is printed as call_ms), and the
    bound: the larger of the bytes this call's data needs over 3.35 TB/s and
    its operations over the peak rate of their type (67 TFLOP/s float32
    outside the tensor cores, 495 TFLOP/s TF32 and 989 TFLOP/s bfloat16 on
@@ -83,6 +88,19 @@ DDIM_TOL = 1e-5
 #: summation order near zero.
 BF16_RTOL = 2 ** -7
 BF16_ATOL = 1e-5
+#: Kernel time on the device (`device_ms`): one
+#: pair of CUDA events around DEVICE_N launches, the inputs cycling through
+#: copies that hold ROTATION_BYTES, four times the H100's 50 MB L2, so that
+#: a launch finds them cold.  Used for every decode case (kernel, plain
+#: version and SDPA) and for every other case whose single call takes under
+#: DEVICE_TIME_BELOW_MS, where one call between two events mostly times the
+#: wrapper on the host.
+DEVICE_N = 50
+ROTATION_BYTES = 4 * 50 * 2 ** 20
+DEVICE_TIME_BELOW_MS = 0.2
+#: torch.cuda._sleep's cycles per second: above the H100's 1.98 GHz boost
+#: clock, so a sleep lasts at least the time asked
+SLEEP_CYCLES_PER_S = 2.0e9
 SERVE_FRAME_TOL = 1e-4         # served vs generate: the same ops on one card
 SERVE_LATENT_RTOL = 1e-4       # served vs the pipeline, of the largest latent
 SMALL_LATENT_RTOL = 1e-4       # card vs CPU, relative to the largest latent
@@ -98,15 +116,12 @@ def check(ok: bool, msg: str) -> None:
         fail(msg)
 
 
-def cuda_times(torch, fn, reps: int, flush=None) -> list:
-    """Milliseconds of ``reps`` runs of ``fn``, each by CUDA events, after
-    one warm-up; ``flush`` (untimed) runs before each, to start with a cold
-    L2."""
+def cuda_times(torch, fn, reps: int) -> list:
+    """Milliseconds of ``reps`` runs of ``fn``, each between two CUDA
+    events, after one warm-up."""
     fn()
     times = []
     for _ in range(reps):
-        if flush is not None:
-            flush()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -117,14 +132,84 @@ def cuda_times(torch, fn, reps: int, flush=None) -> list:
     return times
 
 
-def kernel_and_plain_ms(torch, kernel, plain, reps: int, flush=None):
-    """Median ms of the kernel and of its plain version, timed in turns
-    (kernel, plain, plain, kernel) so that drift hits both alike."""
-    k = cuda_times(torch, kernel, reps, flush)
-    p = cuda_times(torch, plain, reps, flush)
-    p += cuda_times(torch, plain, reps, flush)
-    k += cuda_times(torch, kernel, reps, flush)
-    return statistics.median(k), statistics.median(p)
+def rotation(tensors) -> list:
+    """``tensors`` and clones of them, as many copies as hold ROTATION_BYTES
+    together (at most DEVICE_N): `device_ms` cycles through them so that a
+    launch finds its inputs out of the L2, as a served call does.  Inputs
+    that hold less than ROTATION_BYTES / DEVICE_N stay partly in the L2."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    n = min(DEVICE_N, max(1, -(-ROTATION_BYTES // max(nbytes, 1))))
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors) for _ in range(n - 1)]
+
+
+def device_ms(torch, fns, n: int = DEVICE_N, reps: int = 3) -> float:
+    """Device milliseconds per launch: one pair of CUDA events around ``n``
+    launches, cycling through ``fns`` (one callable per copy of the inputs,
+    from `rotation`), divided by ``n``; the median of ``reps`` such runs.
+    The launches are queued behind a sleeping kernel, so the card runs them
+    back to back whatever the host's time to issue each: the events see
+    device time, not the wrapper's.  If the sleep ended before the host had
+    queued the last launch, the run is repeated with a longer sleep."""
+    for f in fns[:2]:
+        f()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fns[i % len(fns)]()
+    torch.cuda.synchronize()
+    sleep_s = 2 * (time.perf_counter() - t0) + 2e-3
+    out = []
+    while len(out) < reps:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_s * SLEEP_CYCLES_PER_S))
+        a.record()
+        for i in range(n):
+            fns[i % len(fns)]()
+        b.record()
+        queued = not a.query()
+        b.synchronize()
+        if queued:
+            out.append(a.elapsed_time(b) / n)
+        else:
+            check(sleep_s < 10, "device_ms: the host cannot queue the launches")
+            sleep_s *= 2
+    return statistics.median(out)
+
+
+def kernel_and_plain_ms(torch, kernel, plain, reps: int, force: bool = False):
+    """Times of a kernel and of its plain version, taken in turns (kernel,
+    plain, plain, kernel) so that drift hits both alike.  ``kernel`` and
+    ``plain`` are lists of callables, one per copy of the inputs
+    (`rotation`).  -> (ms, plain_ms, call_ms, plain_call_ms): call_ms is the
+    median of ``reps`` single calls of the first copy between two CUDA
+    events (the wrapper's host time included, the L2 warm); ms is
+    `device_ms` where the call takes under DEVICE_TIME_BELOW_MS (or
+    ``force``), else call_ms."""
+    k = cuda_times(torch, kernel[0], reps)
+    p = cuda_times(torch, plain[0], reps)
+    p += cuda_times(torch, plain[0], reps)
+    k += cuda_times(torch, kernel[0], reps)
+    call_ms, plain_call_ms = statistics.median(k), statistics.median(p)
+    dev_k = force or call_ms < DEVICE_TIME_BELOW_MS
+    dev_p = force or plain_call_ms < DEVICE_TIME_BELOW_MS
+    ks = [device_ms(torch, kernel)] if dev_k else [call_ms]
+    ps = [device_ms(torch, plain)] if dev_p else [plain_call_ms]
+    if dev_p:
+        ps.append(device_ms(torch, plain))
+    if dev_k:
+        ks.append(device_ms(torch, kernel))
+    return statistics.mean(ks), statistics.mean(ps), call_ms, plain_call_ms
+
+
+def library_times(torch, library, reps: int, force: bool = False):
+    """(ms, call_ms) of a PyTorch library call, as `kernel_and_plain_ms`
+    times a kernel; ``library`` is a list of callables, one per copy.  The
+    callers force `device_ms` where the kernel beside it took it."""
+    call_ms = statistics.median(cuda_times(torch, library[0], reps))
+    if force or call_ms < DEVICE_TIME_BELOW_MS:
+        return device_ms(torch, library), call_ms
+    return call_ms, call_ms
 
 
 def limit_errs(out, ref, atol=BF16_ATOL, rtol=BF16_RTOL):
@@ -141,9 +226,13 @@ def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
+    only_decode = argv == ["--only", "decode"]
+    if argv and not only_decode:
+        print("usage: chip_smoke.py [--only decode]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
@@ -198,6 +287,10 @@ def main() -> int:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
+    if only_decode:     # the decode cases alone, e.g. to time two trees in one call
+        print(json.dumps({"decode": decode_kernel_phase(torch, F, dev, randn)}))
+        return 0
+
     t_dim, t_heads = PORT.text_d_model // PORT.text_heads, PORT.text_heads
     d_dim, d_heads = PORT.dit_d_model // PORT.dit_heads, PORT.dit_heads
     n, t_len = PORT.video_tokens, PORT.text_len
@@ -218,19 +311,22 @@ def main() -> int:
         err, use = limit_errs(out, attention_ref(q, k, v, causal=causal),
                               F32_ATOL, F32_RTOL)
         del out
-        ms, plain_ms = kernel_and_plain_ms(
-            torch, lambda: flash_attention(q, k, v, causal=causal),
-            lambda: attention_ref(q, k, v, causal=causal), reps)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sets = rotation((q, k, v))
+        ms, plain_ms, call_ms, plain_call_ms = kernel_and_plain_ms(
+            torch, [lambda c=c: flash_attention(*c, causal=causal) for c in sets],
+            [lambda c=c: attention_ref(*c, causal=causal) for c in sets], reps)
         backends = [SDPBackend.EFFICIENT_ATTENTION]
         if b * h * sq * sk * 4 < (1 << 32):
             backends.append(SDPBackend.MATH)
 
-        def library():
+        def library(qc, kc, vc):
             with sdpa_kernel(backends):
                 return F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=h != kv)
-        library_ms = statistics.median(cuda_times(torch, library, reps))
+                    qc.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+                    is_causal=causal, enable_gqa=h != kv)
+        library_ms, library_call_ms = library_times(
+            torch, [lambda c=c: library(*c) for c in sets], reps,
+            force=call_ms < DEVICE_TIME_BELOW_MS)
         pairs = sq * (sq + 1) // 2 if causal else sq * sk
         nbytes = 4 * (2 * b * sq * h * d + 2 * b * sk * kv * d)
         flops = 4.0 * b * h * pairs * d
@@ -238,19 +334,21 @@ def main() -> int:
         fma_bound_ms, _ = bound(nbytes, flops)
         row = dict(shape=name, q=[b, sq, h, d], kv=[b, sk, kv, d], causal=causal,
                    max_abs_err=err, f32_limit_use=use, ms=ms, plain_ms=plain_ms,
+                   call_ms=call_ms, plain_call_ms=plain_call_ms,
                    bound_ms=bound_ms, bound_by=bound_by, fma_bound_ms=fma_bound_ms,
-                   library_ms=library_ms, vs_library=ms / library_ms,
-                   bound_share=bound_ms / ms)
+                   library_ms=library_ms, library_call_ms=library_call_ms,
+                   vs_library=ms / library_ms, bound_share=bound_ms / ms)
         flash_rows.append(row)
         print(f"flash {name:10s} q={row['q']} kv={row['kv']} causal={causal}: "
               f"max_err={err:.3g} ({use:.3f} of the f32 limit) ms={ms:.4f} "
+              f"call_ms={call_ms:.4f} "
               f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
               f"(kernel/sdpa {ms / library_ms:.2f}x) bound_ms={bound_ms:.4f} "
               f"(3xTF32 {bound_by}; {bound_ms / ms:.1%} of it) "
               f"fma_bound_ms={fma_bound_ms:.4f}")
         check(use <= 1.0, f"flash {name}: max_err {err}, {use} of the f32 limit "
                           f"|a-b| <= {F32_RTOL} |b| + {F32_ATOL}")
-        del q, k, v, qt, kt, vt
+        del q, k, v, sets
 
     pd = PORT.patch ** 2 * PORT.vae_latent_ch
     x, eps = randn(1, n, pd), randn(1, n, pd)
@@ -260,18 +358,19 @@ def main() -> int:
     out = ddim_step(x, eps, a_t, a_p)
     torch.cuda.synchronize()
     ddim_err = float((out - ddim_step_ref(x, eps, c1, c2)).abs().max())
-    scratch = torch.empty(1 << 26, device=dev)  # 256 MB: more than the L2
-    flush = scratch.zero_
-    ddim_ms, ddim_plain_ms = kernel_and_plain_ms(
-        torch, lambda: ddim_step(x, eps, a_t, a_p),
-        lambda: ddim_step_ref(x, eps, c1, c2), 25, flush)
+    sets = rotation((x, eps))
+    ddim_ms, ddim_plain_ms, ddim_call_ms, _ = kernel_and_plain_ms(
+        torch, [lambda c=c: ddim_step(*c, a_t, a_p) for c in sets],
+        [lambda c=c: ddim_step_ref(*c, c1, c2) for c in sets], 25)
     ddim_bound_ms, ddim_bound_by = bound(3 * 4 * x.numel(), 3 * x.numel())
     print(f"ddim  latent     x={list(x.shape)}: max_err={ddim_err:.3g} "
-          f"(tol {DDIM_TOL}) ms={ddim_ms:.5f} plain_ms={ddim_plain_ms:.5f} "
+          f"(tol {DDIM_TOL}) ms={ddim_ms:.5f} call_ms={ddim_call_ms:.5f} "
+          f"plain_ms={ddim_plain_ms:.5f} "
           f"library_ms=null bound_ms={ddim_bound_ms:.5f} ({ddim_bound_by})")
     check(ddim_err <= DDIM_TOL, f"ddim: max_err {ddim_err} > {DDIM_TOL}")
-    del x, eps, out, scratch
+    del x, eps, out, sets
 
+    ublkcp = decode_build_report(lib_path)
     decode_rows = decode_kernel_phase(torch, F, dev, randn)
     hgmma = flash_build_report(lib_path, "flash_fwd_bf16")
     flash_bf16_rows = flash_bf16_phase(torch, F, dev, randn)
@@ -414,7 +513,8 @@ def main() -> int:
              source="src/repro_torch/kernels/ddim_step/csrc/ddim_step.cu",
              replaces="src/repro/kernels/ddim_step/kernel.py:33",
              launches=served_launches["ddim_step"], max_abs_err=ddim_err,
-             ms=ddim_ms, plain_ms=ddim_plain_ms, bound_ms=ddim_bound_ms,
+             ms=ddim_ms, call_ms=ddim_call_ms, plain_ms=ddim_plain_ms,
+             bound_ms=ddim_bound_ms,
              bound_by=ddim_bound_by, library_ms=None, at="latent [1,18900,64]"),
     ]
     fb = next(r for r in flash_bf16_rows if r["shape"] == "qwen3_prefill_512")
@@ -439,9 +539,10 @@ def main() -> int:
             source="src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
             replaces=replaces, launches=llm[counter],
             max_abs_err=max(r["max_abs_err"] for r in rows),
-            ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-            bound_by=main["bound_by"], library_ms=main["library_ms"],
-            at=main["shape"], shapes=rows))
+            ms=main["ms"], call_ms=main["call_ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main["library_ms"], at=main["shape"], ublkcp=ublkcp,
+            shapes=rows))
     served = next(r for r in wkv_rows if r["shape"] == "served_512")
     kernels.append(dict(
         name="wkv6", route="cuda",
@@ -463,8 +564,11 @@ def decode_kernel_phase(torch, F, dev, randn) -> list:
     """Flash-decode, float (bfloat16) and int8 cache, both layouts, at B 8,
     KV 8, G 2, D 128, S 32768: a mixed per-row index and a full-cache scalar
     index; and at the served shape, S 1024 in the serving layout, with a
-    mixed index on both sides of the 256-position chunk edges.  The bound
-    counts the cache positions this call's indices cover."""
+    mixed index on both sides of the chunk edges.  The bound counts the
+    cache positions this call's indices cover.  Kernel, plain version and
+    SDPA are timed by `device_ms` (the served caches rotate over copies
+    that hold ROTATION_BYTES; one S 32768 call reads more than the L2
+    holds), with the single call's time beside it as call_ms."""
     from repro_torch.kernels import decode_attention as K
 
     b, kv, g, d, s_long, s_served = 8, 8, 2, 128, 32768, 1024
@@ -495,18 +599,21 @@ def decode_kernel_phase(torch, F, dev, randn) -> list:
     rows = []
     for name, kind, (kernel, plain), cache, seq_axis, s, cur_list in cases:
         vector = isinstance(cur_list, list)
-        cur = (torch.tensor(cur_list, dtype=torch.int32, device=dev) if vector
-               else cur_list)
+        cur_t = torch.tensor(cur_list, dtype=torch.int32, device=dev)
+        cur = cur_t if vector else cur_list   # the kernel takes an int as it is
+        sets = rotation((q,) + cache)
 
-        def run_kernel():
-            return kernel(q, *cache, cur, seq_axis=seq_axis)
+        def run_kernel(c=sets[0]):
+            return kernel(*c, cur, seq_axis=seq_axis)
 
-        def run_plain():
-            return plain(q, *cache, cur, seq_axis=seq_axis)
+        def run_plain(c=sets[0]):             # a device index: no host copy
+            return plain(*c, cur_t, seq_axis=seq_axis)
         out = run_kernel()
         torch.cuda.synchronize()
         err, use = limit_errs(out, run_plain())
-        ms, plain_ms = kernel_and_plain_ms(torch, run_kernel, run_plain, 10)
+        ms, plain_ms, call_ms, plain_call_ms = kernel_and_plain_ms(
+            torch, [lambda c=c: run_kernel(c) for c in sets],
+            [lambda c=c: run_plain(c) for c in sets], 10, force=True)
         positions = sum(min(c, s - 1) + 1 for c in (cur_list if vector else [cur] * b))
         qo_bytes = 2 * b * kv * g * d * 2
         if kind == "fp":
@@ -514,36 +621,43 @@ def decode_kernel_phase(torch, F, dev, randn) -> list:
             bound_ms, bound_by = bound(nbytes, 4 * positions * kv * g * d,
                                        BF16_FLOPS_PER_S)
             mask = (torch.arange(s, device=dev)[None, :]
-                    <= (cur if vector else torch.full((b,), cur, device=dev))[:, None])
-            qh = q.reshape(b, kv * g, 1, d)
-            kl, vl = (cache if seq_axis == 2 else
-                      tuple(x.transpose(1, 2) for x in cache))
+                    <= cur_t.reshape(-1).expand(b)[:, None])[:, None, None, :]
 
-            def library():
+            def library(qc, kl, vl):
+                if seq_axis == 1:
+                    kl, vl = kl.transpose(1, 2), vl.transpose(1, 2)
                 return F.scaled_dot_product_attention(
-                    qh, kl, vl, attn_mask=mask[:, None, None, :], enable_gqa=True)
-            lib_err = float((library().reshape(out.shape).float()
+                    qc.reshape(b, kv * g, 1, d), kl, vl, attn_mask=mask,
+                    enable_gqa=True)
+            lib_err = float((library(*sets[0]).reshape(out.shape).float()
                              - out.float()).abs().max())
-            library_ms = statistics.median(cuda_times(torch, library, 10))
+            library_ms, library_call_ms = library_times(
+                torch, [lambda c=c: library(*c) for c in sets], 10, force=True)
         else:
             nbytes = positions * kv * (d * 2 + 4 * 2) + qo_bytes
             bound_ms, bound_by = bound(nbytes, 4 * positions * kv * g * d,
                                        INT8_OPS_PER_S)
-            library_ms, lib_err = None, None
+            library_ms = library_call_ms = lib_err = None
         row = dict(shape=name, kind=kind, q=[b, kv, g, d], seq_len=s,
                    layout="[B,KV,S,D]" if seq_axis == 2 else "[B,S,KV,D]",
                    cur_index=cur_list, max_abs_err=err, bf16_limit_use=use,
-                   ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, library_ms=library_ms, bytes=nbytes)
+                   ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                   plain_call_ms=plain_call_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, bound_share=bound_ms / ms,
+                   library_ms=library_ms, library_call_ms=library_call_ms,
+                   bytes=nbytes, copies=len(sets))
         rows.append(row)
         print(f"decode {name:18s} q={row['q']} S={s} {row['layout']}: "
-              f"max_err={err:.3g} ({use:.3f} of the bf16 limit) ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} "
-              f"library_ms={library_ms if library_ms is None else round(library_ms, 4)} "
-              f"(library vs kernel {lib_err if lib_err is None else round(lib_err, 5)}) "
-              f"bound_ms={bound_ms:.4f} ({bound_by}, {nbytes / 1e9:.3f} GB)")
+              f"max_err={err:.3g} ({use:.3f} of the bf16 limit) ms={ms:.5f} "
+              f"call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms if library_ms is None else round(library_ms, 5)} "
+              f"(call {library_call_ms if library_call_ms is None else round(library_call_ms, 4)}; "
+              f"library vs kernel {lib_err if lib_err is None else round(lib_err, 5)}) "
+              f"bound_ms={bound_ms:.5f} ({bound_by}, {nbytes / 1e9:.4f} GB; "
+              f"{bound_ms / ms:.1%} of it) over {len(sets)} cache copies")
         check(use <= 1.0, f"decode {name}: max_err {err}, {use} of the bf16 limit "
                           f"|a-b| <= {BF16_RTOL} |b| + {BF16_ATOL}")
+        del sets
     return rows
 
 
@@ -561,18 +675,15 @@ FLASH_BF16_CASES = [
 ]
 
 
-def flash_build_report(lib_path, kernel: str) -> int:
-    """A flash kernel's build (``kernel``: ``flash_fwd_f32`` or
-    ``flash_fwd_bf16``, both on the tensor cores): each instantiation's
-    registers and spills from ptxas, any wgmma serialisation ptxas reports,
-    and the count of warpgroup MMA instructions (HGMMA) in its SASS.  Fails
-    if an instantiation holds none: it would not be on the tensor cores."""
+def sass_report(lib_path, kernel: str, instr: str) -> dict:
+    """Each instantiation of ``kernel`` in the library, by its mangled name:
+    the count of ``instr`` in its SASS, and its registers, spills and any
+    note on wgmma from ptxas."""
     import re
 
     from repro_torch.kernels import _build
     from torch.utils.cpp_extension import CUDA_HOME
 
-    label = kernel.rsplit("_", 1)[-1]
     entry, report = None, {}
     for line in (_build.BUILD_DIR / "ptxas.log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -594,21 +705,64 @@ def flash_build_report(lib_path, kernel: str) -> int:
     sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
                            str(lib_path)], capture_output=True, text=True, timeout=300)
     check(sass.returncode == 0, f"cuobjdump: {sass.stderr.strip()[:500]}")
-    total, found = 0, 0
+    found = {}
     for func in sass.stdout.split("Function : ")[1:]:
         name = func.splitlines()[0].strip()
-        if kernel not in name:
-            continue
-        n = func.count("HGMMA")
-        total, found = total + n, found + 1
+        if kernel in name:
+            found[name] = dict(report.get(name, {}), count=func.count(instr))
+    check(len(found) > 0, f"{kernel} not in the library's SASS")
+    return found
+
+
+def flash_build_report(lib_path, kernel: str) -> int:
+    """A flash kernel's build (``kernel``: ``flash_fwd_f32`` or
+    ``flash_fwd_bf16``, both on the tensor cores): each instantiation's
+    registers and spills from ptxas, any wgmma serialisation ptxas reports,
+    and the count of warpgroup MMA instructions (HGMMA) in its SASS.  Fails
+    if an instantiation holds none: it would not be on the tensor cores."""
+    import re
+
+    label = kernel.rsplit("_", 1)[-1]
+    total = 0
+    for name, r in sass_report(lib_path, kernel, "HGMMA").items():
+        n = r["count"]
+        total += n
         dim = re.search(kernel + r"ILi(\d+)E", name).group(1)
-        r = report.get(name, {})
         print(f"flash {label} build: D={dim}: "
               f"HGMMA {n}, registers {r.get('registers')}, spill stores/loads "
               f"{r.get('spill')} bytes; ptxas on wgmma: {r.get('wgmma_notes', 'nothing')}")
         check(n > 0, f"flash {label}: no HGMMA in {name}")
     print(f"flash {label} build: {total} HGMMA instructions in {kernel}'s SASS")
-    check(found > 0, f"flash {label}: {kernel} not in the library's SASS")
+    return total
+
+
+def decode_build_report(lib_path) -> int:
+    """The flash-decode split kernel's build: for each of its 24
+    instantiations (cache and query type, D, group tile) the bulk copies by
+    the TMA (UBLKCP) in its SASS and its registers and spills from ptxas.
+    Fails if one holds no bulk copy or spills."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = sass_report(lib_path, "decode_split", "UBLKCP")
+    names = list(found)
+    filt = subprocess.run([os.path.join(CUDA_HOME, "bin", "cu++filt")],
+                          input="\n".join(names), capture_output=True, text=True,
+                          timeout=60)
+    readable = (filt.stdout.splitlines() if filt.returncode == 0 else names)
+    total = 0
+    for name, label in zip(names, readable):
+        r = found[name]
+        total += r["count"]
+        label = label[:label.rfind(">(") + 1] or label   # the template, no parameters
+        for junk in ("void ", "<unnamed>::", "(anonymous namespace)::", "(int)"):
+            label = label.replace(junk, "")
+        print(f"decode build: {label}: UBLKCP {r['count']}, registers "
+              f"{r.get('registers')}, spill stores/loads {r.get('spill')} bytes")
+        check(r["count"] > 0, f"decode: no bulk copy in {label}")
+        check(r.get("spill", (0, 0)) == (0, 0), f"decode: {label} spills")
+    print(f"decode build: {total} UBLKCP instructions in {len(found)} "
+          f"instantiations of decode_split")
+    check(len(found) == 24, f"decode: {len(found)} instantiations of decode_split")
     return total
 
 
@@ -628,30 +782,33 @@ def flash_bf16_phase(torch, F, dev, randn) -> list:
         torch.cuda.synchronize()
         err, use = limit_errs(out, attention_ref(q, k, v, causal=causal))
         del out
-        ms, plain_ms = kernel_and_plain_ms(
-            torch, lambda: flash_attention(q, k, v, causal=causal),
-            lambda: attention_ref(q, k, v, causal=causal), reps)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        library_ms = statistics.median(cuda_times(
-            torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=h != kv), reps))
+        sets = rotation((q, k, v))
+        ms, plain_ms, call_ms, plain_call_ms = kernel_and_plain_ms(
+            torch, [lambda c=c: flash_attention(*c, causal=causal) for c in sets],
+            [lambda c=c: attention_ref(*c, causal=causal) for c in sets], reps)
+        library_ms, library_call_ms = library_times(
+            torch, [lambda c=c: F.scaled_dot_product_attention(
+                *(x.transpose(1, 2) for x in c), is_causal=causal,
+                enable_gqa=h != kv) for c in sets], reps,
+            force=call_ms < DEVICE_TIME_BELOW_MS)
         pairs = sq * (sq + 1) // 2 if causal else sq * sk
         bound_ms, bound_by = bound(2 * (2 * b * sq * h * d + 2 * b * sk * kv * d),
                                    4.0 * b * h * pairs * d, BF16_FLOPS_PER_S)
         row = dict(shape=name, q=[b, sq, h, d], kv=[b, sk, kv, d], causal=causal,
                    dtype="bfloat16", max_abs_err=err, bf16_limit_use=use,
-                   ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   library_ms=library_ms, vs_library=ms / library_ms,
-                   bound_share=bound_ms / ms)
+                   ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                   plain_call_ms=plain_call_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms, library_call_ms=library_call_ms,
+                   vs_library=ms / library_ms, bound_share=bound_ms / ms)
         rows.append(row)
         print(f"flash {name} q={row['q']} kv={row['kv']} bf16 causal={causal}: "
               f"max_err={err:.3g} ({use:.3f} of the bf16 limit) ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
+              f"call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
               f"(kernel/sdpa {ms / library_ms:.2f}x) bound_ms={bound_ms:.4f} "
               f"({bound_by}; {bound_ms / ms:.1%} of it)")
         check(use <= 1.0, f"flash bf16 {name}: max_err {err}, {use} of the bf16 "
                           f"limit |a-b| <= {BF16_RTOL} |b| + {BF16_ATOL}")
-        del q, k, v, qt, kt, vt
+        del q, k, v, sets
     return rows
 
 
@@ -828,28 +985,31 @@ def wkv6_kernel_phase(torch, dev, randn) -> list:
         s_err = float((s - rs).abs().max())
         s_use = float(((s - rs).abs() / (WKV_STATE_TOL * (1 + rs.abs()))).max())
         del y, s, ry, rs, a, ref
-        ms, plain_ms = kernel_and_plain_ms(
-            torch, lambda: wkv6(r, k, v, w, u, s0),
-            lambda: wkv6_ref(r, k, v, w, u, s0), reps)
+        sets = rotation((r, k, v, w, u, s0))
+        ms, plain_ms, call_ms, plain_call_ms = kernel_and_plain_ms(
+            torch, [lambda c=c: wkv6(*c) for c in sets],
+            [lambda c=c: wkv6_ref(*c) for c in sets], reps)
         nbytes = 5 * b * t * h * kk * r.element_size() + u.numel() * u.element_size() \
             + 2 * b * h * kk * kk * 4
         bound_ms, bound_by = bound(nbytes, 5.0 * b * t * h * kk * kk)
         row = dict(shape=name, b=b, t=t, h=h, k=kk, dtype=tname,
                    nonzero_state=nonzero, max_abs_err=y_err, y_limit_use=y_use,
                    state_max_abs_err=s_err, state_limit_use=s_use, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   call_ms=call_ms, plain_ms=plain_ms, plain_call_ms=plain_call_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
                    library_ms=None, serial_steps=t)
         rows.append(row)
         print(f"wkv6 {name:10s} B={b} T={t} H={h} K={kk} {tname}: y max_err={y_err:.3g} "
               f"({y_use:.3f} of the limit |a-b| <= {WKV_RTOL[tname]:.3g} |b| + "
               f"{WKV_ATOL_SHARE} max|b|), state max_err={s_err:.3g} ({s_use:.3f} of "
-              f"{WKV_STATE_TOL} (1 + |b|)) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"{WKV_STATE_TOL} (1 + |b|)) ms={ms:.4f} call_ms={call_ms:.4f} "
+              f"plain_ms={plain_ms:.4f} "
               f"library: none bound_ms={bound_ms:.4f} ({bound_by}, "
               f"{nbytes / 1e6:.1f} MB) serial length T={t} (T dependent steps "
               f"bound this kernel, not either roofline)")
         check(y_use <= 1.0 and s_use <= 1.0,
               f"wkv6 {name}: y {y_use:.3g}, state {s_use:.3g} of their limits")
-        del r, k, v, w, u, s0
+        del r, k, v, w, u, s0, sets
     return rows
 
 
@@ -1030,4 +1190,4 @@ def _to(torch, tree, dev):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

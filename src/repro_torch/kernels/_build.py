@@ -35,7 +35,7 @@ SIGNATURES = {
     "repro_flash_attention_bf16": ([_P, _P, _P, _P] + [_I] * 7 + [_F, _P], _I),
     "repro_decode_attention": ([_P] * 7 + [_I] * 5 + [_L] * 3 + [_I, _F, _P], _I),
     "repro_decode_attention_int8": ([_P] * 9 + [_I] * 5 + [_L] * 3 + [_I, _F, _P], _I),
-    "repro_decode_attention_chunk": ([], _I),
+    "repro_decode_attention_chunk": ([_I, _I], _I),
     "repro_ddim_step_f32": ([_P, _P, _P, ctypes.c_int64, _F, _F, _P], _I),
     "repro_wkv6": ([_P] * 8 + [_I] * 5 + [_P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),

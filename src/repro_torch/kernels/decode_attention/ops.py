@@ -27,8 +27,16 @@ HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _chunk() -> int:
-    return _build.library().repro_decode_attention_chunk()
+#: (cache element bytes, D) -> cache positions per split block, as the
+#: library reports it; read once per pair
+_CHUNKS: dict = {}
+
+
+def _chunk(elem_bytes: int, d: int) -> int:
+    key = (elem_bytes, d)
+    if key not in _CHUNKS:
+        _CHUNKS[key] = _build.library().repro_decode_attention_chunk(elem_bytes, d)
+    return _CHUNKS[key]
 
 
 def _cur_vector(cur_index, b: int, device: torch.device) -> torch.Tensor:
@@ -68,9 +76,9 @@ def _check_cache(q, named, seq_axis: int, dtype):
     return s, k.stride(0), k.stride(kv_axis), k.stride(seq_axis)
 
 
-def _partials(q, s: int):
+def _partials(q, cache, s: int):
     b, kv, g, d = q.shape
-    n_split = -(-s // _chunk())
+    n_split = -(-s // _chunk(cache.element_size(), d))
     acc = torch.empty(b * kv * g * n_split * d, dtype=torch.float32, device=q.device)
     ml = torch.empty(b * kv * g * n_split * 2, dtype=torch.float32, device=q.device)
     return acc, ml
@@ -91,7 +99,7 @@ def decode_attention_grouped(q: torch.Tensor, k_cache: torch.Tensor,
     b, kv, g, d = q.shape
     cur = _cur_vector(cur_index, b, q.device)
     out = torch.empty_like(q)
-    acc, ml = _partials(q, s)
+    acc, ml = _partials(q, k_cache, s)
     err = _build.library().repro_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cur.data_ptr(),
         out.data_ptr(), acc.data_ptr(), ml.data_ptr(), b, kv, g, s, d, sb, skv,
@@ -125,7 +133,7 @@ def decode_attention_int8_grouped(q: torch.Tensor, k_q: torch.Tensor,
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
     cur = _cur_vector(cur_index, b, q.device)
     out = torch.empty_like(q)
-    acc, ml = _partials(q, s)
+    acc, ml = _partials(q, k_q, s)
     err = _build.library().repro_decode_attention_int8(
         q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), cur.data_ptr(), out.data_ptr(), acc.data_ptr(),

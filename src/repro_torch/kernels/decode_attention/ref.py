@@ -6,12 +6,25 @@ and softmax in float32 with q scaled by D^-0.5 first, positions past
 the scores by the k scales and the probabilities by the v scales before the
 PV product, as the kernel does.  The CPU path of the wrappers runs them; on
 the card they are what the kernels are held against.
+
+``decode_chunked_ref`` emulates the kernel's order instead: fixed chunks of
+``chunk_len`` positions, each with its own (m, l, acc), combined in
+ascending chunk order.  Only the tests use it.
 """
 from __future__ import annotations
 
 import torch
 
 NEG_INF = -1e30
+#: bytes of K rows a split block of the kernel holds (``TILE_BYTES`` in
+#: csrc/decode_attention.cu; a card test holds the two equal)
+TILE_BYTES = 32768
+
+
+def chunk_len(elem_bytes: int, d: int) -> int:
+    """Cache positions per split block of the kernel: 128 of bfloat16 at D
+    128, 256 of int8, 64 of float32."""
+    return TILE_BYTES // (d * elem_bytes)
 
 
 def _valid(cur_index: torch.Tensor, b: int, s: int, device) -> torch.Tensor:
@@ -64,3 +77,45 @@ def quantize_kv(cache: torch.Tensor):
     q = torch.clamp(torch.round(cache.float() / scale[..., None]),
                     -127, 127).to(torch.int8)
     return q, scale.transpose(1, 2).contiguous()
+
+
+def decode_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cur_index,
+                       *, seq_axis: int = 2, k_scale=None, v_scale=None,
+                       chunk: int = 0) -> torch.Tensor:
+    """The kernel's order in plain PyTorch: per row, chunks of ``chunk``
+    positions (the kernel's ``chunk_len`` by default) up to cur_index, each
+    with its max m, sum l and unnormalised acc, then
+    out = sum_j acc_j e^(m_j - M) / sum_j l_j e^(m_j - M), the sums taken
+    in ascending chunk order.  A float cache, or an int8 one with both
+    scales [B,KV,S].  -> [B,KV,G,D] in q's type."""
+    k, v = _serving_layout(k, seq_axis), _serving_layout(v, seq_axis)
+    b, _, _, d = q.shape
+    s = k.shape[2]
+    chunk = chunk or chunk_len(k.element_size(), d)
+    qf = q.float() * d ** -0.5
+    cur = torch.as_tensor(cur_index).reshape(-1).expand(b).tolist()
+    out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for r, c in enumerate(cur):
+        c = min(c, s - 1)
+        parts = []
+        for start in range(0, c + 1, chunk):
+            end = min(start + chunk, c + 1)
+            sc = torch.einsum("ngd,ntd->ngt", qf[r], k[r, :, start:end].float())
+            if k_scale is not None:
+                sc = sc * k_scale[r, :, None, start:end]
+            m = sc.amax(dim=-1)
+            p = torch.exp(sc - m[..., None])
+            l = p.sum(dim=-1)
+            if v_scale is not None:
+                p = p * v_scale[r, :, None, start:end]
+            parts.append((m, l, torch.einsum("ngt,ntd->ngd", p, v[r, :, start:end].float())))
+        if not parts:
+            continue
+        mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        l, acc = torch.zeros_like(mx), torch.zeros_like(out[r])
+        for m, lj, aj in parts:
+            w = torch.exp(m - mx)
+            l = l + lj * w
+            acc = acc + aj * w[..., None]
+        out[r] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype)

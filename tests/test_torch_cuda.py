@@ -280,6 +280,119 @@ def test_decode_int8_kernel_matches_plain_on_card(cuda, dtype, seq_axis, b, s, h
     torch.testing.assert_close(out.float(), ref.float(), **INT8_TOLS[dtype])
 
 
+def _decode_case(cuda, seed, b, s, kv, g, d, seq_axis, cache_dtype, q_dtype):
+    """q [B,KV,G,D] in q_dtype and the cache arguments of the kernel's
+    wrapper: (k, v) in cache_dtype, or int8 (k, v, k_scale, v_scale)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(b, kv, g, d, generator=gen, device=cuda).to(q_dtype)
+    k, v = (torch.randn(b, s, kv, d, generator=gen, device=cuda) for _ in range(2))
+    if cache_dtype == torch.int8:
+        (kq, ks), (vq, vs) = K.quantize_kv(k), K.quantize_kv(v)
+        if seq_axis == 2:
+            kq, vq = kq.transpose(1, 2).contiguous(), vq.transpose(1, 2).contiguous()
+        return q, (kq, vq, ks, vs)
+    k, v = k.to(cache_dtype), v.to(cache_dtype)
+    if seq_axis == 2:
+        k, v = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    return q, (k, v)
+
+
+def _check_decode(q, cache, cur, seq_axis):
+    """The kernel once (its counter risen by one) against its plain version."""
+    int8 = cache[0].dtype == torch.int8
+    kernel = K.decode_attention_int8_grouped if int8 else K.decode_attention_grouped
+    plain = K.decode_int8_ref if int8 else K.decode_ref
+    launches = kernel.launches
+    out = kernel(q, *cache, cur, seq_axis=seq_axis)
+    torch.cuda.synchronize()
+    assert kernel.launches == launches + 1
+    ref = plain(q, *cache, cur, seq_axis=seq_axis)
+    tols = (INT8_TOLS if int8 else TOLS)[q.dtype]
+    torch.testing.assert_close(out.float(), ref.float(), **tols)
+    return out
+
+
+#: (cache type, q type): the kernel's four instantiated pairs
+DECODE_TYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                (torch.int8, torch.float32), (torch.int8, torch.bfloat16)]
+
+
+def test_decode_chunk_matches_the_plain_rule():
+    """The wrappers size the partials by the library's chunk; the CPU
+    emulation (``decode_chunked_ref``) by ``chunk_len``.  Checked on the
+    card, where the library builds; here the rule's served values."""
+    assert (K.chunk_len(2, 128), K.chunk_len(1, 128), K.chunk_len(4, 128)) == (128, 256, 64)
+
+
+@pytest.mark.gpu
+def test_decode_chunk_of_the_library_equals_the_plain_rule(cuda):
+    for elem in (1, 2, 4):
+        for d in (32, 64, 128):
+            assert _build.library().repro_decode_attention_chunk(elem, d) == \
+                K.chunk_len(elem, d), (elem, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seq_axis", [1, 2])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("cache_dtype,q_dtype", DECODE_TYPES)
+def test_decode_kernel_at_chunk_edges_on_card(cuda, cache_dtype, q_dtype, d, seq_axis):
+    """Rows whose last position is CHUNK - 1, CHUNK, CHUNK + 1 and S - 1
+    (a ragged last chunk of 37 rows), at every head size and type pair."""
+    chunk = K.chunk_len(cache_dtype.itemsize, d)
+    s = 2 * chunk + 37
+    q, cache = _decode_case(cuda, d + chunk, 4, s, 2, 2, d, seq_axis, cache_dtype,
+                            q_dtype)
+    cur = torch.tensor([chunk - 1, chunk, chunk + 1, s - 1], dtype=torch.int32,
+                       device=cuda)
+    _check_decode(q, cache, cur, seq_axis)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seq_axis", [1, 2])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [97, 301, 603])
+def test_decode_int8_kernel_with_unaligned_scales_on_card(cuda, s, q_dtype, seq_axis):
+    """S not a multiple of 4: a row's scales [b, kv, :] start off the 16-byte
+    grid for most (b, kv), so the kernel loads them by plain loads there and
+    by bulk copy where aligned; no read past S."""
+    q, cache = _decode_case(cuda, s, 3, s, 3, 4, 64, seq_axis, torch.int8, q_dtype)
+    cur = torch.tensor([s - 1, s // 2, 0], dtype=torch.int32, device=cuda)
+    _check_decode(q, cache, cur, seq_axis)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.int8])
+def test_decode_kernel_rows_do_not_depend_on_the_batch_on_card(cuda, cache_dtype):
+    """Each row of a batch of 8, with 8 different indices, equals the same
+    row decoded alone at B 1, bit for bit, at qwen3-1.7b's heads (KV 8, G 2,
+    D 128) over a 1024-position cache: a served stream equals its solo
+    generate only so."""
+    q, cache = _decode_case(cuda, 11, 8, 1024, 8, 2, 128, 2, cache_dtype, torch.bfloat16)
+    cur = [1023, 700, 511, 256, 255, 127, 1, 0]
+    batch = _check_decode(q, cache, torch.tensor(cur, dtype=torch.int32, device=cuda), 2)
+    for i, c in enumerate(cur):
+        alone = _check_decode(q[i:i + 1].contiguous(),
+                              tuple(x[i:i + 1].contiguous() for x in cache),
+                              torch.tensor([c], dtype=torch.int32, device=cuda), 2)
+        assert torch.equal(alone, batch[i:i + 1]), (i, c)
+
+
+@pytest.mark.gpu
+def test_decode_kernels_copy_by_the_tma(cuda):
+    """Every instantiation of the split kernel (3 head sizes x 4 type pairs
+    x 2 group tiles) holds bulk copies (UBLKCP) in its SASS."""
+    import subprocess
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run([f"{CUDA_HOME}/bin/cuobjdump", "-sass", str(_build.build())],
+                          capture_output=True, text=True, check=True).stdout
+    split = [f for f in sass.split("Function : ")[1:] if "decode_split" in f.splitlines()[0]]
+    assert len(split) == 24
+    assert all("UBLKCP" in f for f in split)
+
+
 #: WKV6 y against its plain version, element by element:
 #: |a - b| <= rtol |b| + WKV_ATOL_SHARE max|b|.  Kernel and plain version sum
 #: y's 64 products r_k S_kv (terms up to ~10 here) in another order, and

@@ -278,6 +278,55 @@ def test_decode_int8_plain_matches_pallas_and_oracle(b, s, h, kv, d, cur):
     np.testing.assert_allclose(serving.numpy(), oracle, **INT8_TOL)
 
 
+#: the kernel's chunk edges at a small size: a float32 cache at D 32 splits
+#: into chunks of K.chunk_len(4, 32) = 256 positions; rows end at CHUNK - 1,
+#: CHUNK, CHUNK + 1 and S - 1
+CHUNK_EDGE_CASE = (4, 600, 4, 2, 32, [255, 256, 257, 599])
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,cur", DECODE_CASES + [CHUNK_EDGE_CASE])
+def test_decode_chunked_order_matches_plain_and_pallas(b, s, h, kv, d, cur):
+    """The kernel's order (fixed chunks, each with its own m, l and acc,
+    combined in ascending order) gives the plain softmax and the Pallas
+    kernel's output: at the kernel's chunk, and at 16-position chunks where
+    every case spans several."""
+    assert K.chunk_len(4, 32) == 256
+    q, k, v = _decode_inputs(7, b, s, h, kv, d)
+    kc, vc = k.transpose(0, 2, 1, 3).copy(), v.transpose(0, 2, 1, 3).copy()
+    qg = t(q).reshape(b, kv, h // kv, d)
+    plain = K.decode_ref(qg, t(kc), t(vc), _cur(cur)).reshape(b, h, d)
+    pallas = _per_row(lambda *a: jops.decode_attention_cache(*a, interpret=True),
+                      cur, b, q, kc, vc)
+    for chunk in (0, 16):
+        native = K.decode_chunked_ref(qg, t(k), t(v), _cur(cur), seq_axis=1, chunk=chunk)
+        serving = K.decode_chunked_ref(qg, t(kc), t(vc), _cur(cur), chunk=chunk)
+        for got in (native, serving):
+            np.testing.assert_allclose(got.reshape(b, h, d).numpy(), plain.numpy(), **TOL)
+            np.testing.assert_allclose(got.reshape(b, h, d).numpy(), pallas, **TOL)
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,cur", DECODE_CASES + [CHUNK_EDGE_CASE])
+def test_decode_int8_chunked_order_matches_plain_and_pallas(b, s, h, kv, d, cur):
+    """The same over the int8 cache: the k scale on the scores and the v
+    scale on the probabilities inside each chunk."""
+    q, k, v = _decode_inputs(8, b, s, h, kv, d)
+    kq, ks = map(np.asarray, jops.quantize_kv(jnp.asarray(k)))
+    vq, vs = map(np.asarray, jops.quantize_kv(jnp.asarray(v)))
+    kqc, vqc = kq.transpose(0, 2, 1, 3).copy(), vq.transpose(0, 2, 1, 3).copy()
+    qg = t(q).reshape(b, kv, h // kv, d)
+    plain = K.decode_int8_ref(qg, t(kqc), t(vqc), t(ks), t(vs), _cur(cur)).reshape(b, h, d)
+    pallas = _per_row(lambda *a: jops.decode_attention_int8_cache(*a, interpret=True),
+                      cur, b, q, kqc, vqc, ks, vs)
+    for chunk in (0, 16):
+        native = K.decode_chunked_ref(qg, t(kq), t(vq), _cur(cur), seq_axis=1,
+                                      k_scale=t(ks), v_scale=t(vs), chunk=chunk)
+        serving = K.decode_chunked_ref(qg, t(kqc), t(vqc), _cur(cur), k_scale=t(ks),
+                                       v_scale=t(vs), chunk=chunk)
+        for got in (native, serving):
+            np.testing.assert_allclose(got.reshape(b, h, d).numpy(), plain.numpy(), **TOL)
+            np.testing.assert_allclose(got.reshape(b, h, d).numpy(), pallas, **TOL)
+
+
 # --------------------------------------------------------------- model
 def _jax_padded(cache, max_len):
     pad = lambda x: jnp.pad(x, [(0, 0)] * 3 + [(0, max_len - x.shape[3])]
