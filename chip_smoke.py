@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only decode    # set-up and the decode cases alone
+    python3 chip_smoke.py --only wkv6      # set-up and the WKV6 cases alone
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -22,8 +23,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    from the SASS, its registers and spills from ptxas) at qwen3-1.7b's heads
    for 512, 2500 and 4096 tokens, a causal GQA batch and a ragged non-causal
    case, each timed beside SDPA; the WKV6
-   recurrence at rwkv6-7b's heads (a served 512-token prompt, a ragged 97, a
-   long batch of 8 x 4096, and a float32 case at the reduced head size).
+   recurrence in its chunked form (on the tensor cores: its HMMA count from
+   the SASS, its registers and spills from ptxas) at rwkv6-7b's heads (a
+   served 512-token prompt, a ragged 97, a long batch of 8 x 4096, the
+   model's own decays with exact zeros and ones at 512 and a ragged 333
+   tokens, and a float32 case at the reduced head size).
    For each: the largest absolute error against the stated
    tolerance, the kernel's time, the plain version's, one PyTorch library
    call's where one computes the same function (each by `device_ms`, the
@@ -34,7 +38,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    its operations over the peak rate of their type (67 TFLOP/s float32
    outside the tensor cores, 495 TFLOP/s TF32 and 989 TFLOP/s bfloat16 on
    them; H100 SXM data sheet).  The float32 flash kernel's bound counts its
-   three TF32 products; the float32 FMA bound is printed beside it.
+   three TF32 products; the float32 FMA bound is printed beside it.  WKV6's
+   counts its chunked form's tensor-core products (3xTF32) and its CUDA-core
+   work, with the plain loop's float32 FMA bound and the T/64 dependent
+   chunk steps beside it.
 3. The port on small inputs, card against CPU on the same weights: the SMALL
    Wan pipeline's latents and frames (same noise), and the reduced float32
    qwen3 and rwkv6 engines' prefill logits and greedy tokens.
@@ -229,9 +236,9 @@ def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS_PER_S):
 def main(argv) -> int:
     import torch
 
-    only_decode = argv == ["--only", "decode"]
-    if argv and not only_decode:
-        print("usage: chip_smoke.py [--only decode]", file=sys.stderr)
+    only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
+    if argv and only not in ("decode", "wkv6"):
+        print("usage: chip_smoke.py [--only decode|wkv6]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -287,8 +294,11 @@ def main(argv) -> int:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    if only_decode:     # the decode cases alone, e.g. to time two trees in one call
+    if only == "decode":   # the decode cases alone, e.g. to time two trees in one call
         print(json.dumps({"decode": decode_kernel_phase(torch, F, dev, randn)}))
+        return 0
+    if only == "wkv6":
+        print(json.dumps({"wkv6": wkv6_kernel_phase(torch, dev, randn)}))
         return 0
 
     t_dim, t_heads = PORT.text_d_model // PORT.text_heads, PORT.text_heads
@@ -374,6 +384,7 @@ def main(argv) -> int:
     decode_rows = decode_kernel_phase(torch, F, dev, randn)
     hgmma = flash_build_report(lib_path, "flash_fwd_bf16")
     flash_bf16_rows = flash_bf16_phase(torch, F, dev, randn)
+    wkv_hmma = wkv6_build_report(lib_path)
     wkv_rows = wkv6_kernel_phase(torch, dev, randn)
 
     # --------------------------------------------- 3. small input, card vs CPU
@@ -552,7 +563,7 @@ def main(argv) -> int:
         max_abs_err=max(r["max_abs_err"] for r in wkv_rows),
         ms=served["ms"], plain_ms=served["plain_ms"], bound_ms=served["bound_ms"],
         bound_by=served["bound_by"], library_ms=None, at="served_512",
-        shapes=wkv_rows))
+        fma_bound_ms=served["fma_bound_ms"], hmma=wkv_hmma, shapes=wkv_rows))
     print(f"total {time.perf_counter() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -948,28 +959,89 @@ WKV_ATOL_SHARE = 1e-5
 WKV_STATE_TOL = 1e-4
 
 
+WKV_CHUNK, WKV_SUB = 64, 8      # time steps per chunk and per sub-chunk in wkv6.cu
+
+
+def wkv6_operations(b: int, t: int, h: int, kk: int, v_exact: bool):
+    """(tensor-core flops, CUDA-core flops, dependent chunk steps) of the
+    chunked form for [B,T,H,K] (V = K), counting each chunk's real rows.
+    Tensor cores, each multiply-add two flops and each product three TF32
+    products (two where v is bfloat16, exact in TF32): y's state term and
+    the state update, K V a row each; A V, 8 (a + 1) V a row of sub-chunk
+    a (sub-chunks of 8 steps); A between sub-chunks, 8 a K.  CUDA cores:
+    the pairs inside a sub-chunk (3 K a pair: the decay and a
+    multiply-add), the bonus (3 K a row), the decays within sub-chunks (4 K
+    a row) and the state's decay (2 K V a chunk)."""
+    steps = -(-t // WKV_CHUNK)
+    rows = [i % WKV_CHUNK for i in range(t)]
+    sub = [i // WKV_SUB for i in rows]
+    tc = 3 * (t * kk * kk + sum(WKV_SUB * a * kk for a in sub)) + \
+        (2 if v_exact else 3) * (t * kk * kk + sum(WKV_SUB * (a + 1) * kk for a in sub))
+    cc = sum(3 * kk * (i % WKV_SUB) + 7 * kk for i in rows) + steps * 2 * kk * kk
+    return 2.0 * b * h * tc, 1.0 * b * h * cc, steps
+
+
+def wkv6_model_decays(torch, gen, shape, dev):
+    """w as rwkv6 draws it (models/rwkv6.py): exp(-exp(x)) rounded to
+    bfloat16, here for x uniform over [-6, 4] (down to e^-54.6), with 1 %
+    exact zeros and 1 % exact ones planted."""
+    x = torch.rand(shape, generator=gen, device=dev) * 10 - 6
+    w = torch.exp(-torch.exp(x)).bfloat16().float()
+    pick = torch.rand(shape, generator=gen, device=dev)
+    return torch.where(pick < 0.01, 0., torch.where(pick > 0.99, 1., w))
+
+
+def wkv6_build_report(lib_path) -> int:
+    """The WKV6 kernel's build: for each instantiation (input type, K) the
+    tensor-core instructions (HMMA, from mma.sync) in its SASS and its
+    registers and spills from ptxas.  Fails if one holds no HMMA or
+    spills."""
+    found = sass_report(lib_path, "wkv6_chunked", "HMMA")
+    total = 0
+    for name, r in found.items():
+        label = ("bfloat16" if "nv_bfloat16" in name else "float32") + \
+            ", K=" + name.split("Li")[-1].split("E")[0]
+        total += r["count"]
+        print(f"wkv6 build: wkv6_chunked<{label}>: HMMA {r['count']}, registers "
+              f"{r.get('registers')}, spill stores/loads {r.get('spill')} bytes")
+        check(r["count"] > 0, f"wkv6: no HMMA in {label}")
+        check(r.get("spill", (0, 0)) == (0, 0), f"wkv6: {label} spills")
+    print(f"wkv6 build: {total} HMMA instructions in {len(found)} instantiations")
+    check(len(found) == 4, f"wkv6: {len(found)} instantiations of wkv6_chunked")
+    return total
+
+
 def wkv6_kernel_phase(torch, dev, randn) -> list:
     """The WKV6 recurrence against its plain version: rwkv6-7b's 64 heads of
     64 in bfloat16 for a served 512-token prompt from a zero state, a ragged
-    97-token one and a batch of 8 x 4096 from a nonzero state; and the
-    reduced head size 32 in float32.  Inputs drawn as the JAX package's
-    tests draw them.  The bound counts each input and output once (bytes)
-    and 5 K^2 float32 operations per (b, h, t); the T steps depend on each
-    other, so the serial length T, not either roofline, bounds this kernel."""
+    97-token one and a batch of 8 x 4096 from a nonzero state, all with
+    decays drawn as the JAX package's tests draw them ([0.45, 0.95]); the
+    model's own decays (`wkv6_model_decays`: down to e^-54.6, exact zeros
+    and ones) at 512 and a ragged 333 tokens from a nonzero state; and the
+    reduced head size 32 in float32.  The bound counts each input and
+    output once (bytes) against the chunked form's operations
+    (`wkv6_operations`: its tensor-core products at the TF32 rate, its
+    CUDA-core work at the float32 rate, the two overlapping); the plain
+    loop's 5 K^2 float32 operations per (b, h, t) give ``fma_bound_ms``.
+    T/64 chunk steps depend on each other."""
     from repro_torch.kernels import wkv6
     from repro_torch.kernels.rwkv6_wkv import wkv6_ref
 
     cases = [
-        # name, B, T, H, K, dtype, nonzero initial state, repetitions
-        ("served_512", 1, 512, 64, 64, torch.bfloat16, False, 10),
-        ("ragged_97", 1, 97, 64, 64, torch.bfloat16, True, 10),
-        ("long_4096", 8, 4096, 64, 64, torch.bfloat16, True, 3),
-        ("small_f32", 2, 33, 8, 32, torch.float32, True, 10),
+        # name, B, T, H, K, dtype, nonzero initial state, model decays, reps
+        ("served_512", 1, 512, 64, 64, torch.bfloat16, False, False, 10),
+        ("ragged_97", 1, 97, 64, 64, torch.bfloat16, True, False, 10),
+        ("long_4096", 8, 4096, 64, 64, torch.bfloat16, True, False, 3),
+        ("decay_model_512", 1, 512, 64, 64, torch.bfloat16, True, True, 10),
+        ("decay_model_333", 1, 333, 64, 64, torch.bfloat16, True, True, 10),
+        ("small_f32", 2, 33, 8, 32, torch.float32, True, False, 10),
     ]
+    gen = torch.Generator(device=dev).manual_seed(19)
     rows = []
-    for name, b, t, h, kk, dtype, nonzero, reps in cases:
+    for name, b, t, h, kk, dtype, nonzero, model, reps in cases:
         r, k, v = randn(b, t, h, kk), randn(b, t, h, kk) * 0.3, randn(b, t, h, kk)
-        w = torch.sigmoid(randn(b, t, h, kk)) * 0.5 + 0.45
+        w = (wkv6_model_decays(torch, gen, (b, t, h, kk), dev) if model
+             else torch.sigmoid(randn(b, t, h, kk)) * 0.5 + 0.45)
         u = randn(h, kk) * 0.1
         r, k, v, w, u = (x.to(dtype) for x in (r, k, v, w, u))
         s0 = (randn(b, h, kk, kk) * 0.5 if nonzero
@@ -979,11 +1051,13 @@ def wkv6_kernel_phase(torch, dev, randn) -> list:
         ry, rs = wkv6_ref(r, k, v, w, u, s0)
         tname = str(dtype).removeprefix("torch.")
         a, ref = y.float(), ry.float()
+        finite = bool(torch.isfinite(a).all()) and bool(torch.isfinite(s).all())
         y_err = float((a - ref).abs().max())
         y_use = float(((a - ref).abs() / (WKV_RTOL[tname] * ref.abs()
                                           + WKV_ATOL_SHARE * ref.abs().max())).max())
         s_err = float((s - rs).abs().max())
         s_use = float(((s - rs).abs() / (WKV_STATE_TOL * (1 + rs.abs()))).max())
+        zeros, ones = int((w == 0).sum()), int((w == 1).sum())
         del y, s, ry, rs, a, ref
         sets = rotation((r, k, v, w, u, s0))
         ms, plain_ms, call_ms, plain_call_ms = kernel_and_plain_ms(
@@ -991,22 +1065,31 @@ def wkv6_kernel_phase(torch, dev, randn) -> list:
             [lambda c=c: wkv6_ref(*c) for c in sets], reps)
         nbytes = 5 * b * t * h * kk * r.element_size() + u.numel() * u.element_size() \
             + 2 * b * h * kk * kk * 4
-        bound_ms, bound_by = bound(nbytes, 5.0 * b * t * h * kk * kk)
+        tc, cc, steps = wkv6_operations(b, t, h, kk, dtype == torch.bfloat16)
+        t_ops = max(tc / TF32_FLOPS_PER_S, cc / F32_FLOPS_PER_S)
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, t_ops) * 1e3
+        bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= t_ops else "operations"
+        fma_bound_ms, fma_by = bound(nbytes, 5.0 * b * t * h * kk * kk)
         row = dict(shape=name, b=b, t=t, h=h, k=kk, dtype=tname,
-                   nonzero_state=nonzero, max_abs_err=y_err, y_limit_use=y_use,
+                   nonzero_state=nonzero, model_decays=model, w_zeros=zeros, w_ones=ones,
+                   max_abs_err=y_err, y_limit_use=y_use,
                    state_max_abs_err=s_err, state_limit_use=s_use, ms=ms,
                    call_ms=call_ms, plain_ms=plain_ms, plain_call_ms=plain_call_ms,
-                   bound_ms=bound_ms, bound_by=bound_by,
-                   library_ms=None, serial_steps=t)
+                   bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms,
+                   tc_flops=tc, cuda_core_flops=cc, fma_bound_ms=fma_bound_ms,
+                   fma_bound_by=fma_by, library_ms=None, chunk_steps=steps)
         rows.append(row)
-        print(f"wkv6 {name:10s} B={b} T={t} H={h} K={kk} {tname}: y max_err={y_err:.3g} "
+        print(f"wkv6 {name:15s} B={b} T={t} H={h} K={kk} {tname}"
+              f"{f' model decays ({zeros} zeros, {ones} ones)' if model else ''}: "
+              f"y max_err={y_err:.3g} "
               f"({y_use:.3f} of the limit |a-b| <= {WKV_RTOL[tname]:.3g} |b| + "
               f"{WKV_ATOL_SHARE} max|b|), state max_err={s_err:.3g} ({s_use:.3f} of "
-              f"{WKV_STATE_TOL} (1 + |b|)) ms={ms:.4f} call_ms={call_ms:.4f} "
-              f"plain_ms={plain_ms:.4f} "
-              f"library: none bound_ms={bound_ms:.4f} ({bound_by}, "
-              f"{nbytes / 1e6:.1f} MB) serial length T={t} (T dependent steps "
-              f"bound this kernel, not either roofline)")
+              f"{WKV_STATE_TOL} (1 + |b|)) ms={ms:.5f} call_ms={call_ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library: none bound_ms={bound_ms:.5f} "
+              f"({bound_by}: {nbytes / 1e6:.1f} MB, {tc / 1e9:.3f} GFLOP on the tensor "
+              f"cores, {cc / 1e9:.3f} on the CUDA cores; {bound_ms / ms:.1%} of it) "
+              f"fma_bound_ms={fma_bound_ms:.5f} ({fma_by}) chunk steps T/64={steps}")
+        check(finite, f"wkv6 {name}: non-finite output")
         check(y_use <= 1.0 and s_use <= 1.0,
               f"wkv6 {name}: y {y_use:.3g}, state {s_use:.3g} of their limits")
         del r, k, v, w, u, s0, sets

@@ -444,6 +444,36 @@ def test_wkv6_kernel_matches_plain_on_card(cuda, kk, h, dtype, t, b, nonzero_sta
     assert_wkv_close(y, s, *wkv6_ref(*xs), dtype)
 
 
+def model_decays(gen, shape, device):
+    """w as rwkv6 draws it (models/rwkv6.py): exp(-exp(x)) rounded to
+    bfloat16, here for x uniform over [-6, 4] (down to e^-54.6), with 1 %
+    exact zeros and 1 % exact ones planted."""
+    x = torch.rand(shape, generator=gen, device=device) * 10 - 6
+    w = torch.exp(-torch.exp(x)).bfloat16().float()
+    pick = torch.rand(shape, generator=gen, device=device)
+    return torch.where(pick < 0.01, 0., torch.where(pick > 0.99, 1., w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 97, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kk,h", [(32, 8), (64, 64)])
+def test_wkv6_kernel_holds_model_decays_on_card(cuda, kk, h, dtype, t):
+    """The decays the served model feeds the kernel: from near 1 down to
+    e^-54.6 and exact zeros and ones, with a nonzero initial state.  A
+    chunked form that divides by a decay, or takes its log unguarded, turns
+    non-finite here and nowhere in the tests' [0.45, 0.95]."""
+    gen = torch.Generator(device=cuda).manual_seed(t * 5 + kk)
+    xs = wkv_inputs(gen, 1, t, h, kk, dtype, True, cuda)
+    xs[3] = model_decays(gen, (1, t, h, kk), cuda).to(dtype)
+    launches = wkv6.launches
+    y, s = wkv6(*xs)
+    torch.cuda.synchronize()
+    assert wkv6.launches == launches + 1
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    assert_wkv_close(y, s, *wkv6_ref(*xs), dtype)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [2048, 4096])
 def test_norms_of_a_row_do_not_depend_on_the_batch_on_card(cuda, d):

@@ -263,6 +263,150 @@ def test_f32_kernel_numerics_meet_the_limit_only_with_3xtf32_on_both_products(ba
         assert share > 1.0, share
 
 
+#: The WKV6 kernel's (``rwkv6_wkv/csrc/wkv6.cu``) checks on the card, as
+#: ``tests/test_torch_cuda.py`` holds it: y element by element within
+#: |a - b| <= rtol |b| + 1e-5 max|b| (rtol float32 2e-5, bfloat16 one step
+#: 2^-7) and the state within 1e-4 (1 + |b|).
+WKV_RTOL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -7}
+WKV_CHUNK, WKV_SUB = 64, 8       # time steps per chunk and per sub-chunk in wkv6.cu
+
+
+def _wkv_product(a, b, how: str):
+    """a @ b as the WKV6 kernel's tensor cores take it: "split" 3xTF32 as
+    ``_tf32_product``; "tf32" one TF32 product; "bf16" one product of the
+    operands rounded to bfloat16."""
+    if how == "bf16":
+        return a.bfloat16().float() @ b.bfloat16().float()
+    return _tf32_product(a, b, "one" if how == "tf32" else "split")
+
+
+def _emulate_wkv6_kernel(r, k, v, w, u, s0, product: str, cross: str):
+    """The WKV6 kernel's arithmetic for one head, in torch on the CPU: r, k,
+    v, w [T, K] as float32, u [K], s0 [K, V].  Chunks of WKV_CHUNK steps
+    (the ragged end padded with r = k = v = 0, w = 1), sub-chunks of
+    WKV_SUB; the decays within a sub-chunk multiplied up step by step
+    (Rl_i = r_i w_s .. w_{i-1} from the sub-chunk's start s, Kl_j = k_j
+    w_{j+1} .. w_{e-1} to its end e), the whole sub-chunks' products G; the
+    pairs inside a sub-chunk summed directly with their decay multiplied up
+    from i down to j; the rest as products by ``product``: A between
+    sub-chunks a > b as (Rl_a G_{b+1} .. G_{a-1}) Kl_b^T (``cross`` "sub"),
+    or factored against the chunk's start, (Rl_a G_0 .. G_{a-1}) (Kl_b
+    G_{b+1} .. G_3 / G_0 .. G_3)^T ("start"); y = (Rl G_pre) S + A V; S <-
+    G_tot S + (Kl G_suf)^T V."""
+    n_t, kk = r.shape
+    s = s0.clone()
+    ys = []
+    for c0 in range(0, n_t, WKV_CHUNK):
+        n = min(WKV_CHUNK, n_t - c0)
+
+        def pad(x, fill):
+            return torch.cat([x[c0:c0 + n], torch.full((WKV_CHUNK - n, kk), fill)])
+        rc, kc, vc, wc = pad(r, 0.), pad(k, 0.), pad(v, 0.), pad(w, 1.)
+        rl, kl, g = torch.empty_like(rc), torch.empty_like(kc), []
+        for a0 in range(0, WKV_CHUNK, WKV_SUB):
+            c = torch.ones(kk)
+            for i in range(a0, a0 + WKV_SUB):
+                rl[i], c = rc[i] * c, c * wc[i]
+            g.append(c)
+            c = torch.ones(kk)
+            for j in range(a0 + WKV_SUB - 1, a0 - 1, -1):
+                kl[j], c = kc[j] * c, c * wc[j]
+        nsub = len(g)
+        ones = torch.ones(kk)
+        pre = [torch.stack([ones] + g[:a]).prod(0) for a in range(nsub)]
+        suf = [torch.stack([ones] + g[b + 1:]).prod(0) for b in range(nsub)]
+        tot = torch.stack(g).prod(0)
+        att = torch.zeros(WKV_CHUNK, WKV_CHUNK)
+        for i in range(WKV_CHUNK):
+            a0 = i - i % WKV_SUB
+            att[i, i] = (u * rc[i] * kc[i]).sum()
+            rd = rc[i]
+            for j in range(i - 1, a0 - 1, -1):
+                if j < i - 1:
+                    rd = rd * wc[j + 1]
+                att[i, j] = (rd * kc[j]).sum()
+        for a in range(1, nsub):
+            rows = slice(a * WKV_SUB, (a + 1) * WKV_SUB)
+            for b in range(a):
+                cols = slice(b * WKV_SUB, (b + 1) * WKV_SUB)
+                if cross == "sub":
+                    lhs = rl[rows] * torch.stack([ones] + g[b + 1:a]).prod(0)
+                    rhs = kl[cols]
+                else:
+                    lhs, rhs = rl[rows] * pre[a], kl[cols] * suf[b] / tot
+                att[rows, cols] = _wkv_product(lhs, rhs.T.contiguous(), product)
+        rhat = torch.cat([rl[a * WKV_SUB:(a + 1) * WKV_SUB] * pre[a] for a in range(nsub)])
+        khat = torch.cat([kl[b * WKV_SUB:(b + 1) * WKV_SUB] * suf[b] for b in range(nsub)])
+        y = _wkv_product(rhat, s, product) + _wkv_product(att, vc, product)
+        s = tot[:, None] * s + _wkv_product(khat.T.contiguous(), vc, product)
+        ys.append(y[:n])
+    return torch.cat(ys), s
+
+
+def _model_decays(rng, shape):
+    """w as rwkv6 draws it: exp(-exp(x)) rounded to bfloat16, here for x
+    uniform over [-6, 4] (down to e^-54.6), with 1 % exact zeros and 1 %
+    exact ones planted."""
+    x = rng.uniform(-6, 4, shape).astype(np.float32)
+    w = torch.from_numpy(np.exp(-np.exp(x))).bfloat16().float()
+    pick = torch.from_numpy(rng.random(shape))
+    return torch.where(pick < 0.01, 0., torch.where(pick > 0.99, 1., w))
+
+
+#: (input type, decays, product, cross factor): the kernel's own choices
+#: with the model's decays and with the tests' [0.45, 0.95]; then each
+#: shortcut.
+WKV_NUMERICS = [
+    ("float32", "model", "split", "sub"),
+    ("bfloat16", "model", "split", "sub"),
+    ("float32", "tests", "split", "sub"),
+    ("float32", "model", "tf32", "sub"),
+    ("bfloat16", "model", "tf32", "sub"),
+    ("float32", "model", "bf16", "sub"),
+    ("float32", "model", "split", "start"),
+]
+
+
+@pytest.mark.parametrize("dtype,decays,product,cross", WKV_NUMERICS)
+def test_wkv6_kernel_numerics_meet_the_limits_only_as_built(dtype, decays, product, cross):
+    """Why the WKV6 kernel splits at sub-chunks and takes 3xTF32 products:
+    at rwkv6-7b's head size (64), two heads, T 200 (three chunks and a
+    ragged fourth) from a nonzero state, the emulated kernel stays within a
+    tenth of the float32 limits of the plain loop (``wkv6_ref``) and within
+    the bfloat16 one, also with the model's decays, exact zeros included;
+    one TF32 product, or one bfloat16 product, misses y's float32 limit more
+    than tenfold; factoring a pair across sub-chunks against the chunk's
+    start turns y non-finite at the model's decays."""
+    from repro_torch.kernels.rwkv6_wkv import wkv6_ref
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(19)
+    t_len, h, kk = 200, 2, 64
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+    r, k, v = normal(1, t_len, h, kk), normal(1, t_len, h, kk, scale=0.3), normal(1, t_len, h, kk)
+    w = (_model_decays(rng, (1, t_len, h, kk)) if decays == "model"
+         else torch.sigmoid(normal(1, t_len, h, kk)) * 0.5 + 0.45)
+    u, s0 = normal(h, kk, scale=0.1), normal(1, h, kk, kk, scale=0.5)
+    r, k, v, w, u = (x.to(dt) for x in (r, k, v, w, u))
+    ref_y, ref_s = wkv6_ref(r, k, v, w, u, s0)
+    outs = [_emulate_wkv6_kernel(*(x[0, :, i].float() for x in (r, k, v, w)), u[i].float(),
+                                 s0[0, i], product, cross) for i in range(h)]
+    y = torch.stack([o[0] for o in outs], 1)[None].to(dt).float()
+    s = torch.stack([o[1] for o in outs])[None]
+    b = ref_y.float()
+    y_share = float(((y - b).abs() / (WKV_RTOL[dt] * b.abs() + 1e-5 * b.abs().max())).max())
+    s_share = float(((s - ref_s).abs() / (1e-4 * (1 + ref_s.abs()))).max())
+    if cross == "start":
+        assert not torch.isfinite(y).all()
+    elif product != "split":
+        assert y_share > 10.0 if dt == torch.float32 else y_share > 1.0, y_share
+    else:
+        assert s_share <= 0.1, s_share
+        assert y_share <= (0.1 if dt == torch.float32 else 1.0), y_share
+
+
 def test_cpu_calls_do_not_count_as_launches():
     before = (flash_attention.launches, ddim_step.launches)
     q, k, v = (torch.from_numpy(a) for a in _qkv(3, 1, 8, 8, 1, 1, 32))

@@ -166,6 +166,30 @@ def test_wkv6_plain_matches_pallas_interpret_and_oracle(tt, kk):
     assert torch.equal(y, y2) and torch.equal(s, s2)
 
 
+@pytest.mark.parametrize("tt,kk", [(97, 32), (70, 64)])
+def test_wkv6_plain_matches_jax_oracle_at_model_decays(tt, kk):
+    """The decays the model draws, w = exp(-exp(x)) rounded to bfloat16 for
+    x over [-6, 4], with exact zeros and ones planted: the port's plain loop
+    equals the JAX package's oracle there too, and w = 0 zeroes the state's
+    row as the recurrence says."""
+    rng = np.random.default_rng(tt + kk)
+    r, k, v, _, u, s0 = _wkv_inputs(9, 2, tt, 3, kk)
+    x = rng.uniform(-6, 4, r.shape).astype(np.float32)
+    w = torch.from_numpy(np.exp(-np.exp(x))).bfloat16().float().numpy()
+    pick = rng.random(r.shape)
+    w[pick < 0.02] = 0.0
+    w[pick > 0.98] = 1.0
+    w[:, -1, 0, :] = 0.0   # the last step forgets head 0's state
+    xs = (r, k, v, w, u, s0)
+    y, s = wkv6(*map(t, xs))
+    ry, rs = jax_wkv6_ref(*map(jnp.asarray, xs))
+    np.testing.assert_allclose(y.numpy(), np.asarray(ry), **TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(rs), **STATE_TOL)
+    # the state's head 0 is the last step's k v^T alone
+    np.testing.assert_allclose(s[:, 0].numpy(), np.einsum(
+        "bk,bv->bkv", k[:, -1, 0], v[:, -1, 0]), **STATE_TOL)
+
+
 def test_wkv6_continuation_equals_one_call():
     """Two calls with the state carried equal one call over the whole
     sequence (a prompt served in two pieces)."""
