@@ -41,21 +41,30 @@ Phases, in order; any failure exits non-zero and prints no result:
    three TF32 products; the float32 FMA bound is printed beside it.  WKV6's
    counts its chunked form's tensor-core products (3xTF32) and its CUDA-core
    work, with the plain loop's float32 FMA bound and the T/64 dependent
-   chunk steps beside it.
+   chunk steps beside it.  chatglm3-6b's heads (groups of 16) and
+   gemma3-27b's global layers' in the bfloat16 flash prefill and in
+   flash-decode, and gemma3-27b's local-layer ring (1024 slots) through
+   flash-decode at the clamped index against the plain ring decode.
 3. The port on small inputs, card against CPU on the same weights: the SMALL
    Wan pipeline's latents and frames (same noise), and the reduced float32
-   qwen3 and rwkv6 engines' prefill logits and greedy tokens.
+   qwen3, chatglm3 (groups of 16), gemma3 (8 layers, window 16, rings
+   wrapped in prefill and in decode) and rwkv6 engines' prefill logits and
+   greedy tokens.
 4. Serving, the main paths, each with the launch counters set to 0 just
-   before and read just after: 2 requests through the Wan chain and 2
-   through the DAG Workflow Set at ``PORT``, one instance per stage; then
-   qwen3-1.7b at full width and depth in bfloat16 through the ``llm_disagg``
-   Workflow Set, once with the bfloat16 cache (8 requests) and once with the
-   int8 cache (4 requests); then, with the Wan pipeline and the qwen3
-   engines freed, rwkv6-7b at full width and depth in bfloat16 through the
-   same Workflow Set (8 requests, prompts of 64 to 3000 tokens).  Every
-   request answered, nothing dropped, the
-   counters risen by the expected launches, frames equal to
-   ``WanI2VPipeline.generate`` and tokens equal to ``ServingEngine.generate``.
+   before and read just after: 2 requests through the Wan chain, 2 through
+   the DAG and 2 through the audio-to-video DAG (``a2v``: toy asr and llm
+   stages in front of the Wan DAG) Workflow Set at ``PORT``, one instance
+   per stage; then qwen3-1.7b and chatglm3-6b at full width and depth in
+   bfloat16 through the ``llm_disagg`` Workflow Set, each once with the
+   bfloat16 cache (8 requests) and once with the int8 cache (4 requests);
+   then, with the Wan pipeline and those engines freed, rwkv6-7b at full
+   width and depth in bfloat16 through the same Workflow Set (8 requests,
+   prompts of 64 to 3000 tokens); last, with every earlier model freed,
+   gemma3-27b at full width and depth (8 requests, max_len 2048, rings
+   wrapped in prefill and in decode).  Every request answered, nothing
+   dropped, every join assembled, the counters risen by the expected
+   launches, frames equal to ``WanI2VPipeline.generate``, latents equal to
+   the pipeline's, and tokens equal to ``ServingEngine.generate``.
 5. A ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -258,7 +267,8 @@ def main(argv) -> int:
     from repro_torch.kernels.ddim_step import ddim_coefs, ddim_step_ref
     from repro_torch.kernels.flash_attention import attention_ref
     from repro_torch.launch.serve import (
-        build_set, make_request, ring_bytes_for, serve, workflow_spec)
+        build_a2v_stage_fns, build_set, make_request, ring_bytes_for, serve,
+        workflow_spec)
     from repro_torch.models.aigc import WanI2VPipeline, dit, text_encoder, vae
     from repro_torch.models.aigc.pipeline import measure_stage_times, request_seeds
 
@@ -441,8 +451,8 @@ def main(argv) -> int:
     rng = np.random.default_rng(0)
     served_launches = {"flash_attention": 0, "ddim_step": 0}
     served_latents = {}
-    firsts = {}
-    for workflow in ("chain", "dag"):
+    runs = {}
+    for workflow in ("chain", "dag", "a2v"):
         spec, wtimes = workflow_spec(workflow, pipe, times=times)
         # record the diffusion stage's output (pre-decode latents) per seed:
         # the frames saturate the decoder's tanh at these random weights
@@ -452,7 +462,7 @@ def main(argv) -> int:
         # admission control is not under test here: admit both at once
         ws = build_set(spec, counts={s: 1 for s in wtimes}, admit_rate=100.0,
                        cfg=PORT, name=workflow, elastic=False)
-        reqs = [make_request(PORT, rng, i) for i in range(2)]
+        reqs = [make_request(PORT, rng, i, workflow) for i in range(2)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         flash_attention.launches = 0
@@ -470,14 +480,21 @@ def main(argv) -> int:
               f"max_memory_allocated={peak / 2**30:.2f} GiB")
         check(lost == 0 and len(outs) == len(reqs), f"{workflow}: requests lost")
         check(stats.dropped == 0, f"{workflow}: {stats.dropped} messages dropped")
+        if workflow != "chain":
+            js = ws.joins.stats
+            print(f"serve {workflow}: joins completed={js.completed} "
+                  f"aborted={js.aborted_joins} pending={ws.joins.pending_joins()}")
+            check(js.completed == len(reqs) and ws.joins.pending_joins() == 0,
+                  f"{workflow}: joins {js.completed} completed, "
+                  f"{ws.joins.pending_joins()} pending")
         check(fl == per_req_flash * len(reqs), f"{workflow}: flash launches {fl}")
         check(dd == per_req_ddim * len(reqs), f"{workflow}: ddim launches {dd}")
         shape = (1, PORT.num_frames, PORT.image_size, PORT.image_size, 3)
         for o in outs:
             check(o.shape == shape and np.isfinite(o).all(),
                   f"{workflow}: frames {o.shape} not finite of shape {shape}")
-        firsts[workflow] = (reqs[0], outs[0])
-    req, served = firsts["chain"]
+        runs[workflow] = (reqs, outs)
+    req, served = runs["chain"][0][0], runs["chain"][1][0]
     flash_attention.launches = 0
     ddim_step.launches = 0
     gold = pipe.generate(req["tokens"], req["image"], seed=req["seed"])
@@ -490,23 +507,38 @@ def main(argv) -> int:
           f"share with |f|<0.99: {unsaturated:.4f}")
     check(serve_err <= SERVE_FRAME_TOL, "served frames differ from generate")
     check(gen_launches == (per_req_flash, per_req_ddim), "generate launches")
-    for workflow, (req, _) in firsts.items():
-        seeds = [req["seed"]]
-        temb = pipe.encode_text(pipe.tensor(req["tokens"]))
-        z = pipe.vae_encode(pipe.tensor(req["image"]), seeds)
-        lat = pipe.diffuse(pipe.image_tokens(z), temb, seeds).cpu().numpy()[0]
-        lat_err = float(np.abs(served_latents[(workflow, req["seed"])] - lat).max())
-        tol = SERVE_LATENT_RTOL * float(np.abs(lat).max())
-        print(f"serve: {workflow} request 0 latents vs the pipeline's "
-              f"max_err={lat_err:.3g} (tol {SERVE_LATENT_RTOL} x max|x| = {tol:.3g})")
-        check(lat_err <= tol, f"{workflow}: served latents differ")
+    toy = build_a2v_stage_fns(pipe)
+    for workflow, (reqs, _) in runs.items():
+        for i, req in enumerate(reqs):
+            seeds = [req["seed"]]
+            # a2v: the tokens its toy asr and llm stages make of the audio
+            tokens = (toy["llm"](toy["asr"](req))["tokens"] if workflow == "a2v"
+                      else req["tokens"])
+            temb = pipe.encode_text(pipe.tensor(tokens))
+            z = pipe.vae_encode(pipe.tensor(req["image"]), seeds)
+            lat = pipe.diffuse(pipe.image_tokens(z), temb, seeds).cpu().numpy()[0]
+            lat_err = float(np.abs(served_latents[(workflow, req["seed"])] - lat).max())
+            tol = SERVE_LATENT_RTOL * float(np.abs(lat).max())
+            print(f"serve: {workflow} request {i} latents vs the pipeline's "
+                  f"max_err={lat_err:.3g} (tol {SERVE_LATENT_RTOL} x max|x| = "
+                  f"{tol:.3g})")
+            check(lat_err <= tol, f"{workflow}: request {i}'s served latents differ")
 
-    del pipe, spec, ws, st   # the stage fns hold the pipeline's 6 GB of weights
+    del pipe, spec, ws, st, toy   # the stage fns hold the pipeline's 6 GB of weights
     torch.cuda.empty_cache()
-    llm = llm_serving_phase(torch, np, dev)
-    gc.collect()              # the qwen3 engines and their Workflow Sets
-    torch.cuda.empty_cache()
+    by_arch = {}
+    for arch in ("qwen3-1.7b", "chatglm3-6b"):
+        by_arch[arch] = llm_serving_phase(torch, np, dev, arch)
+        gc.collect()          # the engines and their Workflow Sets
+        torch.cuda.empty_cache()
     rwkv_launches = rwkv_serving_phase(torch, np, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # last: gemma3-27b's 52.93 GiB of weights need every earlier model freed
+    by_arch["gemma3-27b"] = llm_serving_phase(torch, np, dev, "gemma3-27b")
+    llm = {k: sum(c.get(k, 0) for c in by_arch.values())
+           for k in ("flash_attention", "decode_attention_grouped",
+                     "decode_attention_int8_grouped")}
 
     # ------------------------------------------------------------ 5. result
     dom = next(r for r in flash_rows if r["shape"] == "dit_self")
@@ -534,6 +566,7 @@ def main(argv) -> int:
         source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_bf16.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:36",
         launches=llm["flash_attention"],
+        launches_by_model={a: c.get("flash_attention", 0) for a, c in by_arch.items()},
         max_abs_err=max(r["max_abs_err"] for r in flash_bf16_rows),
         ms=fb["ms"], plain_ms=fb["plain_ms"], bound_ms=fb["bound_ms"],
         bound_by=fb["bound_by"], library_ms=fb["library_ms"],
@@ -549,6 +582,7 @@ def main(argv) -> int:
             name=name, route="cuda",
             source="src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
             replaces=replaces, launches=llm[counter],
+            launches_by_model={a: c.get(counter, 0) for a, c in by_arch.items()},
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main["ms"], call_ms=main["call_ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
@@ -571,16 +605,28 @@ def main(argv) -> int:
     return 0
 
 
+#: gemma3-27b's local layers: a ring of 1024 slots, rows before, at and
+#: after the first wrap, and far past it; flash-decode reads the ring at
+#: min(cur, 1023)
+RING_SLOTS = 1024
+RING_CUR = [0, 1, 511, 1022, 1023, 1024, 1500, 3000]
+
+
 def decode_kernel_phase(torch, F, dev, randn) -> list:
     """Flash-decode, float (bfloat16) and int8 cache, both layouts, at B 8,
     KV 8, G 2, D 128, S 32768: a mixed per-row index and a full-cache scalar
     index; and at the served shape, S 1024 in the serving layout, with a
-    mixed index on both sides of the chunk edges.  The bound counts the
+    mixed index on both sides of the chunk edges; chatglm3-6b's served
+    shape (KV 2, G 16) over both caches; gemma3-27b's local-layer ring (KV
+    16, G 2, 1024 slots) at the clamped index, held against
+    ``attention_decode_ring``'s plain version at the unclamped one (in
+    float32 on the same numbers, rounded to bfloat16).  The bound counts the
     cache positions this call's indices cover.  Kernel, plain version and
     SDPA are timed by `device_ms` (the served caches rotate over copies
     that hold ROTATION_BYTES; one S 32768 call reads more than the L2
     holds), with the single call's time beside it as call_ms."""
     from repro_torch.kernels import decode_attention as K
+    from repro_torch.models.layers import attention_decode_ring
 
     b, kv, g, d, s_long, s_served = 8, 8, 2, 128, 32768, 1024
     cur_long = [32767, 20000, 4095, 1, 0, 32767, 16383, 8191]
@@ -590,25 +636,47 @@ def decode_kernel_phase(torch, F, dev, randn) -> list:
     kn, vn = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
     (kqn, ks), (vqn, vs) = K.quantize_kv(kn), K.quantize_kv(vn)
     kqc, vqc = kqn.transpose(1, 2).contiguous(), vqn.transpose(1, 2).contiguous()
+    q16 = randn(b, 2, 16, d).bfloat16()
+    k16, v16 = randn(b, s_served, 2, d), randn(b, s_served, 2, d)
+    (kq16, ks16), (vq16, vs16) = K.quantize_kv(k16), K.quantize_kv(v16)
+    k16, v16, kq16, vq16 = (x.transpose(1, 2).contiguous()
+                            for x in (k16.bfloat16(), v16.bfloat16(), kq16, vq16))
+    q_ring = randn(b, 16, 2, d).bfloat16()
+    k_ring, v_ring = (randn(b, 16, RING_SLOTS, d).bfloat16() for _ in range(2))
+    ring_cur = torch.tensor(RING_CUR, dtype=torch.int32, device=dev)
 
     def served(*xs):    # the first 1024 positions, [B,KV,S,...] caches
         return tuple(x[:, :, :s_served].contiguous() for x in xs)
+
+    def ring_ref(qc, kr, vr, _clamped, seq_axis=2):
+        """attention_decode_ring at the unclamped index, float32."""
+        bb, n, gg, dd = qc.shape
+        return attention_decode_ring(qc.reshape(bb, n * gg, dd).float(), kr.float(),
+                                     vr.float(), ring_cur).reshape(qc.shape).to(qc.dtype)
     fp = (K.decode_attention_grouped, K.decode_ref)
     i8 = (K.decode_attention_int8_grouped, K.decode_int8_ref)
+    ring = (K.decode_attention_grouped, ring_ref)
+    clamped = [min(c, RING_SLOTS - 1) for c in RING_CUR]
     cases = [
-        # name, kind, (kernel, plain), cache args, seq_axis, S, index
-        ("fp_cache_vector", "fp", fp, (kc, vc), 2, s_long, cur_long),
-        ("fp_native_vector", "fp", fp, (kn, vn), 1, s_long, cur_long),
-        ("fp_cache_scalar", "fp", fp, (kc, vc), 2, s_long, s_long - 1),
-        ("fp_served_vector", "fp", fp, served(kc, vc), 2, s_served, cur_served),
-        ("int8_cache_vector", "int8", i8, (kqc, vqc, ks, vs), 2, s_long, cur_long),
-        ("int8_native_vector", "int8", i8, (kqn, vqn, ks, vs), 1, s_long, cur_long),
-        ("int8_cache_scalar", "int8", i8, (kqc, vqc, ks, vs), 2, s_long, s_long - 1),
-        ("int8_served_vector", "int8", i8, served(kqc, vqc, ks, vs), 2, s_served,
+        # name, kind, (kernel, plain), q, cache args, seq_axis, S, index
+        ("fp_cache_vector", "fp", fp, q, (kc, vc), 2, s_long, cur_long),
+        ("fp_native_vector", "fp", fp, q, (kn, vn), 1, s_long, cur_long),
+        ("fp_cache_scalar", "fp", fp, q, (kc, vc), 2, s_long, s_long - 1),
+        ("fp_served_vector", "fp", fp, q, served(kc, vc), 2, s_served, cur_served),
+        ("fp_served_g16", "fp", fp, q16, (k16, v16), 2, s_served, cur_served),
+        ("ring_1024_clamped", "fp", ring, q_ring, (k_ring, v_ring), 2, RING_SLOTS,
+         clamped),
+        ("int8_cache_vector", "int8", i8, q, (kqc, vqc, ks, vs), 2, s_long, cur_long),
+        ("int8_native_vector", "int8", i8, q, (kqn, vqn, ks, vs), 1, s_long, cur_long),
+        ("int8_cache_scalar", "int8", i8, q, (kqc, vqc, ks, vs), 2, s_long, s_long - 1),
+        ("int8_served_vector", "int8", i8, q, served(kqc, vqc, ks, vs), 2, s_served,
+         cur_served),
+        ("int8_served_g16", "int8", i8, q16, (kq16, vq16, ks16, vs16), 2, s_served,
          cur_served),
     ]
     rows = []
-    for name, kind, (kernel, plain), cache, seq_axis, s, cur_list in cases:
+    for name, kind, (kernel, plain), q, cache, seq_axis, s, cur_list in cases:
+        b, kv, g, d = q.shape
         vector = isinstance(cur_list, list)
         cur_t = torch.tensor(cur_list, dtype=torch.int32, device=dev)
         cur = cur_t if vector else cur_list   # the kernel takes an int as it is
@@ -676,13 +744,17 @@ def decode_kernel_phase(torch, F, dev, randn) -> list:
 #: repetitions.  qwen3-1.7b's heads (16 query heads over 8 kv heads of 128)
 #: at a served 512-token prompt, one of 2500 and one of 4096; a causal GQA
 #: batch of 2 with a ragged tail; a non-causal Sq != Sk case with ragged
-#: tails at D 64.
+#: tails at D 64; chatglm3-6b's heads (32 over 2: groups of 16) at a served
+#: 512-token prompt; gemma3-27b's global layers' (32 over 16) at a served
+#: 1500-token prompt.
 FLASH_BF16_CASES = [
     ("qwen3_prefill_512", (1, 512, 512, 16, 8, 128), True, 10),
     ("qwen3_prefill_2500", (1, 2500, 2500, 16, 8, 128), True, 10),
     ("causal_gqa_333", (2, 333, 333, 16, 8, 128), True, 10),
     ("ragged_1000_777", (1, 1000, 777, 8, 8, 64), False, 10),
     ("long_4096", (1, 4096, 4096, 16, 8, 128), True, 5),
+    ("chatglm3_prefill_512", (1, 512, 512, 32, 2, 128), True, 10),
+    ("gemma3_prefill_1500", (1, 1500, 1500, 32, 16, 128), True, 10),
 ]
 
 
@@ -827,37 +899,80 @@ def flash_bf16_phase(torch, F, dev, randn) -> list:
 LLM_SMALL_RTOL = 1e-4
 
 
+#: The small phase's dense models: (label, arch, overrides of the reduced
+#: float32 config, prompt lengths).  chatglm3-6b at groups of 16 (16 query
+#: heads over 1 kv head, as the full model's 32 over 2); gemma3-27b at 8
+#: layers (one period of 5 local layers and 1 global one, 2 local tail
+#: layers) with a window of 16: a 12-token prompt wraps its rings during
+#: the 16 decode steps, a 20-token one in the prefill.
+SMALL_DENSE = [
+    ("qwen3-1.7b", "qwen3-1.7b", {}, [12]),
+    ("chatglm3-6b g16", "chatglm3-6b", dict(num_heads=16, num_kv_heads=1), [12]),
+    ("gemma3-27b 8 layers window 16", "gemma3-27b",
+     dict(num_layers=8, sliding_window=16), [12, 20]),
+]
+
+
 def llm_small_phase(torch, np, dev) -> None:
-    """The reduced float32 qwen3 engine on the card against the same engine
-    on the CPU, on the same weights: prefill logits, greedy tokens."""
+    """The reduced float32 dense engines (`SMALL_DENSE`) on the card against
+    the same engines on the CPU, on the same weights: prefill logits, greedy
+    tokens, and the flash and decode kernels launched on the card."""
+    import dataclasses
+
     from repro_torch.kernels import decode_attention_grouped, flash_attention
     from repro_torch.launch.serve import llm_config
     from repro_torch.serving import ServingEngine
 
-    cfg = llm_config("qwen3-1.7b", "small")
-    cpu = ServingEngine(cfg, max_len=64, seed=0, device="cpu")
-    card = ServingEngine(cfg, params=_to(torch, cpu.params, dev), max_len=64,
-                         device=dev)
-    prompts = np.random.default_rng(3).integers(
-        0, cfg.vocab_size, (2, 12)).astype(np.int32)
-    launches = (flash_attention.launches, decode_attention_grouped.launches)
-    lc, lg = cpu.prefill(prompts)[0], card.prefill(prompts)[0].cpu()
-    err = float((lc - lg).abs().max() / lc.abs().max())
-    toks_cpu = cpu.generate(prompts, steps=16).tokens
-    toks_card = card.generate(prompts, steps=16).tokens
-    print(f"small llm: {cfg.name} reduced float32, prefill logits card vs cpu "
-          f"max_err/max|l|={err:.3g} (tol {LLM_SMALL_RTOL}); greedy tokens equal: "
-          f"{bool(np.array_equal(toks_cpu, toks_card))}")
-    check(flash_attention.launches > launches[0]
-          and decode_attention_grouped.launches > launches[1],
-          "the small LLM run on the card did not launch the kernels")
-    check(err <= LLM_SMALL_RTOL, "small llm: prefill logits differ from the CPU")
-    check(np.array_equal(toks_cpu, toks_card), "small llm: greedy tokens differ")
+    for label, arch, overrides, prompt_lens in SMALL_DENSE:
+        cfg = dataclasses.replace(llm_config(arch, "small"), **overrides)
+        cpu = ServingEngine(cfg, max_len=64, seed=0, device="cpu")
+        card = ServingEngine(cfg, params=_to(torch, cpu.params, dev), max_len=64,
+                             device=dev)
+        for plen in prompt_lens:
+            prompts = np.random.default_rng(3).integers(
+                0, cfg.vocab_size, (2, plen)).astype(np.int32)
+            launches = (flash_attention.launches, decode_attention_grouped.launches)
+            lc, lg = cpu.prefill(prompts)[0], card.prefill(prompts)[0].cpu()
+            err = float((lc - lg).abs().max() / lc.abs().max())
+            toks_cpu = cpu.generate(prompts, steps=16).tokens
+            toks_card = card.generate(prompts, steps=16).tokens
+            fl = flash_attention.launches - launches[0]
+            dc = decode_attention_grouped.launches - launches[1]
+            print(f"small llm: {label} reduced float32, prompt {plen}: prefill "
+                  f"logits card vs cpu max_err/max|l|={err:.3g} (tol "
+                  f"{LLM_SMALL_RTOL}); greedy tokens equal: "
+                  f"{bool(np.array_equal(toks_cpu, toks_card))}; launches flash={fl} "
+                  f"decode={dc}")
+            check(fl > 0 and dc > 0,
+                  f"the small {label} run on the card did not launch the kernels")
+            check(err <= LLM_SMALL_RTOL, f"small {label}: prefill logits differ "
+                                         f"from the CPU")
+            check(np.array_equal(toks_cpu, toks_card),
+                  f"small {label}: greedy tokens differ")
 
 
-def llm_serving_phase(torch, np, dev) -> dict:
-    """qwen3-1.7b at full width and depth in bfloat16 through the llm_disagg
-    Workflow Set: 8 requests with the bfloat16 cache, 4 with the int8 cache.
+#: The dense models served at full width and depth in bfloat16 through
+#: llm_disagg: arch -> (max_len, runs of (label, cache type, prompt
+#: lengths)).  gemma3-27b's 1500- and 1200-token prompts wrap its 1024-slot
+#: rings in the prefill, its 1010- and 1020-token ones during the 32 decode
+#: steps; it has no int8 cache.
+LLM_SERVED = {
+    "qwen3-1.7b": (1024, [("bf16 cache", "", [64, 512, 128, 256, 384, 96, 200, 448]),
+                          ("int8 cache", "int8", [64, 512, 160, 320])]),
+    "chatglm3-6b": (1024, [("bf16 cache", "", [64, 512, 128, 256, 384, 96, 200, 448]),
+                           ("int8 cache", "int8", [64, 512, 160, 320])]),
+    "gemma3-27b": (2048, [("bf16 cache", "",
+                           [64, 1500, 1010, 256, 1200, 128, 700, 1020])]),
+}
+
+
+def llm_serving_phase(torch, np, dev, arch: str) -> dict:
+    """``arch`` at full width and depth in bfloat16 through the llm_disagg
+    Workflow Set, 8 slots, segments of 8, 32 new tokens, half greedy and half
+    at 0.7, once per run of `LLM_SERVED`.  Every request answered, nothing
+    dropped, flash launched once per full-attention layer and prefill
+    (gemma3's local layers attend in plain PyTorch), flash-decode once per
+    layer and decode step, every stream equal to its solo ``generate``.
     Returns the launch counts of the served runs."""
     import dataclasses
 
@@ -867,35 +982,40 @@ def llm_serving_phase(torch, np, dev) -> dict:
         flash_attention,
     )
     from repro_torch.launch.serve import check_served, llm_config, llm_requests, serve
-    from repro_torch.models import registry
+    from repro_torch.models import registry, transformer
     from repro_torch.serving import APP_LLM_DISAGG, ServingEngine, build_llm_disagg_set
     from repro_torch.serving.disagg import ring_bytes_for
 
-    max_len, slots, segment, steps = 1024, 8, 8, 32
-    cfg = llm_config("qwen3-1.7b", "port")
-    print(f"llm: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+    slots, segment, steps = 8, 8, 32
+    max_len, runs = LLM_SERVED[arch]
+    cfg = llm_config(arch, "port")
+    tag = cfg.name
+    full_layers = sum(1 for *_, w in transformer.layer_slots(cfg) if not w)
+    print(f"{tag}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
           f"before the engine")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = ServingEngine(cfg, max_len=max_len, seed=0)
     torch.cuda.synchronize()
     n_params = registry.count_params(cfg)
-    print(f"llm: {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model} "
-          f"{cfg.num_heads}/{cfg.resolved_kv_heads} heads of {cfg.resolved_head_dim} "
-          f"d_ff {cfg.d_ff} vocab {cfg.vocab_padded} in {cfg.dtype}: "
-          f"{n_params / 1e9:.3f} B params on {engine.device} in "
-          f"{time.perf_counter() - t0:.1f}s; decode inbox "
-          f"{ring_bytes_for(cfg, max_len) / 1e6:.1f} MB")
+    print(f"{tag}: {cfg.num_layers} layers ({full_layers} with full attention) "
+          f"d_model {cfg.d_model} {cfg.num_heads}/{cfg.resolved_kv_heads} heads of "
+          f"{cfg.resolved_head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab_padded} in "
+          f"{cfg.dtype}: {n_params:,} params on {engine.device} in "
+          f"{time.perf_counter() - t0:.1f}s (peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB while drawing them); "
+          f"decode inbox {ring_bytes_for(cfg, max_len) / 1e6:.1f} MB of host memory "
+          f"at max_len {max_len}")
 
-    batch_width_diff(torch, np, engine, slots, dev, "llm")
+    batch_width_diff(torch, np, engine, slots, dev, tag)
     rng = np.random.default_rng(5)
     counts = {}
-    runs = (("bf16 cache", cfg, [64, 512, 128, 256, 384, 96, 200, 448],
-             decode_attention_grouped, "decode_attention_grouped"),
-            ("int8 cache", dataclasses.replace(cfg, cache_dtype="int8"),
-             [64, 512, 160, 320], decode_attention_int8_grouped,
-             "decode_attention_int8_grouped"))
-    for label, rcfg, prompt_lens, decode_kernel, counter in runs:
-        eng = engine if rcfg is cfg else ServingEngine(
+    for label, cache_dtype, prompt_lens in runs:
+        rcfg = dataclasses.replace(cfg, cache_dtype=cache_dtype)
+        int8 = rcfg.resolved_cache_dtype == "int8"
+        decode_kernel = decode_attention_int8_grouped if int8 else decode_attention_grouped
+        counter = decode_kernel.__name__
+        eng = engine if rcfg == cfg else ServingEngine(
             rcfg, params=engine.params, max_len=max_len)
         reqs = llm_requests(rcfg, rng, prompt_lens, steps, [0.0, 0.7])
         ws, decoder = build_llm_disagg_set(eng, name=f"llm_{rcfg.resolved_cache_dtype}",
@@ -910,25 +1030,26 @@ def llm_serving_phase(torch, np, dev) -> dict:
         fl, dc = flash_attention.launches, decode_kernel.launches
         peak = torch.cuda.max_memory_allocated()
         counts["flash_attention"] = counts.get("flash_attention", 0) + fl
-        counts[counter] = dc
+        counts[counter] = counts.get(counter, 0) + dc
         decode_steps = decoder.stats["segments"] * segment
-        print(f"serve llm {label}: {len(outs)}/{len(reqs)} answered, lost={lost}, "
+        print(f"serve {tag} {label}: {len(outs)}/{len(reqs)} answered, lost={lost}, "
               f"dropped={stats.dropped}, {wall:.2f}s wall, "
               f"{len(outs) * steps / wall:.1f} tokens/s, {stats.kv_pages} KVPages "
-              f"{stats.kv_bytes / 1e6:.1f} MB, segments={decoder.stats['segments']} "
+              f"{stats.kv_bytes / 1e6:.1f} MB ({stats.kv_bytes / max(stats.kv_pages, 1) / 1e6:.1f} "
+              f"MB a request), segments={decoder.stats['segments']} "
               f"max_resident={decoder.stats['max_resident']}/{slots}; launches "
               f"flash={fl} ({fl / len(reqs):.0f} per prefill) decode={dc} "
               f"({dc / max(decode_steps, 1):.0f} per decode step), "
               f"max_memory_allocated={peak / 2**30:.2f} GiB")
-        check(lost == 0 and len(outs) == len(reqs), f"llm {label}: requests lost")
-        check(stats.dropped == 0, f"llm {label}: {stats.dropped} messages dropped")
-        check(fl == cfg.num_layers * len(reqs), f"llm {label}: flash launches {fl}")
+        check(lost == 0 and len(outs) == len(reqs), f"{tag} {label}: requests lost")
+        check(stats.dropped == 0, f"{tag} {label}: {stats.dropped} messages dropped")
+        check(fl == full_layers * len(reqs), f"{tag} {label}: flash launches {fl}")
         check(dc == cfg.num_layers * decode_steps and dc > 0,
-              f"llm {label}: decode launches {dc} for {decode_steps} steps")
+              f"{tag} {label}: decode launches {dc} for {decode_steps} steps")
 
         for i, (r, out) in enumerate(zip(reqs, outs)):
             check(out.shape == (1, r["prompt"].shape[1] + steps),
-                  f"llm {label}: request {i} tokens of shape {out.shape}")
+                  f"{tag} {label}: request {i} tokens of shape {out.shape}")
             flash_attention.launches = decode_kernel.launches = 0
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -942,8 +1063,12 @@ def llm_serving_phase(torch, np, dev) -> dict:
                   f"({decode_kernel.launches / steps:.0f} per step), "
                   f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f} "
                   f"GiB; served tokens equal solo generate")
-        print(f"serve llm {label}: every request's tokens equal solo generate")
-        del ws, decoder
+            check(flash_attention.launches == full_layers
+                  and decode_kernel.launches == cfg.num_layers * steps,
+                  f"{tag} {label}: request {i} solo generate launches")
+        print(f"serve {tag} {label}: every request's tokens equal solo generate")
+        del ws, decoder, eng
+    del engine
     return counts
 
 

@@ -10,6 +10,8 @@ from repro_torch.configs.wan_i2v import FULL, PORT, SMALL, WanPipelineConfig
 _ARCH_MODULES = {
     "qwen3-1.7b": "repro_torch.configs.qwen3_1p7b",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
+    "gemma3-27b": "repro_torch.configs.gemma3_27b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

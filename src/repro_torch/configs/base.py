@@ -7,6 +7,9 @@ Four knobs of the JAX config have no meaning here and are left out:
 the JAX blockwise attention, which the port runs through the flash kernel)
 and ``fsdp_weight_gather`` (sharding).  The TPU ``HardwareConfig`` stays
 behind too: no TPU figure describes the card.
+
+One field is the port's own: ``embed_scale``, which the JAX package derives
+from the model's name (``name.startswith("gemma")``).
 """
 from __future__ import annotations
 
@@ -67,7 +70,17 @@ class ModelConfig:
     cache_dtype: str = ""            # "" -> same as dtype (serving knob)
     vocab_round: int = 256
     tie_embeddings: bool = False
+    embed_scale: bool = False        # scale embeddings by sqrt(d_model) (gemma)
     source: str = ""                 # citation from the assignment pool
+
+    def __post_init__(self):
+        # the JAX package asserts the same in its decode step
+        # (models/transformer.py: "int8 ring cache not implemented")
+        if (self.resolved_cache_dtype == "int8" and self.sliding_window
+                and self.local_global_pattern[0]):
+            raise ValueError(
+                f"{self.name}: an int8 KV cache is refused for sliding-window "
+                f"layers (gemma3's local ring caches have no int8 form)")
 
     @property
     def resolved_head_dim(self) -> int:

@@ -3,13 +3,15 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_request --profile port
     PYTHONPATH=src python -m repro_torch.launch.profile_request --workflow llm
     PYTHONPATH=src python -m repro_torch.launch.profile_request --workflow llm --llm-arch rwkv6-7b
+    PYTHONPATH=src python -m repro_torch.launch.profile_request --workflow llm --llm-arch gemma3-27b --max-len 2048
 
 ``--workflow wan`` (the default): one monolithic ``generate`` of the Wan I2V
 pipeline at a profile's widths, after the per-stage wall times.
 ``--workflow llm``: one request (a 256-token prompt, 32 new tokens) served
 through the ``llm_disagg`` Workflow Set with ``--llm-arch`` (qwen3-1.7b by
-default, or rwkv6-7b) at full width and depth in bfloat16, after one
-warm-up request.
+default, rwkv6-7b, chatglm3-6b or gemma3-27b) at full width and depth in
+bfloat16, after one warm-up request; each run prints the MB of KV pages
+(or recurrent state) it shipped.
 
 Prints the request's wall time, the device time by kernel (top rows of
 ``key_averages``), the kernels' summed device time against the wall time
@@ -55,14 +57,14 @@ def wan_request(profile_name: str):
     return run
 
 
-def llm_request(arch: str, cache_dtype: str):
+def llm_request(arch: str, cache_dtype: str, max_len: int):
     """-> a function that serves one request of ``arch`` through a fresh
     llm_disagg Workflow Set, warmed up."""
     from repro_torch.launch.serve import llm_config, llm_requests
     from repro_torch.serving import APP_LLM_DISAGG, ServingEngine, build_llm_disagg_set
 
     engine = ServingEngine(llm_config(arch, "port", cache_dtype),
-                           max_len=1024, seed=0)
+                           max_len=max_len, seed=0)
     rng = np.random.default_rng(0)
 
     def run():
@@ -71,6 +73,7 @@ def llm_request(arch: str, cache_dtype: str):
         with ws:
             proxy = ws.proxies[0]
             proxy.wait_result(proxy.submit(APP_LLM_DISAGG, req), timeout_s=600)
+        print(f"kv pages: {ws.transport_stats().kv_bytes / 1e6:.1f} MB shipped")
     run()
     return run
 
@@ -84,7 +87,9 @@ def main() -> int:
                     help="--workflow llm: model config")
     ap.add_argument("--cache-dtype", default="", choices=["", "int8"],
                     help="--workflow llm: KV cache type ('' = bfloat16; "
-                         "refused for the attention-free rwkv6)")
+                         "refused for the attention-free rwkv6 and gemma3)")
+    ap.add_argument("--max-len", type=int, default=1024,
+                    help="--workflow llm: decode cache length")
     ap.add_argument("--rows", type=int, default=12)
     args = ap.parse_args()
 
@@ -92,7 +97,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"device: {torch.cuda.get_device_name(0)}")
     run = (wan_request(args.profile) if args.workflow == "wan"
-           else llm_request(args.llm_arch, args.cache_dtype))
+           else llm_request(args.llm_arch, args.cache_dtype, args.max_len))
     torch.cuda.synchronize()
     for k in KERNELS:
         k.launches = 0

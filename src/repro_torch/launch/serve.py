@@ -3,8 +3,11 @@ and push requests through it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 2
     PYTHONPATH=src python -m repro_torch.launch.serve --workflow dag
+    PYTHONPATH=src python -m repro_torch.launch.serve --workflow a2v
     PYTHONPATH=src python -m repro_torch.launch.serve --workflow llm
     PYTHONPATH=src python -m repro_torch.launch.serve --workflow llm --llm-arch rwkv6-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --workflow llm --llm-arch chatglm3-6b
+    PYTHONPATH=src python -m repro_torch.launch.serve --workflow llm --llm-arch gemma3-27b --max-len 2048
     PYTHONPATH=src python -m repro_torch.launch.serve --profile small --device cpu
 
 Workflows (docs/workflows.md, docs/disaggregation.md):
@@ -12,6 +15,9 @@ Workflows (docs/workflows.md, docs/disaggregation.md):
             dit -> decode);
   * dag   — the paper's real Wan2.1 topology: text encoder ∥ image/VAE
             encoder as independent branches joining into the DiT;
+  * a2v   — audio-to-video: asr -> (llm -> text_encode) ∥ image_encode
+            -> diffusion -> vae_decode, a nested two-branch DAG whose toy
+            asr and llm stages (numpy) feed the real Wan DAG;
   * llm   — disaggregated prefill/decode LLM serving: prefill ships each
             request's KV cache (rwkv6: its recurrent state) as KVPages over
             the fabric into a continuous-batching decode stage; every token
@@ -39,7 +45,7 @@ import numpy as np
 from repro_torch.cluster import Rejected, StageSpec, WorkflowSet, WorkflowSpec
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.wan_i2v import PROFILES, WanPipelineConfig
-from repro_torch.core import RequestMonitor, critical_path, plan_dag
+from repro_torch.core import RequestMonitor, critical_path, plan_dag, profiler
 from repro_torch.models.aigc import (
     DAG_DEPS,
     WanI2VPipeline,
@@ -57,14 +63,16 @@ MESSAGE_SLACK = 1 << 16        # header and payload metadata
 
 def largest_message_bytes(cfg: WanPipelineConfig) -> int:
     """Bytes of the largest stage payload of one request, from the shapes:
-    client -> text_encode {tokens, image}, -> vae_encode {text_emb, image},
-    -> diffusion {text_emb, z_tokens}, -> vae_decode {latents}."""
+    client -> asr {audio [1, 2 text_len] float32, image} (``a2v``; larger
+    than the client's {tokens, image} of the other workflows), ->
+    vae_encode {text_emb, image}, -> diffusion {text_emb, z_tokens}, ->
+    vae_decode {latents}."""
     f32 = 4
-    tokens = cfg.text_len * 4
+    audio = 2 * cfg.text_len * f32
     image = cfg.image_size ** 2 * 3 * f32
     text_emb = cfg.text_len * cfg.text_d_model * f32
     z_tokens = cfg.video_tokens * cfg.patch ** 2 * cfg.vae_latent_ch * f32
-    return MESSAGE_SLACK + max(tokens + image, text_emb + image,
+    return MESSAGE_SLACK + max(audio + image, text_emb + image,
                                text_emb + z_tokens)
 
 
@@ -74,6 +82,39 @@ def ring_bytes_for(cfg: WanPipelineConfig, max_batch: int = 1) -> int:
     can take up to 3 messages' worth; 4 leaves margin."""
     return max(DEFAULT_RING_BYTES,
                4 * max(max_batch, 1) * largest_message_bytes(cfg))
+
+
+def build_a2v_stage_fns(pipe: WanI2VPipeline) -> Dict[str, Any]:
+    """Toy ASR and LLM front stages (deterministic numpy transforms standing
+    in for Whisper and a prompt-rewriting LLM) feeding the real Wan DAG;
+    their arithmetic is the JAX package's."""
+    cfg = pipe.cfg
+    dag = build_dag_stage_fns(pipe)
+
+    def stage_asr(p):
+        audio = np.asarray(p["audio"])  # [B, n] waveform
+        toks = (np.abs(audio[:, :cfg.text_len]) * 997.0).astype(np.int64)
+        return {"tokens": (toks % cfg.text_vocab).astype(np.int32),
+                "image": p["image"], "seed": p["seed"]}
+
+    def stage_llm(p):
+        # image and seed ride along: text_encode wraps the chain's stage fn,
+        # whose payload carries them
+        toks = np.asarray(p["tokens"]).astype(np.int64)
+        return {"tokens": ((toks * 31 + 7) % cfg.text_vocab).astype(np.int32),
+                "image": p["image"], "seed": p["seed"]}
+
+    return {"asr": stage_asr, "llm": stage_llm, **dag}
+
+
+A2V_DEPS = {
+    "asr": [],
+    "llm": ["asr"],
+    "text_encode": ["llm"],
+    "image_encode": ["asr"],
+    "diffusion": ["text_encode", "image_encode"],
+    "vae_decode": ["diffusion"],
+}
 
 
 def workflow_spec(workflow: str, pipe: WanI2VPipeline,
@@ -99,24 +140,51 @@ def workflow_spec(workflow: str, pipe: WanI2VPipeline,
             for s in DAG_DEPS
         ])
         return spec, dag_times
+    if workflow == "a2v":
+        fns = build_a2v_stage_fns(pipe)
+        # The toy asr and llm take microseconds; planned at that cost they
+        # would pace the entrance and blow the per-path Theorem-1 counts up
+        # to T_dit / T_asr instances, so they are budgeted as light encoder
+        # stages, as the JAX package budgets them.
+        a2v_times = {"asr": times["text_encode"], "llm": times["text_encode"],
+                     "text_encode": times["text_encode"],
+                     "image_encode": times["vae_encode"],
+                     "diffusion": times["diffusion"],
+                     "vae_decode": times["vae_decode"]}
+        spec = WorkflowSpec(APP_I2V, "audio2video", [
+            StageSpec(s, fn=fns[s], exec_time_s=a2v_times[s], deps=A2V_DEPS[s])
+            for s in A2V_DEPS
+        ])
+        return spec, a2v_times
     raise ValueError(f"unknown workflow {workflow!r}")
 
 
-def make_request(cfg: WanPipelineConfig, rng, i: int) -> Dict[str, Any]:
-    return {
+def make_request(cfg: WanPipelineConfig, rng, i: int,
+                 workflow: str = "chain") -> Dict[str, Any]:
+    """One client request: prompt tokens, an image and a seed; an ``a2v``
+    request carries a waveform ``audio [1, 2 text_len]`` in place of the
+    tokens."""
+    req = {
         "tokens": rng.integers(0, cfg.text_vocab,
                                (1, cfg.text_len)).astype(np.int32),
         "image": (rng.standard_normal(
             (1, cfg.image_size, cfg.image_size, 3)) * 0.1).astype(np.float32),
         "seed": i,
     }
+    if workflow == "a2v":
+        del req["tokens"]
+        req["audio"] = rng.standard_normal((1, 2 * cfg.text_len)).astype(np.float32)
+    return req
 
 
 def build_set(spec: WorkflowSpec, *, counts, admit_rate: float,
               cfg: WanPipelineConfig, name: str = "ws0", max_batch: int = 1,
-              max_wait_s: float = 0.02, elastic: bool = True) -> WorkflowSet:
-    """A Workflow Set with ``counts[stage]`` instances per stage, each inbox
-    ring sized for ``cfg``'s payloads (``ring_bytes_for``)."""
+              max_wait_s: float = 0.02, elastic: bool = True,
+              spares: int = 0) -> WorkflowSet:
+    """A Workflow Set with ``counts[stage]`` instances per stage and
+    ``spares`` idle-pool instances the control loop may pull onto a hot
+    stage, each inbox ring sized for ``cfg``'s payloads
+    (``ring_bytes_for``)."""
     ws = WorkflowSet(name, control_loop=elastic)
     ws.register_workflow(spec)
     # Without the elastic loop nothing reassigns instances mid-run, so the
@@ -128,6 +196,8 @@ def build_set(spec: WorkflowSpec, *, counts, admit_rate: float,
     for stage, n in counts.items():
         for i in range(n):
             ws.add_instance(f"{stage}_{i}", stage=stage, **kw)
+    for i in range(spares):
+        ws.add_instance(f"spare_{i}", **kw)
     # nm_managed: the live control loop keeps (T_X, K) tracking the actual
     # entrance-stage instance count as it rebalances (§5)
     mon = RequestMonitor(t_entrance_s=1.0 / max(admit_rate, 1e-9), k_entrance=1,
@@ -203,6 +273,24 @@ def check_served(engine, reqs, outs) -> None:
                                  f"generate")
 
 
+def start_profile(args) -> None:
+    """--profile-latency: record per-request latency spans from here on."""
+    if args.profile_latency:
+        profiler().reset()
+        profiler().enable()
+
+
+def print_profile(args) -> None:
+    """--profile-latency: the per-stage phase breakdown (p50 ms)."""
+    if args.profile_latency:
+        prof = profiler()
+        prof.disable()
+        print("per-stage latency (p50 ms by phase):")
+        for stage, phases in prof.timeline():
+            inner = " ".join(f"{ph}={v:.2f}" for ph, v in phases.items())
+            print(f"  {stage:>14}: {inner}")
+
+
 def run_llm(args) -> int:
     """--workflow llm: the two-stage llm_disagg Workflow Set end to end."""
     cfg = llm_config(args.llm_arch, args.profile, args.cache_dtype)
@@ -215,6 +303,7 @@ def run_llm(args) -> int:
     rng = np.random.default_rng(args.seed)
     reqs = llm_requests(cfg, rng, [max_len // 16] * args.requests,
                         args.llm_steps, [0.7])
+    start_profile(args)
     outs, lost, wall = serve(ws, reqs, app=APP_LLM_DISAGG, batched=True)
     stats = ws.transport_stats()
     n_tok = sum(r["steps"] for r in reqs[:len(outs)])
@@ -229,6 +318,7 @@ def run_llm(args) -> int:
           f"max_resident={decoder.stats['max_resident']}/{args.llm_slots}")
     print(f"kv shipping: {stats.kv_pages} KVPages messages, "
           f"{stats.kv_bytes / 1e6:.1f} MB of cache over the fabric")
+    print_profile(args)
     if lost or stats.dropped:
         return 1
     check_served(engine, reqs, outs)
@@ -244,11 +334,23 @@ def main() -> int:
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch path)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--workflow", default="chain", choices=["chain", "dag", "llm"],
+    ap.add_argument("--workflow", default="chain",
+                    choices=["chain", "dag", "a2v", "llm"],
                     help="stage topology: linear chain, the branch-parallel "
-                         "Wan DAG, or disaggregated prefill/decode LLM serving")
+                         "Wan DAG, the nested audio-to-video DAG, or "
+                         "disaggregated prefill/decode LLM serving")
     ap.add_argument("--max-batch", type=int, default=1,
                     help="stage-level microbatch size (1 = per-request)")
+    ap.add_argument("--batch-wait-ms", type=float, default=20.0,
+                    help="partial-batch flush deadline")
+    ap.add_argument("--no-elastic", action="store_true",
+                    help="disable the live NodeManager control loop (§8.2)")
+    ap.add_argument("--spare-instances", type=int, default=0,
+                    help="extra idle-pool instances the control loop may "
+                         "pull onto a hot stage")
+    ap.add_argument("--profile-latency", action="store_true",
+                    help="record per-request latency spans and print the "
+                         "per-stage phase breakdown (docs/perf.md)")
     ap.add_argument("--llm-arch", default="qwen3-1.7b", choices=ARCH_IDS,
                     help="--workflow llm: model config")
     ap.add_argument("--llm-steps", type=int, default=16,
@@ -260,10 +362,11 @@ def main() -> int:
                          "(join/leave granularity)")
     ap.add_argument("--max-len", type=int, default=0,
                     help="--workflow llm: decode cache length (default 1024 "
-                         "at port, 64 at small)")
+                         "at port, 64 at small; gemma3-27b serves at 2048)")
     ap.add_argument("--cache-dtype", default="", choices=["", "int8"],
                     help="--workflow llm: KV cache type ('' = the model's; "
-                         "refused for the attention-free rwkv6)")
+                         "refused for the attention-free rwkv6 and for "
+                         "gemma3's ring caches)")
     args = ap.parse_args()
 
     if args.workflow == "llm":
@@ -273,6 +376,7 @@ def main() -> int:
             ap.error(str(e))
         return run_llm(args)
 
+    start_profile(args)
     pipe = WanI2VPipeline(cfg=PROFILES[args.profile], seed=args.seed,
                           device=args.device)
     cfg = pipe.cfg
@@ -289,9 +393,10 @@ def main() -> int:
 
     entrance_t = max(times[s] for s in spec.entrance_stages())
     ws = build_set(spec, counts=counts, admit_rate=1.0 / entrance_t, cfg=cfg,
-                   max_batch=args.max_batch)
+                   max_batch=args.max_batch, max_wait_s=args.batch_wait_ms / 1e3,
+                   elastic=not args.no_elastic, spares=args.spare_instances)
     rng = np.random.default_rng(args.seed)
-    reqs = [make_request(cfg, rng, i) for i in range(args.requests)]
+    reqs = [make_request(cfg, rng, i, args.workflow) for i in range(args.requests)]
     videos, lost, wall = serve(ws, reqs, batched=args.max_batch > 1)
 
     for v in videos:
@@ -307,9 +412,14 @@ def main() -> int:
     if js.offered:
         print(f"joins: {js.completed} assembled from {js.offered} partials, "
               f"{js.aborted_joins} aborted, pending={ws.joins.pending_joins()}")
+    if ws.control is not None:
+        print(f"control loop: {ws.control.steps} ticks, "
+              f"moves={ws.control.moves}, evicted={ws.control.evicted}, "
+              f"capacity_pushes={ws.control.capacity_pushes}")
     stats = ws.transport_stats()
     print(f"transport: {stats.sent} sent, {stats.dropped} dropped, "
           f"{stats.bytes_sent/1e6:.1f} MB")
+    print_profile(args)
     return 0 if not lost and stats.dropped == 0 else 1
 
 

@@ -1,11 +1,19 @@
 """Shared model layers: RMS norm, RoPE, head projections, attention (causal
-and non-causal flash prefill, flash-decode over a float or an int8 cache),
-the per-token int8 quantizer, the SwiGLU MLP and the DDIM update.
+and non-causal flash prefill, flash-decode over a float or an int8 cache,
+sliding-window attention and the ring-cache decode), the per-token int8
+quantizer, the SwiGLU MLP and the DDIM update.
 
 The path is chosen by the tensor's device and nothing else: a CUDA tensor
 goes through the hand-written kernels in ``repro_torch.kernels`` (which
 launch or raise), a CPU tensor through their plain PyTorch versions.  There
 is no switch that sends a CUDA tensor to the plain version.
+
+Sliding-window attention (``window > 0``, gemma3's local layers) is plain
+PyTorch on every device, as it is plain jnp in the JAX package, whose flash
+kernel is only taken at ``window == 0``; the ring-cache decode of a local
+layer runs through the flash-decode kernel (``models/transformer.py``), and
+``attention_decode_ring`` is the plain port of the JAX function it is held
+against.
 """
 from __future__ import annotations
 
@@ -19,11 +27,7 @@ from repro_torch.kernels import (
     flash_attention,
 )
 
-#: Windowed (sliding-window) attention belongs to gemma3's local layers,
-#: which the port does not carry yet.
-_WINDOW_TODO = ("windowed attention is not ported: gemma3's local/global "
-                "layers and their ring caches are the next slice (ROADMAP "
-                "Queue 1, item 1)")
+NEG_INF = -1e30
 
 
 #: PyTorch's CUDA reduction sets how many lanes share one row's sum by the
@@ -94,23 +98,60 @@ def merge_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, s, -1) @ w.reshape(-1, w.shape[-1])
 
 
+def _masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q0: int, k0: int, causal: bool, window: int) -> torch.Tensor:
+    """Plain attention of queries at positions q0.. over keys at k0..:
+    q [B,Sq,H,hd], k/v [B,Sk,KV,hd] -> [B,Sq,H,hd].  Scores and softmax in
+    float32, the probabilities in q's type, as the JAX package's reference
+    branch computes them."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, d) * d ** -0.5
+    sc = torch.einsum("bsngd,btnd->bngst", qg, k).float()
+    qpos = q0 + torch.arange(sq, device=q.device)[:, None]
+    kpos = k0 + torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= kpos > qpos - window
+    pr = torch.softmax(sc.masked_fill(~mask, NEG_INF), dim=-1).to(q.dtype)
+    return torch.einsum("bngst,btnd->bsngd", pr, v).reshape(b, sq, h, d)
+
+
 def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: [B,Sq,H,hd]; k, v: [B,Sk,KV,hd] -> [B,Sq,H,hd], through the flash
-    kernel.  Causal needs Sq == Sk."""
+    kernel; causal needs Sq == Sk.  With a window, key t is seen from query
+    s where s - window < t (and t <= s if causal), in plain PyTorch."""
     if window:
-        raise NotImplementedError(_WINDOW_TODO)
+        return _masked_attention(q, k, v, 0, 0, causal, window)
     return flash_attention(q, k, v, causal=causal)
 
 
 def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: int = 0) -> torch.Tensor:
+                        causal: bool = True, window: int = 0,
+                        q_block: int = 512) -> torch.Tensor:
     """The JAX package's memory-safe attention for long prompts (S > 2048).
-    The flash kernel never forms the [S, S] scores, so the port runs it
-    there too."""
-    if window:
-        raise NotImplementedError(_WINDOW_TODO)
-    return flash_attention(q, k, v, causal=causal)
+    Without a window it is the flash kernel, which never forms the [S, S]
+    scores.  With one (always causal, as in the JAX package) each block of
+    ``q_block`` queries (halved until it divides S) attends over a span of
+    ``window + q_block`` keys ending at its last query, so a local layer
+    costs O(S * window), in plain PyTorch."""
+    if not window:
+        return flash_attention(q, k, v, causal=causal)
+    s = q.shape[1]
+    q_block = min(q_block, s)
+    while s % q_block:
+        q_block //= 2
+    span = min(window + q_block, s)
+    out = []
+    for qs in range(0, s, q_block):
+        start = min(max(qs + q_block - span, 0), s - span)
+        out.append(_masked_attention(q[:, qs:qs + q_block], k[:, start:start + span],
+                                     v[:, start:start + span], qs, start, True,
+                                     window))
+    return torch.cat(out, dim=1)
 
 
 def _group(q: torch.Tensor, kv: int) -> torch.Tensor:
@@ -119,17 +160,32 @@ def _group(q: torch.Tensor, kv: int) -> torch.Tensor:
 
 
 def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cur_index, *,
-                     window: int = 0) -> torch.Tensor:
+                     v_cache: torch.Tensor, cur_index) -> torch.Tensor:
     """One new token per row against the serving-layout cache.  q [B,H,hd];
     k/v cache [B,KV,Smax,hd]; cur_index an int (lockstep batch) or a [B]
     tensor (one position per slot).  -> [B,H,hd] through the flash-decode
     kernel, for both forms of the index."""
-    if window:
-        raise NotImplementedError(_WINDOW_TODO)
     out = decode_attention_grouped(_group(q, k_cache.shape[1]), k_cache,
                                    v_cache, cur_index)
     return out.reshape(q.shape)
+
+
+def attention_decode_ring(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, cur_index) -> torch.Tensor:
+    """Decode attention over a sliding-window ring cache, in plain PyTorch:
+    q [B,H,hd]; k/v ring [B,KV,W,hd], where slot j holds absolute position
+    cur - ((cur - j) mod W); a slot whose position would be negative is
+    not yet written.  cur_index an int or a [B] tensor."""
+    b, h, d = q.shape
+    kv, w = k_cache.shape[1], k_cache.shape[2]
+    qg = _group(q, kv) * d ** -0.5
+    sc = torch.einsum("bngd,bntd->bngt", qg, k_cache).float()
+    cur = torch.as_tensor(cur_index, device=q.device).reshape(-1, 1)
+    slots = torch.arange(w, device=q.device)[None, :]
+    valid = (cur - torch.remainder(cur - slots, w) >= 0).expand(b, w)
+    sc = sc.masked_fill(~valid[:, None, None, :], NEG_INF)
+    pr = torch.softmax(sc, dim=-1).to(q.dtype)
+    return torch.einsum("bngt,bntd->bngd", pr, v_cache).reshape(b, h, d)
 
 
 def quantize_token_kv(x: torch.Tensor):

@@ -51,9 +51,11 @@ def tree_leaves(tree) -> list:
 
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of ``tree`` (and of trees of the same
-    structure in ``rest``), keeping the structure."""
+    structure in ``rest``), keeping the structure; leaves are visited in
+    ``tree_leaves`` order (dict keys sorted), which ``tree_unflatten``
+    relies on."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
     if isinstance(tree, (tuple, list)) and not is_spec(tree):
         return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
     return fn(tree, *rest)
@@ -73,6 +75,13 @@ def count(tree) -> int:
     return sum(math.prod(s.shape) for _, s in spec_leaves(tree))
 
 
+#: Elements drawn by one ``torch.randn`` call: a leaf is drawn in pieces
+#: of its flat layout, so the float32 draw never holds more than 1 GiB
+#: beside the weights (gemma3-27b's [62, 5376, 21504] MLP leaves would take
+#: 28.7 GB each whole, beside 57 GB of weights).
+DRAW_ELEMS = 1 << 28
+
+
 def materialize(spec: ParamSpec, generator: torch.Generator,
                 device: torch.device) -> torch.Tensor:
     """Normal with std ``scale / sqrt(fan_in)`` (fan_in = shape[0] for
@@ -87,9 +96,11 @@ def materialize(spec: ParamSpec, generator: torch.Generator,
         std = 0.006 * spec.scale
     else:
         std = spec.scale / math.sqrt(max(fan_in, 1))
-    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                    device=device) * std
-    return x.to(dtype)
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    for piece in out.view(-1).split(DRAW_ELEMS):
+        piece.copy_(torch.randn(piece.shape, generator=generator,
+                                dtype=torch.float32, device=device) * std)
+    return out
 
 
 def zeros(spec_tree, device):

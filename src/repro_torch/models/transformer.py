@@ -1,27 +1,41 @@
-"""Decoder-only transformer, dense family (qwen3; any dense config without a
-local/global pattern): prefill and decode steps for serving.
+"""Decoder-only transformer, dense family: the uniform stack (qwen3,
+chatglm3's half-dim rotary) and gemma3's local/global period layout, with
+prefill and decode steps for serving.
 
 Weights keep the JAX tree's names and shapes (``abstract_params``); the
 layer-stacked ``[L, ...]`` leaves reach this module as a list of per-layer
 views (``repro_torch.convert.to_port_layout``), and the layers run in a
 Python loop where the JAX package scans.
 
-The decode cache is the JAX tree too: ``{"layers": (k, v)}`` with k and v of
-shape ``[L, B, KV, S, hd]``, or ``(k, v, k_scale, v_scale)`` with int8
-values and float32 scales ``[L, B, KV, S]`` when ``cache_dtype="int8"``.
-Layer i reads the contiguous views ``[i]``.  Unlike the JAX functions, which
-return a new cache, the port writes the cache in place: ``prefill`` fills a
-zeroed cache of ``max_len`` positions (the decode layout, so nothing is
-padded afterwards) and ``decode_step`` writes each row's new token at its
-``cur_index`` into the cache it is given.
+The decode cache is the JAX tree too.  A uniform stack keeps
+``{"layers": (k, v)}`` with k and v of shape ``[L, B, KV, S, hd]``, or
+``(k, v, k_scale, v_scale)`` with int8 values and float32 scales
+``[L, B, KV, S]`` when ``cache_dtype="int8"``.  A local/global pattern
+(gemma3: periods of 5 local layers and 1 global one, then local tail
+layers) keeps ``{"local": [P, 5, B, KV, w, hd], "global": [P, B, KV, S,
+hd], "tail": [T, B, KV, w, hd]}`` pairs, where a local layer's ring holds
+``w = min(window, S)`` slots and position t lives in slot ``t % window``.
+Layer i reads the contiguous views of its leaf (``layer_slots``).  Unlike
+the JAX functions, which return a new cache, the port writes the cache in
+place: ``prefill`` fills a zeroed cache of ``max_len`` positions (the decode
+layout, so nothing is padded afterwards; a ring gets the prompt's last
+``min(w, S)`` positions at their slots, which is the JAX package's roll
+followed by its engine's zero pad) and ``decode_step`` writes each row's new
+token at its ``cur_index`` (a ring: at ``cur_index % window``) into the
+cache it is given.
 
-Attention runs through the hand-written kernels: the causal prefill through
-flash attention, every decode step through flash-decode (float or int8
-cache), with ``cur_index`` as an int or a [B] vector.
+Attention runs through the hand-written kernels: the causal prefill of a
+global (or uniform) layer through flash attention, every decode step
+through flash-decode (float or int8 cache), with ``cur_index`` as an int or
+a [B] vector.  A local layer's prefill is plain PyTorch (``layers.py``);
+its decode is flash-decode over the ring at ``min(cur_index, w - 1)``: a
+ring whose slots have all been written is valid everywhere, and before the
+first wrap its valid slots are the prefix 0..cur, so that index computes
+``layers.attention_decode_ring``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -31,27 +45,57 @@ from repro_torch.models.param import ParamSpec, zeros
 
 Tree = Dict[str, Any]
 
-#: Prompts longer than this take the JAX package's blockwise branch; both
-#: branches are the flash kernel here.
+#: Prompts longer than this take the JAX package's blockwise branch; without
+#: a window both branches are the flash kernel here.
 FULL_ATTENTION_MAX = 2048
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The configurations this slice ports; the rest raise, naming the
+    """The configurations the port carries; the rest raise, naming the
     ROADMAP item that will port them."""
-    if cfg.local_global_pattern != (0, 0) or cfg.sliding_window:
-        raise NotImplementedError(
-            f"{cfg.name}: local/global layers with ring caches are the gemma3 "
-            f"slice (ROADMAP Queue 1, item 1)")
     if cfg.num_experts or cfg.first_dense_layers:
         raise NotImplementedError(
             f"{cfg.name}: MoE layers are not ported (ROADMAP Queue 1, "
-            f"remaining families)")
+            f"item 1)")
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not the dense transformer's "
             f"(models/registry.py routes each ported family; ROADMAP Queue 1 "
             f"lists the rest)")
+    loc, glob = cfg.local_global_pattern
+    if (loc or glob) and (glob != 1 or not cfg.sliding_window):
+        raise NotImplementedError(
+            f"{cfg.name}: a local/global pattern {cfg.local_global_pattern} "
+            f"with window {cfg.sliding_window}: the JAX package's period "
+            f"layout (and so the port's) holds one global layer per period "
+            f"and a window > 0 (ROADMAP Queue 1, item 1)")
+
+
+# ------------------------------------------------------------------ pattern
+def layer_pattern(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(n_periods, period, tail): gemma3-27b (10, 6, 2); uniform (0, 0, L)."""
+    loc, glob = cfg.local_global_pattern
+    if not (loc or glob):
+        return 0, 0, cfg.num_layers
+    period = loc + glob
+    return cfg.num_layers // period, period, cfg.num_layers % period
+
+
+def _is_local(cfg: ModelConfig, idx_in_period: int) -> bool:
+    return idx_in_period < cfg.local_global_pattern[0]
+
+
+def layer_slots(cfg: ModelConfig) -> List[Tuple[str, Tuple[int, ...], int]]:
+    """Per layer: (cache leaf, index into its leading axes, attention
+    window; 0 = full).  The JAX package's period scan in a flat list: a
+    period's local layers, then its global one; the tail layers are local."""
+    n_periods, period, tail = layer_pattern(cfg)
+    if not period:
+        return [("layers", (i,), 0) for i in range(cfg.num_layers)]
+    w = cfg.sliding_window
+    out = [("local", (p, j), w) if _is_local(cfg, j) else ("global", (p,), 0)
+           for p in range(n_periods) for j in range(period)]
+    return out + [("tail", (i,), w) for i in range(tail)]
 
 
 # ---------------------------------------------------------------- param spec
@@ -100,18 +144,33 @@ def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int) -> Tree:
     """ParamSpec tree of the decode cache; each leaf's logical names say
     where its batch axis is."""
     check_supported(cfg)
-    kv, hd, n = cfg.resolved_kv_heads, cfg.resolved_head_dim, cfg.num_layers
-    shape = (n, batch, kv, seq_len, hd)
-    logical = ("layers", "batch", "cache_kv_heads", "cache_seq", None)
+    kv, hd = cfg.resolved_kv_heads, cfg.resolved_head_dim
     dt = cfg.resolved_cache_dtype
-    if dt == "int8":
-        sshape, slog = shape[:-1], logical[:-1]
-        return {"layers": (ParamSpec(shape, logical, "int8", "zeros"),
-                           ParamSpec(shape, logical, "int8", "zeros"),
-                           ParamSpec(sshape, slog, "float32", "zeros"),
-                           ParamSpec(sshape, slog, "float32", "zeros"))}
-    return {"layers": (ParamSpec(shape, logical, dt, "zeros"),
-                       ParamSpec(shape, logical, dt, "zeros"))}
+
+    def kvspec(lead: Tuple[int, ...], s: int):
+        shape = lead + (batch, kv, s, hd)
+        logical = ("layers",) * len(lead) + ("batch", "cache_kv_heads",
+                                             "cache_seq", None)
+        if dt == "int8":
+            sshape, slog = shape[:-1], logical[:-1]
+            return (ParamSpec(shape, logical, "int8", "zeros"),
+                    ParamSpec(shape, logical, "int8", "zeros"),
+                    ParamSpec(sshape, slog, "float32", "zeros"),
+                    ParamSpec(sshape, slog, "float32", "zeros"))
+        return (ParamSpec(shape, logical, dt, "zeros"),
+                ParamSpec(shape, logical, dt, "zeros"))
+
+    n_periods, period, tail = layer_pattern(cfg)
+    if not period:
+        return {"layers": kvspec((cfg.num_layers,), seq_len)}
+    w = min(cfg.sliding_window, seq_len)
+    c: Tree = {}
+    if n_periods:
+        c["local"] = kvspec((n_periods, cfg.local_global_pattern[0]), w)
+        c["global"] = kvspec((n_periods,), seq_len)
+    if tail:
+        c["tail"] = kvspec((tail,), w)
+    return c
 
 
 # --------------------------------------------------------------------- layer
@@ -121,10 +180,16 @@ def _sincos(cfg: ModelConfig, positions: torch.Tensor):
 
 
 def _write_prompt(cache: Tuple[torch.Tensor, ...], k: torch.Tensor,
-                  v: torch.Tensor) -> None:
-    """Prefill: positions 0..S-1 of one layer's cache from k, v [B,S,KV,hd]."""
+                  v: torch.Tensor, window: int) -> None:
+    """Prefill: one layer's cache from k, v [B,S,KV,hd]: positions 0..S-1,
+    or for a ring of w slots (``window`` > 0) the prompt's last min(w, S)
+    positions, position t at slot t % window."""
     s = k.shape[1]
     kc, vc = k.transpose(1, 2), v.transpose(1, 2)   # [B,KV,S,hd]
+    if window:
+        keep = min(cache[0].shape[2], s)
+        kc, vc = (torch.roll(x[:, :, s - keep:], s % keep, dims=2) for x in (kc, vc))
+        s = keep
     if len(cache) == 4:
         for dst, sdst, src in ((cache[0], cache[2], kc), (cache[1], cache[3], vc)):
             qv, sc = L.quantize_token_kv(src)
@@ -158,9 +223,10 @@ def _write_token(cache: Tuple[torch.Tensor, ...], k1: torch.Tensor,
         cache[1][idx] = v1.to(cache[1].dtype)
 
 
-def _attention(x, lp, cfg: ModelConfig, sincos, cache, cur_index):
-    """One attention sub-block; ``cur_index`` None is the prefill.  Writes
-    the layer's cache in place and returns the residual delta."""
+def _attention(x, lp, cfg: ModelConfig, sincos, cache, cur_index, window):
+    """One attention sub-block; ``cur_index`` None is the prefill; a
+    ``window`` > 0 makes it a local layer over a ring cache.  Writes the
+    layer's cache in place and returns the residual delta."""
     h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q = L.project_heads(h, lp["wq"])
     k = L.project_heads(h, lp["wk"])
@@ -174,31 +240,47 @@ def _attention(x, lp, cfg: ModelConfig, sincos, cache, cur_index):
     k = L.apply_rope(k, sin, cos, rd)
     if cur_index is None:
         if x.shape[1] > FULL_ATTENTION_MAX:
-            att = L.attention_blockwise(q, k, v, causal=True)
+            att = L.attention_blockwise(q, k, v, causal=True, window=window)
         else:
-            att = L.attention_full(q, k, v, causal=True)
-        _write_prompt(cache, k, v)
+            att = L.attention_full(q, k, v, causal=True, window=window)
+        _write_prompt(cache, k, v, window)
     else:
         k1, v1 = k[:, 0], v[:, 0]
-        _write_token(cache, k1, v1, cur_index)
-        if len(cache) == 4:
-            att = L.attention_decode_int8(q[:, 0], *cache, cur_index)[:, None]
+        if window:
+            # a ring: write at cur % window; attend over the written prefix
+            _write_token(cache, k1, v1, cur_index % window)
+            last = cache[0].shape[2] - 1
+            seen = (cur_index.clamp(max=last) if isinstance(cur_index, torch.Tensor)
+                    else min(cur_index, last))
         else:
-            att = L.attention_decode(q[:, 0], cache[0], cache[1],
-                                     cur_index)[:, None]
+            _write_token(cache, k1, v1, cur_index)
+            seen = cur_index
+        if len(cache) == 4:
+            att = L.attention_decode_int8(q[:, 0], *cache, seen)[:, None]
+        else:
+            att = L.attention_decode(q[:, 0], cache[0], cache[1], seen)[:, None]
     return L.merge_heads(att, lp["wo"])
 
 
 def _stack(params: Tree, x: torch.Tensor, cfg: ModelConfig, cache: Tree,
            positions: torch.Tensor, cur_index) -> torch.Tensor:
     sincos = _sincos(cfg, positions)
-    leaves = cache["layers"]
-    for i, lp in enumerate(params["layers"]):
-        x = x + _attention(x, lp, cfg, sincos, tuple(c[i] for c in leaves),
-                           cur_index)
+    for lp, (leaf, idx, window) in zip(params["layers"], layer_slots(cfg)):
+        x = x + _attention(x, lp, cfg, sincos, tuple(c[idx] for c in cache[leaf]),
+                           cur_index, window)
         h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
         x = x + L.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def _embed(params: Tree, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Token embeddings; with ``embed_scale`` (gemma) scaled by
+    sqrt(d_model), the root taken in the embeddings' type as the JAX package
+    takes it (bfloat16 rounds sqrt(5376) = 73.32 to 73.5)."""
+    x = params["embedding"][tokens]
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model, dtype=x.dtype, device=x.device) ** 0.5
+    return x
 
 
 def _unembed(params: Tree, cfg: ModelConfig) -> torch.Tensor:
@@ -216,7 +298,7 @@ def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
     cache = zeros(abstract_cache(cfg, b, max_len), tokens.device)
-    x = params["embedding"][tokens]
+    x = _embed(params, tokens, cfg)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     x = _stack(params, x, cfg, cache, positions, None)
     return (x[:, -1] @ _unembed(params, cfg)).float(), cache
@@ -230,9 +312,10 @@ def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor, cur_index,
     if isinstance(cur_index, torch.Tensor):
         positions = cur_index.to(tokens.device)[:, None]
     else:
-        if not 0 <= cur_index < cache["layers"][0].shape[3]:
+        full = [cache[k][0].shape[-2] for k in ("layers", "global") if k in cache]
+        if cur_index < 0 or (full and cur_index >= full[0]):
             raise ValueError(f"cur_index {cur_index} outside the cache")
         positions = torch.full((b, 1), cur_index, device=tokens.device)
-    x = params["embedding"][tokens[:, None]]
+    x = _embed(params, tokens[:, None], cfg)
     x = _stack(params, x, cfg, cache, positions, cur_index)
     return (x[:, 0] @ _unembed(params, cfg)).float()

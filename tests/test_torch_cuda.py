@@ -20,6 +20,7 @@ from repro_torch.kernels import decode_attention as K
 from repro_torch.kernels.ddim_step import ddim_coefs, ddim_step_ref
 from repro_torch.kernels.flash_attention import attention_ref
 from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_ref
+from repro_torch.models import layers as L
 from repro_torch.models.layers import rms_norm, row_mean
 from repro_torch.models.aigc.dit import schedule
 
@@ -506,3 +507,75 @@ def test_skinny_decode_projection_rows_do_not_depend_on_the_batch_on_card(cuda, 
         full = _row_blocks_matmul(x, w)
         for b in (1, 2, 8, 16):
             assert torch.equal(_row_blocks_matmul(x[:b], w), full[:b]), b
+
+
+#: chatglm3-6b's prefill heads (32 query heads over 2 kv heads of 128:
+#: groups of 16) and gemma3-27b's global layers' (32 over 16) at the
+#: smoke's served prompts
+NEW_MODEL_PREFILLS = [
+    # b, sq, sk, h, kv, d, causal
+    (1, 512, 512, 32, 2, 128, True),
+    (1, 1500, 1500, 32, 16, 128, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", NEW_MODEL_PREFILLS)
+def test_flash_bf16_kernel_at_chatglm3_and_gemma3_heads_on_card(cuda, b, sq, sk, h,
+                                                              kv, d, causal):
+    _check_bf16_flash(*_bf16_qkv(cuda, sq + kv, b, sq, sk, h, kv, d), causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.int8])
+def test_decode_kernel_at_groups_of_16_on_card(cuda, cache_dtype):
+    """chatglm3-6b's decode: B 8, KV 2, G 16, D 128 over a served 1024
+    positions, a mixed per-row index, the bfloat16 and the int8 cache."""
+    q, cache = _decode_case(cuda, 16, 8, 1024, 2, 16, 128, 2, cache_dtype,
+                            torch.bfloat16)
+    cur = torch.tensor([1023, 700, 511, 256, 255, 127, 1, 0], dtype=torch.int32,
+                       device=cuda)
+    _check_decode(q, cache, cur, 2)
+
+
+#: a ring of 1024 slots (gemma3-27b's local layers), rows before, at and
+#: after the first wrap, and far past it
+RING_CUR = [0, 1, 511, 1022, 1023, 1024, 1500, 3000]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_decode_through_the_kernel_on_card(cuda, dtype):
+    """A local layer's decode: flash-decode over the ring at min(cur, 1023)
+    against ``attention_decode_ring``'s plain version at cur (in float32 on
+    the same numbers, rounded to the output's type), at gemma3-27b's heads
+    (B 8, KV 16, G 2, D 128)."""
+    gen = torch.Generator(device=cuda).manual_seed(1024)
+    q = torch.randn(8, 32, 128, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(8, 16, 1024, 128, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    cur = torch.tensor(RING_CUR, dtype=torch.int32, device=cuda)
+    launches = K.decode_attention_grouped.launches
+    out = L.attention_decode(q, k, v, cur.clamp(max=1023))
+    torch.cuda.synchronize()
+    assert K.decode_attention_grouped.launches == launches + 1
+    ref = L.attention_decode_ring(q.float(), k.float(), v.float(), cur).to(dtype)
+    torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_in,d_out", [(4096, 4096), (4096, 256), (4096, 13696),
+                                        (13696, 4096), (4096, 65024), (5376, 4096),
+                                        (5376, 2048), (4096, 5376), (5376, 21504),
+                                        (21504, 5376), (5376, 262144)])
+def test_decode_projection_rows_do_not_depend_on_the_batch_on_card(cuda, d_in, d_out):
+    """A decode step's bfloat16 projections at chatglm3-6b's and
+    gemma3-27b's widths: the first b rows of a slot batch of 8 equal a batch
+    of b, bit for bit, so a served stream can equal its solo generate."""
+    gen = torch.Generator(device=cuda).manual_seed(d_in + d_out)
+    w = (torch.randn(d_in, d_out, generator=gen, device=cuda) / d_in ** 0.5).bfloat16()
+    for _ in range(4):
+        x = torch.randn(8, 1, d_in, generator=gen, device=cuda).bfloat16()
+        full = x @ w
+        for b in (1, 2, 4):
+            assert torch.equal(x[:b] @ w, full[:b]), b

@@ -1,5 +1,8 @@
 """The port's LLM serving slice held against the JAX package on the CPU, on
-the reduced float32 qwen3-1.7b config.
+the reduced float32 qwen3-1.7b config, and on chatglm3-6b's reduced config
+(2d rotary over half the head; 4 query heads over 1 kv head) and a variant
+of it with 16 query heads over 1 (groups of 16, as the full model's 32 over
+2).
 
 Weights and inputs are made with numpy from a seed and fed to both
 frameworks; the port gets the weights through ``params_from_numpy``.  The
@@ -99,9 +102,10 @@ def prompts(n, p, seed=1):
 
 # ------------------------------------------------------------- configs
 def test_config_and_param_specs_match_jax():
-    """Field for field, less the JAX-only knobs and the source: the JAX
-    package cites hf:Qwen/Qwen3-8B for this config, whose widths are
-    Qwen3-1.7B's, and the port cites the model it is."""
+    """Field for field, less the JAX-only knobs, the port's ``embed_scale``
+    (the JAX package's name rule) and the source: the JAX package cites
+    hf:Qwen/Qwen3-8B for this config, whose widths are Qwen3-1.7B's, and the
+    port cites the model it is."""
     dropped = {"use_pallas", "decode_unroll", "attn_causal_skip",
                "fsdp_weight_gather", "source"}
     assert get_config("qwen3-1.7b").source == "hf:Qwen/Qwen3-1.7B"
@@ -110,8 +114,10 @@ def test_config_and_param_specs_match_jax():
         p = get_config("qwen3-1.7b")
         if reduce:
             j, p = j.reduced(), p.reduced()
-        assert {k: v for k, v in vars(p).items() if k != "source"} == \
+        assert {k: v for k, v in vars(p).items()
+                if k not in ("source", "embed_scale")} == \
             {k: v for k, v in vars(j).items() if k not in dropped}
+        assert not p.embed_scale and not j.name.startswith("gemma")
         assert (p.vocab_padded, p.resolved_head_dim, p.resolved_kv_heads) == \
             (j.vocab_padded, j.resolved_head_dim, j.resolved_kv_heads)
 
@@ -133,15 +139,11 @@ def test_config_and_param_specs_match_jax():
 
 
 def test_unported_configs_raise():
-    for name, kw in (("gemma", dict(local_global_pattern=(5, 1), sliding_window=64)),
-                     ("moe", dict(num_experts=4, top_k=2)),
+    for name, kw in (("moe", dict(num_experts=4, top_k=2)),
                      ("vlm", dict(family="vlm"))):
         cfg = dataclasses.replace(get_config("qwen3-1.7b"), name=name, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             transformer.abstract_params(cfg)
-    with pytest.raises(NotImplementedError, match="gemma3"):
-        L.attention_decode(torch.zeros(1, 2, 32), torch.zeros(1, 1, 8, 32),
-                           torch.zeros(1, 1, 8, 32), 3, window=4)
 
 
 def test_weights_of_a_jax_tree_carry_across(weights, port_weights):
@@ -458,3 +460,115 @@ def test_inbox_rings_hold_a_full_width_cache(engine):
     assert sizes["rings.decode0"] == ring_bytes_for(engine.cfg, MAX_LEN)
     assert sizes["rings.decode0"] >= 4 * largest_message_bytes(engine.cfg, MAX_LEN)
     assert sizes["rings.prefill0"] >= 4 * 4 * MAX_LEN
+
+
+# ------------------------------------------------------------ chatglm3-6b
+#: chatglm3's reduced config keeps its 2d rotary and its GQA ratio (4 query
+#: heads over 1 kv head); "g16" has the full model's groups of 16 query
+#: heads per kv head
+CHATGLM = {"reduced": {}, "g16": dict(num_heads=16, num_kv_heads=1)}
+
+
+def chatglm_configs(variant, cache_dtype=""):
+    """(JAX config, port config): reduced chatglm3-6b in float32."""
+    kw = dict(CHATGLM[variant], dtype="float32", cache_dtype=cache_dtype)
+    return (dataclasses.replace(jax_get_config("chatglm3-6b").reduced(), **kw),
+            dataclasses.replace(get_config("chatglm3-6b").reduced(), **kw))
+
+
+@pytest.fixture(scope="module", params=sorted(CHATGLM))
+def chatglm(request):
+    """(variant, numpy weights, port weights)."""
+    jcfg, _ = chatglm_configs(request.param)
+    w = numpy_params(jtf.abstract_params(jcfg), np.random.default_rng(11))
+    return request.param, w, params_from_numpy(w, device="cpu")
+
+
+def test_chatglm3_config_matches_jax():
+    """Field for field, less the JAX-only knobs and the port's
+    ``embed_scale`` (the JAX package's name rule); 6,243,454,976 parameters,
+    and 1 KiB of bfloat16 cache per token and layer."""
+    dropped = {"use_pallas", "decode_unroll", "attn_causal_skip",
+               "fsdp_weight_gather"}
+    j, p = jax_get_config("chatglm3-6b"), get_config("chatglm3-6b")
+    assert {k: v for k, v in vars(p).items() if k != "embed_scale"} == \
+        {k: v for k, v in vars(j).items() if k not in dropped}
+    assert not p.embed_scale and not j.name.startswith("gemma")
+    assert p.param_count() == j.param_count() == 6_243_454_976
+    assert p.rope_2d and p.num_heads // p.resolved_kv_heads == 16
+    kv = transformer.abstract_cache(p, 1, 1)["layers"][0]
+    assert 2 * np.prod(kv.shape) * 2 // p.num_layers == 1024
+
+
+@pytest.mark.parametrize("variant", sorted(CHATGLM))
+def test_chatglm3_param_and_cache_specs_match_jax(variant):
+    jcfg, cfg = chatglm_configs(variant)
+    assert cfg.num_heads // cfg.resolved_kv_heads == (16 if variant == "g16" else 4)
+
+    def flat(tree, prefix=()):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in flat(tree[k], prefix + (k,))]
+        if isinstance(tree, tuple) and not hasattr(tree, "shape"):
+            return [x for i, v in enumerate(tree) for x in flat(v, prefix + (i,))]
+        return [(prefix, tuple(tree.shape), tuple(tree.logical), tree.init,
+                 str(tree.dtype))]
+
+    assert flat(transformer.abstract_params(cfg)) == flat(jtf.abstract_params(jcfg))
+    for cd in ("", "int8"):
+        pc, jc = (dataclasses.replace(c, cache_dtype=cd) for c in (cfg, jcfg))
+        assert flat(transformer.abstract_cache(pc, 3, 64)) == \
+            flat(jtf.abstract_cache(jc, 3, 64))
+
+
+@pytest.mark.parametrize("cache_dtype", ["", "int8"])
+def test_chatglm3_prefill_and_decode_logits_match_jax(chatglm, cache_dtype):
+    """Prefill logits and cache, then three decode steps (a lockstep index,
+    then per-row positions twice), each step's logits and cache."""
+    variant, weights, port_weights = chatglm
+    jcfg, cfg = chatglm_configs(variant, cache_dtype)
+    toks = prompts(2, 9, seed=12)
+    jlogits, jcache = jtf.prefill(weights, {"tokens": jnp.asarray(toks)}, jcfg)
+    logits, cache = transformer.prefill(port_weights, t(toks), cfg, max_len=MAX_LEN)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    jcache = _jax_padded(jcache, MAX_LEN)
+    for cur in (9, [10, 4], [11, 5]):
+        jcur = jnp.int32(cur) if isinstance(cur, int) else jnp.asarray(cur, jnp.int32)
+        nxt = prompts(2, 1, seed=13 + len(str(cur)))[:, 0]
+        jlogits, jcache = jtf.decode_step(
+            weights, jcache, {"tokens": jnp.asarray(nxt), "cur_index": jcur}, jcfg)
+        logits = transformer.decode_step(port_weights, cache, t(nxt), _cur(cur), cfg)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+        for ours, ref in zip(cache["layers"], jcache["layers"]):
+            np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("cache_dtype", ["", "int8"])
+def test_chatglm3_greedy_tokens_identical_to_jax(chatglm, cache_dtype):
+    variant, weights, port_weights = chatglm
+    jcfg, cfg = chatglm_configs(variant, cache_dtype)
+    toks = prompts(2, 6, seed=14)
+    ref = JaxEngine(jcfg, params=weights, max_len=MAX_LEN).generate(toks, steps=8)
+    ours = ServingEngine(cfg, params=port_weights, max_len=MAX_LEN,
+                         device="cpu").generate(toks, steps=8)
+    np.testing.assert_array_equal(ours.tokens, ref.tokens)
+
+
+def test_chatglm3_serves_tokens_equal_to_solo_generate(chatglm):
+    """Four requests, greedy and sampled, through two slots of the port's
+    llm_disagg set: nothing dropped, every stream equal to its solo
+    ``generate``."""
+    variant, _, port_weights = chatglm
+    _, cfg = chatglm_configs(variant)
+    engine = ServingEngine(cfg, params=port_weights, max_len=MAX_LEN, device="cpu")
+    ws, dec = build_llm_disagg_set(engine, name=f"glm_{variant}", max_slots=2,
+                                   segment_len=3)
+    reqs = [{"prompt": prompts(1, 3 + 4 * i, seed=40 + i), "steps": 6,
+             "temperature": 0.7 * (i % 2), "seed": 200 + i} for i in range(4)]
+    with ws:
+        p = ws.proxies[0]
+        res = [p.wait_result(u, timeout_s=60)
+               for u in [p.submit(APP_LLM_DISAGG, r) for r in reqs]]
+        stats = ws.transport_stats()
+    check_served(engine, reqs, res)
+    assert stats.dropped == 0 and ws.dead_uids() == set()
+    assert dec.stats["completed"] == 4
