@@ -44,12 +44,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    chunk steps beside it.  chatglm3-6b's heads (groups of 16) and
    gemma3-27b's global layers' in the bfloat16 flash prefill and in
    flash-decode, and gemma3-27b's local-layer ring (1024 slots) through
-   flash-decode at the clamped index against the plain ring decode.
+   flash-decode at the clamped index against the plain ring decode.  The
+   heads of internvl2-1b (groups of 7, D 64), granite-moe-3b-a800m (groups
+   of 3, D 64), deepseek-moe-16b (groups of 1) and deepseek-67b (64 over 8)
+   in the bfloat16 flash prefill at 512 tokens and in flash-decode over
+   both served caches.
 3. The port on small inputs, card against CPU on the same weights: the SMALL
    Wan pipeline's latents and frames (same noise), and the reduced float32
    qwen3, chatglm3 (groups of 16), gemma3 (8 layers, window 16, rings
-   wrapped in prefill and in decode) and rwkv6 engines' prefill logits and
-   greedy tokens.
+   wrapped in prefill and in decode), deepseek-moe (a dense layer, then a
+   MoE layer), granite-moe (24/8 heads), internvl2 (14/2 heads, patch
+   embeddings) and rwkv6 engines' prefill logits and greedy tokens.
 4. Serving, the main paths, each with the launch counters set to 0 just
    before and read just after: 2 requests through the Wan chain, 2 through
    the DAG and 2 through the audio-to-video DAG (``a2v``: toy asr and llm
@@ -57,11 +62,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    per stage; then qwen3-1.7b and chatglm3-6b at full width and depth in
    bfloat16 through the ``llm_disagg`` Workflow Set, each once with the
    bfloat16 cache (8 requests) and once with the int8 cache (4 requests);
-   then, with the Wan pipeline and those engines freed, rwkv6-7b at full
-   width and depth in bfloat16 through the same Workflow Set (8 requests,
-   prompts of 64 to 3000 tokens); last, with every earlier model freed,
+   internvl2-1b the same way (text only, as the JAX engine serves it),
+   granite-moe-3b-a800m and deepseek-moe-16b with the bfloat16 cache (8
+   requests each, MoE layers dropless); then, with the Wan pipeline and
+   those engines freed, rwkv6-7b at full width and depth in bfloat16
+   through the same Workflow Set (8 requests, prompts of 64 to 3000
+   tokens); last, one at a time with every earlier model freed,
    gemma3-27b at full width and depth (8 requests, max_len 2048, rings
-   wrapped in prefill and in decode).  Every request answered, nothing
+   wrapped in prefill and in decode) and deepseek-67b at full width and
+   38 of its 95 layers (4 requests).  Each model's batch-1 against
+   batch-8 logit difference is printed.  Every request answered, nothing
    dropped, every join assembled, the counters risen by the expected
    launches, frames equal to ``WanI2VPipeline.generate``, latents equal to
    the pipeline's, and tokens equal to ``ServingEngine.generate``.
@@ -527,15 +537,20 @@ def main(argv) -> int:
     del pipe, spec, ws, st, toy   # the stage fns hold the pipeline's 6 GB of weights
     torch.cuda.empty_cache()
     by_arch = {}
-    for arch in ("qwen3-1.7b", "chatglm3-6b"):
+    for arch in ("qwen3-1.7b", "chatglm3-6b", "internvl2-1b", "granite-moe-3b-a800m",
+                 "deepseek-moe-16b"):
         by_arch[arch] = llm_serving_phase(torch, np, dev, arch)
         gc.collect()          # the engines and their Workflow Sets
         torch.cuda.empty_cache()
     rwkv_launches = rwkv_serving_phase(torch, np, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    # last: gemma3-27b's 52.93 GiB of weights need every earlier model freed
-    by_arch["gemma3-27b"] = llm_serving_phase(torch, np, dev, "gemma3-27b")
+    # last, one at a time: gemma3-27b's 52.93 GiB of weights and deepseek-67b's
+    # 52.11 GiB at 38 layers each need every earlier model freed
+    for arch in ("gemma3-27b", "deepseek-67b"):
+        by_arch[arch] = llm_serving_phase(torch, np, dev, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
     llm = {k: sum(c.get(k, 0) for c in by_arch.values())
            for k in ("flash_attention", "decode_attention_grouped",
                      "decode_attention_int8_grouped")}
@@ -605,6 +620,14 @@ def main(argv) -> int:
     return 0
 
 
+#: The served decode shapes of internvl2-1b (KV 2, G 7, D 64),
+#: granite-moe-3b-a800m (KV 8, G 3, D 64), deepseek-moe-16b (KV 16, G 1,
+#: D 128) and deepseek-67b (KV 8, G 8, D 128): name -> (KV, G, D).  The
+#: kernel tiles the query heads in groups of 4, so G 3 and G 7 end in a
+#: partly masked tile.
+SERVED_DECODE_HEADS = [("g7", (2, 7, 64)), ("g3", (8, 3, 64)), ("g1", (16, 1, 128)),
+                       ("g8", (8, 8, 128))]
+
 #: gemma3-27b's local layers: a ring of 1024 slots, rows before, at and
 #: after the first wrap, and far past it; flash-decode reads the ring at
 #: min(cur, 1023)
@@ -617,7 +640,8 @@ def decode_kernel_phase(torch, F, dev, randn) -> list:
     KV 8, G 2, D 128, S 32768: a mixed per-row index and a full-cache scalar
     index; and at the served shape, S 1024 in the serving layout, with a
     mixed index on both sides of the chunk edges; chatglm3-6b's served
-    shape (KV 2, G 16) over both caches; gemma3-27b's local-layer ring (KV
+    shape (KV 2, G 16) and the new models' (`SERVED_DECODE_HEADS`: G 7, 3,
+    1 and 8) over both caches; gemma3-27b's local-layer ring (KV
     16, G 2, 1024 slots) at the clamped index, held against
     ``attention_decode_ring``'s plain version at the unclamped one (in
     float32 on the same numbers, rounded to bfloat16).  The bound counts the
@@ -636,14 +660,22 @@ def decode_kernel_phase(torch, F, dev, randn) -> list:
     kn, vn = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
     (kqn, ks), (vqn, vs) = K.quantize_kv(kn), K.quantize_kv(vn)
     kqc, vqc = kqn.transpose(1, 2).contiguous(), vqn.transpose(1, 2).contiguous()
-    q16 = randn(b, 2, 16, d).bfloat16()
-    k16, v16 = randn(b, s_served, 2, d), randn(b, s_served, 2, d)
-    (kq16, ks16), (vq16, vs16) = K.quantize_kv(k16), K.quantize_kv(v16)
-    k16, v16, kq16, vq16 = (x.transpose(1, 2).contiguous()
-                            for x in (k16.bfloat16(), v16.bfloat16(), kq16, vq16))
+
+    def served_heads(n_kv, g, dd):
+        """q [B,KV,G,D] and the served caches [B,KV,S,D] at S 1024:
+        (bfloat16 k, v) and (int8 k, v, k scale, v scale)."""
+        qs = randn(b, n_kv, g, dd).bfloat16()
+        ks_, vs_ = randn(b, s_served, n_kv, dd), randn(b, s_served, n_kv, dd)
+        (kq_, ksc), (vq_, vsc) = K.quantize_kv(ks_), K.quantize_kv(vs_)
+        kb, vb, kq_, vq_ = (x.transpose(1, 2).contiguous()
+                            for x in (ks_.bfloat16(), vs_.bfloat16(), kq_, vq_))
+        return qs, (kb, vb), (kq_, vq_, ksc, vsc)
+
+    q16, fp16, i816 = served_heads(2, 16, d)
     q_ring = randn(b, 16, 2, d).bfloat16()
     k_ring, v_ring = (randn(b, 16, RING_SLOTS, d).bfloat16() for _ in range(2))
     ring_cur = torch.tensor(RING_CUR, dtype=torch.int32, device=dev)
+    heads = {name: served_heads(*shape) for name, shape in SERVED_DECODE_HEADS}
 
     def served(*xs):    # the first 1024 positions, [B,KV,S,...] caches
         return tuple(x[:, :, :s_served].contiguous() for x in xs)
@@ -663,7 +695,7 @@ def decode_kernel_phase(torch, F, dev, randn) -> list:
         ("fp_native_vector", "fp", fp, q, (kn, vn), 1, s_long, cur_long),
         ("fp_cache_scalar", "fp", fp, q, (kc, vc), 2, s_long, s_long - 1),
         ("fp_served_vector", "fp", fp, q, served(kc, vc), 2, s_served, cur_served),
-        ("fp_served_g16", "fp", fp, q16, (k16, v16), 2, s_served, cur_served),
+        ("fp_served_g16", "fp", fp, q16, fp16, 2, s_served, cur_served),
         ("ring_1024_clamped", "fp", ring, q_ring, (k_ring, v_ring), 2, RING_SLOTS,
          clamped),
         ("int8_cache_vector", "int8", i8, q, (kqc, vqc, ks, vs), 2, s_long, cur_long),
@@ -671,9 +703,11 @@ def decode_kernel_phase(torch, F, dev, randn) -> list:
         ("int8_cache_scalar", "int8", i8, q, (kqc, vqc, ks, vs), 2, s_long, s_long - 1),
         ("int8_served_vector", "int8", i8, q, served(kqc, vqc, ks, vs), 2, s_served,
          cur_served),
-        ("int8_served_g16", "int8", i8, q16, (kq16, vq16, ks16, vs16), 2, s_served,
-         cur_served),
+        ("int8_served_g16", "int8", i8, q16, i816, 2, s_served, cur_served),
     ]
+    for name, (qh, fph, i8h) in heads.items():
+        cases += [(f"fp_served_{name}", "fp", fp, qh, fph, 2, s_served, cur_served),
+                  (f"int8_served_{name}", "int8", i8, qh, i8h, 2, s_served, cur_served)]
     rows = []
     for name, kind, (kernel, plain), q, cache, seq_axis, s, cur_list in cases:
         b, kv, g, d = q.shape
@@ -746,7 +780,9 @@ def decode_kernel_phase(torch, F, dev, randn) -> list:
 #: batch of 2 with a ragged tail; a non-causal Sq != Sk case with ragged
 #: tails at D 64; chatglm3-6b's heads (32 over 2: groups of 16) at a served
 #: 512-token prompt; gemma3-27b's global layers' (32 over 16) at a served
-#: 1500-token prompt.
+#: 1500-token prompt; at a served 512-token prompt, internvl2-1b's (14 over
+#: 2 of 64: groups of 7), granite-moe-3b-a800m's (24 over 8 of 64: groups
+#: of 3), deepseek-moe-16b's (16 over 16) and deepseek-67b's (64 over 8).
 FLASH_BF16_CASES = [
     ("qwen3_prefill_512", (1, 512, 512, 16, 8, 128), True, 10),
     ("qwen3_prefill_2500", (1, 2500, 2500, 16, 8, 128), True, 10),
@@ -755,6 +791,10 @@ FLASH_BF16_CASES = [
     ("long_4096", (1, 4096, 4096, 16, 8, 128), True, 5),
     ("chatglm3_prefill_512", (1, 512, 512, 32, 2, 128), True, 10),
     ("gemma3_prefill_1500", (1, 1500, 1500, 32, 16, 128), True, 10),
+    ("internvl2_prefill_512", (1, 512, 512, 14, 2, 64), True, 10),
+    ("granite_prefill_512", (1, 512, 512, 24, 8, 64), True, 10),
+    ("dsmoe_prefill_512", (1, 512, 512, 16, 16, 128), True, 10),
+    ("deepseek67b_prefill_512", (1, 512, 512, 64, 8, 128), True, 10),
 ]
 
 
@@ -899,24 +939,34 @@ def flash_bf16_phase(torch, F, dev, randn) -> list:
 LLM_SMALL_RTOL = 1e-4
 
 
-#: The small phase's dense models: (label, arch, overrides of the reduced
+#: The small phase's transformers: (label, arch, overrides of the reduced
 #: float32 config, prompt lengths).  chatglm3-6b at groups of 16 (16 query
 #: heads over 1 kv head, as the full model's 32 over 2); gemma3-27b at 8
 #: layers (one period of 5 local layers and 1 global one, 2 local tail
 #: layers) with a window of 16: a 12-token prompt wraps its rings during
-#: the 16 decode steps, a 20-token one in the prefill.
+#: the 16 decode steps, a 20-token one in the prefill; deepseek-moe-16b
+#: reduced (its dense layer 0, then a MoE layer of 4 experts, top-2, 1
+#: shared); granite-moe-3b-a800m at the full model's 24 query heads over 8;
+#: internvl2-1b at its 14 over 2, with 16 patch embeddings over the first
+#: positions of the prefill.
 SMALL_DENSE = [
     ("qwen3-1.7b", "qwen3-1.7b", {}, [12]),
     ("chatglm3-6b g16", "chatglm3-6b", dict(num_heads=16, num_kv_heads=1), [12]),
     ("gemma3-27b 8 layers window 16", "gemma3-27b",
      dict(num_layers=8, sliding_window=16), [12, 20]),
+    ("deepseek-moe-16b (1 dense, 1 MoE layer)", "deepseek-moe-16b", {}, [12]),
+    ("granite-moe-3b-a800m 24/8 heads", "granite-moe-3b-a800m",
+     dict(num_heads=24, num_kv_heads=8), [12]),
+    ("internvl2-1b 14/2 heads with patch embeddings", "internvl2-1b",
+     dict(num_heads=14, num_kv_heads=2), [20]),
 ]
 
 
 def llm_small_phase(torch, np, dev) -> None:
-    """The reduced float32 dense engines (`SMALL_DENSE`) on the card against
-    the same engines on the CPU, on the same weights: prefill logits, greedy
-    tokens, and the flash and decode kernels launched on the card."""
+    """The reduced float32 transformer engines (`SMALL_DENSE`) on the card
+    against the same engines on the CPU, on the same weights: prefill
+    logits, greedy tokens, and the flash and decode kernels launched on the
+    card."""
     import dataclasses
 
     from repro_torch.kernels import decode_attention_grouped, flash_attention
@@ -929,13 +979,17 @@ def llm_small_phase(torch, np, dev) -> None:
         card = ServingEngine(cfg, params=_to(torch, cpu.params, dev), max_len=64,
                              device=dev)
         for plen in prompt_lens:
-            prompts = np.random.default_rng(3).integers(
-                0, cfg.vocab_size, (2, plen)).astype(np.int32)
+            rng = np.random.default_rng(3)
+            prompts = rng.integers(0, cfg.vocab_size, (2, plen)).astype(np.int32)
+            pe = None
+            if cfg.family == "vlm":   # as the token embeddings' scale
+                pe = (rng.standard_normal((2, min(cfg.frontend_tokens, plen),
+                                           cfg.d_model)) * 0.006).astype(np.float32)
             launches = (flash_attention.launches, decode_attention_grouped.launches)
-            lc, lg = cpu.prefill(prompts)[0], card.prefill(prompts)[0].cpu()
+            lc, lg = cpu.prefill(prompts, pe)[0], card.prefill(prompts, pe)[0].cpu()
             err = float((lc - lg).abs().max() / lc.abs().max())
-            toks_cpu = cpu.generate(prompts, steps=16).tokens
-            toks_card = card.generate(prompts, steps=16).tokens
+            toks_cpu = cpu.generate(prompts, steps=16, patch_embeds=pe).tokens
+            toks_card = card.generate(prompts, steps=16, patch_embeds=pe).tokens
             fl = flash_attention.launches - launches[0]
             dc = decode_attention_grouped.launches - launches[1]
             print(f"small llm: {label} reduced float32, prompt {plen}: prefill "
@@ -951,11 +1005,12 @@ def llm_small_phase(torch, np, dev) -> None:
                   f"small {label}: greedy tokens differ")
 
 
-#: The dense models served at full width and depth in bfloat16 through
-#: llm_disagg: arch -> (max_len, runs of (label, cache type, prompt
-#: lengths)).  gemma3-27b's 1500- and 1200-token prompts wrap its 1024-slot
-#: rings in the prefill, its 1010- and 1020-token ones during the 32 decode
-#: steps; it has no int8 cache.
+#: The transformers served at full width in bfloat16 through llm_disagg,
+#: each at full depth but deepseek-67b (38 of 95 layers, its PORT_LAYERS):
+#: arch -> (max_len, runs of (label, cache type, prompt lengths)).
+#: gemma3-27b's 1500- and 1200-token prompts wrap its 1024-slot rings in the
+#: prefill, its 1010- and 1020-token ones during the 32 decode steps; it has
+#: no int8 cache.  internvl2-1b serves text only, as the JAX engine does.
 LLM_SERVED = {
     "qwen3-1.7b": (1024, [("bf16 cache", "", [64, 512, 128, 256, 384, 96, 200, 448]),
                           ("int8 cache", "int8", [64, 512, 160, 320])]),
@@ -963,6 +1018,13 @@ LLM_SERVED = {
                            ("int8 cache", "int8", [64, 512, 160, 320])]),
     "gemma3-27b": (2048, [("bf16 cache", "",
                            [64, 1500, 1010, 256, 1200, 128, 700, 1020])]),
+    "internvl2-1b": (1024, [("bf16 cache", "", [64, 512, 128, 256, 384, 96, 200, 448]),
+                            ("int8 cache", "int8", [64, 512, 160, 320])]),
+    "granite-moe-3b-a800m": (1024, [("bf16 cache", "",
+                                     [64, 512, 128, 256, 384, 96, 200, 448])]),
+    "deepseek-moe-16b": (1024, [("bf16 cache", "",
+                                 [64, 512, 128, 256, 384, 96, 200, 448])]),
+    "deepseek-67b": (1024, [("bf16 cache", "", [64, 512, 160, 320])]),
 }
 
 
@@ -981,6 +1043,7 @@ def llm_serving_phase(torch, np, dev, arch: str) -> dict:
         decode_attention_int8_grouped,
         flash_attention,
     )
+    from repro_torch.configs import get_config
     from repro_torch.launch.serve import check_served, llm_config, llm_requests, serve
     from repro_torch.models import registry, transformer
     from repro_torch.serving import APP_LLM_DISAGG, ServingEngine, build_llm_disagg_set
@@ -989,7 +1052,8 @@ def llm_serving_phase(torch, np, dev, arch: str) -> dict:
     slots, segment, steps = 8, 8, 32
     max_len, runs = LLM_SERVED[arch]
     cfg = llm_config(arch, "port")
-    tag = cfg.name
+    tag = cfg.name if cfg.num_layers == get_config(arch).num_layers else \
+        f"{cfg.name} ({cfg.num_layers} layers)"
     full_layers = sum(1 for *_, w in transformer.layer_slots(cfg) if not w)
     print(f"{tag}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
           f"before the engine")
@@ -998,14 +1062,21 @@ def llm_serving_phase(torch, np, dev, arch: str) -> dict:
     engine = ServingEngine(cfg, max_len=max_len, seed=0)
     torch.cuda.synchronize()
     n_params = registry.count_params(cfg)
+    n_active = registry.count_active_params(cfg)
+    experts = (f" {cfg.num_experts} experts of d_ff {cfg.d_ff} (top-{cfg.top_k}, "
+               f"{cfg.num_shared_experts} shared, {cfg.first_dense_layers} dense "
+               f"layers of d_ff {cfg.dense_ff})" if cfg.num_experts else "")
     print(f"{tag}: {cfg.num_layers} layers ({full_layers} with full attention) "
           f"d_model {cfg.d_model} {cfg.num_heads}/{cfg.resolved_kv_heads} heads of "
-          f"{cfg.resolved_head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab_padded} in "
-          f"{cfg.dtype}: {n_params:,} params on {engine.device} in "
-          f"{time.perf_counter() - t0:.1f}s (peak "
+          f"{cfg.resolved_head_dim} d_ff {cfg.d_ff}{experts} vocab {cfg.vocab_padded} "
+          f"in {cfg.dtype}: {n_params:,} params ({n_active:,} active a token) on "
+          f"{engine.device} in {time.perf_counter() - t0:.1f}s (peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB while drawing them); "
-          f"decode inbox {ring_bytes_for(cfg, max_len) / 1e6:.1f} MB of host memory "
-          f"at max_len {max_len}")
+          f"a decode step reads {2 * n_params / 1e9:.2f} GB of weights "
+          f"({2 * n_active / 1e9:.2f} GB active); decode inbox "
+          f"{ring_bytes_for(cfg, max_len, max_slots=slots) / 1e6:.1f} MB of host "
+          f"memory at max_len "
+          f"{max_len}")
 
     batch_width_diff(torch, np, engine, slots, dev, tag)
     rng = np.random.default_rng(5)
@@ -1223,11 +1294,11 @@ def wkv6_kernel_phase(torch, dev, randn) -> list:
 
 def batch_width_diff(torch, np, engine, slots, dev, label, steps=4) -> None:
     """Does a slot batch's width change a request's numbers?  One request
-    decoded ``steps`` greedy steps alone and as row 0 of a batch of
-    ``slots`` (the other rows zero): the largest difference of its logits
+    decoded ``steps`` greedy steps (the engine's decode step, MoE dropless)
+    alone and as row 0 of a batch of ``slots`` (the other rows zero): the
+    largest difference of its logits
     and of its cache leaves (for rwkv6 the recurrent state, which a decay
     that rounds the other way moves while the logits still agree)."""
-    from repro_torch.models import registry
     from repro_torch.models.param import tree_leaves
 
     cfg = engine.cfg
@@ -1239,8 +1310,8 @@ def batch_width_diff(torch, np, engine, slots, dev, label, steps=4) -> None:
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         tok_w = torch.zeros(slots, dtype=torch.int32, device=dev)
         tok_w[0] = tok[0]
-        logits = registry.decode_step(engine.params, cache, tok, p0.shape[1] + i, cfg)
-        row0 = registry.decode_step(engine.params, wide, tok_w, p0.shape[1] + i, cfg)[:1]
+        logits = engine.decode_step(cache, tok, p0.shape[1] + i)
+        row0 = engine.decode_step(wide, tok_w, p0.shape[1] + i)[:1]
         d_logits = max(d_logits, float((logits - row0).abs().max()))
     d_cache = max(float((a.float() - b.narrow(ax, 0, 1).float()).abs().max())
                   for a, b, ax in zip(tree_leaves(cache), tree_leaves(wide),
@@ -1309,7 +1380,7 @@ def rwkv_serving_phase(torch, np, dev) -> int:
           f"{registry.count_params(cfg) / 1e9:.3f} B params on {engine.device} in "
           f"{time.perf_counter() - t0:.1f}s (peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB while drawing them); decode inbox "
-          f"{ring_bytes_for(cfg, max_len) / 1e6:.1f} MB")
+          f"{ring_bytes_for(cfg, max_len, max_slots=slots) / 1e6:.1f} MB")
 
     batch_width_diff(torch, np, engine, slots, dev, "rwkv6")
     rng = np.random.default_rng(6)

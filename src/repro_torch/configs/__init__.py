@@ -3,6 +3,7 @@ the language models this port serves (``get_config('<arch-id>')``)."""
 from __future__ import annotations
 
 import importlib
+from dataclasses import replace
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.configs.wan_i2v import FULL, PORT, SMALL, WanPipelineConfig
@@ -12,17 +13,33 @@ _ARCH_MODULES = {
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
     "gemma3-27b": "repro_torch.configs.gemma3_27b",
+    "deepseek-67b": "repro_torch.configs.deepseek_67b",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b",
+    "internvl2-1b": "repro_torch.configs.internvl2_1b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 
 
-def get_config(arch_id: str) -> ModelConfig:
+def _module(arch_id: str):
     if arch_id not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; the port has: "
                        f"{sorted(_ARCH_MODULES)} (ROADMAP Queue 1 lists the rest)")
-    return importlib.import_module(_ARCH_MODULES[arch_id]).CONFIG
+    return importlib.import_module(_ARCH_MODULES[arch_id])
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    return _module(arch_id).CONFIG
+
+
+def port_config(arch_id: str) -> ModelConfig:
+    """The model as one H100 serves it: every width, and the depth cut to
+    the config module's ``PORT_LAYERS`` where it has one (deepseek-67b)."""
+    mod = _module(arch_id)
+    return replace(mod.CONFIG, num_layers=getattr(mod, "PORT_LAYERS",
+                                                  mod.CONFIG.num_layers))
 
 
 __all__ = ["ARCH_IDS", "FULL", "PORT", "SMALL", "ModelConfig", "ShapeConfig",
-           "WanPipelineConfig", "get_config"]
+           "WanPipelineConfig", "get_config", "port_config"]

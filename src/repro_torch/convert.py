@@ -9,7 +9,8 @@ the one place where a layout changes:
 * a ``layers`` subtree of stacked ``[nl, ...]`` leaves becomes a list of
   ``nl`` dicts of per-layer views (the Wan stages and the language models
   alike: ``models/transformer.py`` loops over that list, and its layer i
-  reads views into the stacked tensors, so nothing is copied);
+  reads views into the stacked tensors, so nothing is copied), and so does
+  a ``dense0`` subtree (deepseek-moe's leading dense layers);
 * every leaf under ``encoder`` / ``decoder`` (the VAE's convs) goes from
   HWIO to OIHW.
 
@@ -32,7 +33,7 @@ def to_port_layout(tree: Tree) -> Tree:
     """A parameter tree of tensors in the JAX layout -> the port's layout."""
     out: Tree = {}
     for key, val in tree.items():
-        if key == "layers":
+        if key in ("layers", "dense0"):
             n = next(iter(val.values())).shape[0]
             out[key] = [{name: leaf[i] for name, leaf in val.items()}
                         for i in range(n)]

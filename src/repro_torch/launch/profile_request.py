@@ -4,14 +4,16 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_request --workflow llm
     PYTHONPATH=src python -m repro_torch.launch.profile_request --workflow llm --llm-arch rwkv6-7b
     PYTHONPATH=src python -m repro_torch.launch.profile_request --workflow llm --llm-arch gemma3-27b --max-len 2048
+    PYTHONPATH=src python -m repro_torch.launch.profile_request --workflow llm --llm-arch deepseek-moe-16b
 
 ``--workflow wan`` (the default): one monolithic ``generate`` of the Wan I2V
 pipeline at a profile's widths, after the per-stage wall times.
 ``--workflow llm``: one request (a 256-token prompt, 32 new tokens) served
 through the ``llm_disagg`` Workflow Set with ``--llm-arch`` (qwen3-1.7b by
-default, rwkv6-7b, chatglm3-6b or gemma3-27b) at full width and depth in
-bfloat16, after one warm-up request; each run prints the MB of KV pages
-(or recurrent state) it shipped.
+default, or any other arch of ``configs.ARCH_IDS``) at full width in
+bfloat16 and the depth served on one card (``launch.serve.llm_config``),
+after one warm-up request; each run prints the MB of KV pages (or
+recurrent state) it shipped.
 
 Prints the request's wall time, the device time by kernel (top rows of
 ``key_averages``), the kernels' summed device time against the wall time

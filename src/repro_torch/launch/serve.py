@@ -8,6 +8,10 @@ and push requests through it.
     PYTHONPATH=src python -m repro_torch.launch.serve --workflow llm --llm-arch rwkv6-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --workflow llm --llm-arch chatglm3-6b
     PYTHONPATH=src python -m repro_torch.launch.serve --workflow llm --llm-arch gemma3-27b --max-len 2048
+    PYTHONPATH=src python -m repro_torch.launch.serve --workflow llm --llm-arch deepseek-moe-16b
+    PYTHONPATH=src python -m repro_torch.launch.serve --workflow llm --llm-arch granite-moe-3b-a800m
+    PYTHONPATH=src python -m repro_torch.launch.serve --workflow llm --llm-arch internvl2-1b
+    PYTHONPATH=src python -m repro_torch.launch.serve --workflow llm --llm-arch deepseek-67b
     PYTHONPATH=src python -m repro_torch.launch.serve --profile small --device cpu
 
 Workflows (docs/workflows.md, docs/disaggregation.md):
@@ -25,7 +29,8 @@ Workflows (docs/workflows.md, docs/disaggregation.md):
 
 Profiles: ``port`` (the default) is the size served on one H100 — for the
 Wan workflows FULL's widths at cut depth, for ``llm`` the model at full
-width and depth in bfloat16; ``small`` is the CPU-sized parity profile (for
+width in bfloat16, at full depth but for deepseek-67b (38 of 95 layers,
+``configs.port_config``); ``small`` is the CPU-sized parity profile (for
 ``llm`` the reduced float32 config).
 
 Each instance's inbox ring is sized from the configuration's largest stage
@@ -43,7 +48,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.cluster import Rejected, StageSpec, WorkflowSet, WorkflowSpec
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import ARCH_IDS, get_config, port_config
 from repro_torch.configs.wan_i2v import PROFILES, WanPipelineConfig
 from repro_torch.core import RequestMonitor, critical_path, plan_dag, profiler
 from repro_torch.models.aigc import (
@@ -238,10 +243,12 @@ def serve(ws: WorkflowSet, reqs: List[Dict[str, Any]], *, app: int = APP_I2V,
 
 
 def llm_config(arch: str, profile: str, cache_dtype: str = ""):
-    """The ``llm`` workflow's model: full width and depth in bfloat16 at
-    ``port``, the reduced float32 config at ``small``.  An attention-free
-    model (rwkv6) has no KV cache, so a cache type is refused for it."""
-    cfg = get_config(arch)
+    """The ``llm`` workflow's model: full width in bfloat16 at ``port``, at
+    the depth one card holds (``configs.port_config``: deepseek-67b's
+    ``PORT_LAYERS``, the rest whole), the reduced float32 config at
+    ``small``.  An attention-free model (rwkv6) has no KV cache, so a cache
+    type is refused for it."""
+    cfg = port_config(arch) if profile == "port" else get_config(arch)
     if cache_dtype and cfg.attention_free:
         raise ValueError(
             f"--cache-dtype {cache_dtype}: {arch} is attention-free; its decode "

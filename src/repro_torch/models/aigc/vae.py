@@ -4,6 +4,16 @@ The public functions keep the JAX package's NHWC layout; the convolutions
 run in NCHW with OIHW weights (``repro_torch.convert`` transposes them).
 ``padding="SAME"`` is reproduced exactly: a stride-2 3x3 conv on an even
 size pads (0, 1), not (1, 1).
+
+On the card the convolutions do not go through cuDNN.  cuDNN picks its
+algorithm by the memory free at the first call of a shape, and again
+whenever the cached one fails to allocate its workspace: at ``PORT``'s
+480x480 frames its FFT algorithms ask for tens of GB, so a decode that runs
+beside another stage may fall back to another algorithm for the rest of
+the process, and the same latents then decode to other frames (the
+decoder's tanh saturates at these weights, so a changed sum order flips
+pixels between -1 and 1).  ATen's own convolution (im2col and a GEMM)
+computes a shape one way whatever the free memory.
 """
 from __future__ import annotations
 
@@ -47,12 +57,21 @@ def _same_pad(n: int, stride: int, k: int = 3) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def _conv2d(x: torch.Tensor, w: torch.Tensor, stride: int,
+            padding: Tuple[int, int]) -> torch.Tensor:
+    """``F.conv2d`` with cuDNN off for this call alone (module docstring);
+    on the CPU it is ``F.conv2d``."""
+    return torch.ops.aten._convolution(
+        x, w, None, [stride, stride], list(padding), [1, 1], False, [0, 0], 1,
+        False, False, False, False)
+
+
 def _conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """x [N,C,H,W], w [O,I,3,3]; ``padding="SAME"`` as XLA computes it."""
     ph, pw = _same_pad(x.shape[2], stride), _same_pad(x.shape[3], stride)
     if ph[0] == ph[1] and pw[0] == pw[1]:
-        return F.conv2d(x, w, stride=stride, padding=(ph[0], pw[0]))
-    return F.conv2d(F.pad(x, (pw[0], pw[1], ph[0], ph[1])), w, stride=stride)
+        return _conv2d(x, w, stride, (ph[0], pw[0]))
+    return _conv2d(F.pad(x, (pw[0], pw[1], ph[0], ph[1])), w, stride, (0, 0))
 
 
 def moments(params: Tree, frames: torch.Tensor,

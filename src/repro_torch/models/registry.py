@@ -1,17 +1,23 @@
-"""Uniform model API over the families the port carries: dense (the
-transformer) and ssm (rwkv6).
+"""Uniform model API over the families the port carries: dense, moe and
+vlm (the transformer) and ssm (rwkv6).
 
   abstract_params(cfg)                      -> ParamSpec tree (JAX layout)
   init_params(cfg, generator, device)       -> the port's tree of tensors
-  prefill(params, tokens, cfg, max_len=)    -> (logits, cache)
-  decode_step(params, cache, tokens, cur_index, cfg) -> logits
+  prefill(params, tokens, cfg, max_len=, dropless=, patch_embeds=)
+                                            -> (logits, cache)
+  decode_step(params, cache, tokens, cur_index, cfg, dropless=) -> logits
   abstract_cache(cfg, B, S)                 -> ParamSpec tree
+  count_params(cfg), count_active_params(cfg)
+
+``dropless`` and ``patch_embeds`` reach the transformer; rwkv6 ignores
+them, as the JAX package's does.
 
 A family without a port raises ``NotImplementedError`` naming the ROADMAP
 item that will bring it.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import torch
@@ -23,7 +29,8 @@ from repro_torch.models.param import count, init_tree
 
 Tree = Dict[str, Any]
 
-_FAMILY = {"dense": transformer, "ssm": rwkv6}
+_FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer,
+           "ssm": rwkv6}
 
 
 def module_for(cfg: ModelConfig):
@@ -49,8 +56,8 @@ def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, **kw):
 
 
 def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor, cur_index,
-                cfg: ModelConfig) -> torch.Tensor:
-    return module_for(cfg).decode_step(params, cache, tokens, cur_index, cfg)
+                cfg: ModelConfig, **kw) -> torch.Tensor:
+    return module_for(cfg).decode_step(params, cache, tokens, cur_index, cfg, **kw)
 
 
 def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int) -> Tree:
@@ -59,3 +66,14 @@ def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int) -> Tree:
 
 def count_params(cfg: ModelConfig) -> int:
     return count(abstract_params(cfg))
+
+
+def count_active_params(cfg: ModelConfig) -> int:
+    """Parameters a token runs through (MoE: top_k of num_experts routed)."""
+    tree = abstract_params(cfg)
+    total = count(tree)
+    if cfg.num_experts == 0:
+        return total
+    expert = sum(math.prod(tree["layers"][name].shape)
+                 for name in ("we_gate", "we_up", "we_down"))
+    return int(total - expert * (1.0 - cfg.top_k / cfg.num_experts))

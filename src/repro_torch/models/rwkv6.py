@@ -225,9 +225,10 @@ def _stack(params: Tree, x: torch.Tensor, cfg: ModelConfig, cache: Tree,
 
 # ----------------------------------------------------------------- public API
 def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
-            max_len: Optional[int] = None) -> Tuple[torch.Tensor, Tree]:
+            max_len: Optional[int] = None, **_) -> Tuple[torch.Tensor, Tree]:
     """tokens [B,S] -> (last-token logits [B,V] float32, decode state).
-    ``max_len`` is checked against the prompt and otherwise ignored."""
+    ``max_len`` is checked against the prompt and otherwise ignored, as are
+    the transformer's keywords (``dropless``, ``patch_embeds``)."""
     b, s = tokens.shape
     if max_len is not None and s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
@@ -237,9 +238,9 @@ def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 
 def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor, cur_index,
-                cfg: ModelConfig) -> torch.Tensor:
+                cfg: ModelConfig, **_) -> torch.Tensor:
     """tokens [B] -> logits [B,V] float32; the state in ``cache`` advances
-    in place.  ``cur_index`` is ignored."""
+    in place.  ``cur_index`` is ignored, as is ``dropless``."""
     del cur_index
     x = _stack(params, params["embedding"][tokens[:, None]], cfg, cache, False)
     return (x[:, 0] @ params["unembed"]).float()

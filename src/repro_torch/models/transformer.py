@@ -1,6 +1,9 @@
-"""Decoder-only transformer, dense family: the uniform stack (qwen3,
-chatglm3's half-dim rotary) and gemma3's local/global period layout, with
-prefill and decode steps for serving.
+"""Decoder-only transformer covering the dense, moe and vlm families: the
+uniform stack (qwen3, chatglm3's half-dim rotary, deepseek-67b), gemma3's
+local/global period layout, MoE layers (``models/moe.py``) after leading
+dense layers (deepseek-moe's layer 0, the ``dense0`` leaves), and a VLM's
+patch embeddings pasted over the first positions (internvl2), with prefill
+and decode steps for serving.
 
 Weights keep the JAX tree's names and shapes (``abstract_params``); the
 layer-stacked ``[L, ...]`` leaves reach this module as a list of per-layer
@@ -10,9 +13,10 @@ Python loop where the JAX package scans.
 The decode cache is the JAX tree too.  A uniform stack keeps
 ``{"layers": (k, v)}`` with k and v of shape ``[L, B, KV, S, hd]``, or
 ``(k, v, k_scale, v_scale)`` with int8 values and float32 scales
-``[L, B, KV, S]`` when ``cache_dtype="int8"``.  A local/global pattern
-(gemma3: periods of 5 local layers and 1 global one, then local tail
-layers) keeps ``{"local": [P, 5, B, KV, w, hd], "global": [P, B, KV, S,
+``[L, B, KV, S]`` when ``cache_dtype="int8"``; leading dense layers keep
+theirs under ``"dense0"``, and ``"layers"`` holds the rest.  A
+local/global pattern (gemma3: periods of 5 local layers and 1 global one,
+then local tail layers) keeps ``{"local": [P, 5, B, KV, w, hd], "global": [P, B, KV, S,
 hd], "tail": [T, B, KV, w, hd]}`` pairs, where a local layer's ring holds
 ``w = min(window, S)`` slots and position t lives in slot ``t % window``.
 Layer i reads the contiguous views of its leaf (``layer_slots``).  Unlike
@@ -32,15 +36,20 @@ its decode is flash-decode over the ring at ``min(cur_index, w - 1)``: a
 ring whose slots have all been written is valid everywhere, and before the
 first wrap its valid slots are the prefix 0..cur, so that index computes
 ``layers.attention_decode_ring``.
+
+A MoE layer's FFN is ``moe.moe_ffn`` (the capacity dispatch) or, with
+``dropless=True`` as the serving engine runs it, ``moe.moe_ffn_dense_fallback``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_ffn, moe_ffn_dense_fallback, moe_param_specs
 from repro_torch.models.param import ParamSpec, zeros
 
 Tree = Dict[str, Any]
@@ -50,18 +59,19 @@ Tree = Dict[str, Any]
 FULL_ATTENTION_MAX = 2048
 
 
+#: families this module carries; "audio" (whisper's encoder-decoder) and
+#: "hybrid" (zamba2's Mamba2 layers) wait for ROADMAP Queue 1, items 1c, 1d
+FAMILIES = ("dense", "moe", "vlm")
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """The configurations the port carries; the rest raise, naming the
     ROADMAP item that will port them."""
-    if cfg.num_experts or cfg.first_dense_layers:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported (ROADMAP Queue 1, "
-            f"item 1)")
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not the dense transformer's "
-            f"(models/registry.py routes each ported family; ROADMAP Queue 1 "
-            f"lists the rest)")
+            f"{cfg.name}: family {cfg.family!r} is not the transformer's "
+            f"{FAMILIES} (models/registry.py routes each ported family; ROADMAP "
+            f"Queue 1 lists the rest: item 1c 'audio', item 1d 'hybrid')")
     loc, glob = cfg.local_global_pattern
     if (loc or glob) and (glob != 1 or not cfg.sliding_window):
         raise NotImplementedError(
@@ -87,11 +97,14 @@ def _is_local(cfg: ModelConfig, idx_in_period: int) -> bool:
 
 def layer_slots(cfg: ModelConfig) -> List[Tuple[str, Tuple[int, ...], int]]:
     """Per layer: (cache leaf, index into its leading axes, attention
-    window; 0 = full).  The JAX package's period scan in a flat list: a
-    period's local layers, then its global one; the tail layers are local."""
+    window; 0 = full).  A uniform stack's leading dense layers first
+    (``dense0``); the JAX package's period scan in a flat list: a period's
+    local layers, then its global one; the tail layers are local."""
     n_periods, period, tail = layer_pattern(cfg)
     if not period:
-        return [("layers", (i,), 0) for i in range(cfg.num_layers)]
+        fd = cfg.first_dense_layers
+        return ([("dense0", (i,), 0) for i in range(fd)]
+                + [("layers", (i,), 0) for i in range(cfg.num_layers - fd)])
     w = cfg.sliding_window
     out = [("local", (p, j), w) if _is_local(cfg, j) else ("global", (p,), 0)
            for p in range(n_periods) for j in range(period)]
@@ -125,18 +138,32 @@ def _mlp_specs(cfg: ModelConfig, n: int, dtype: str) -> Tree:
     }
 
 
+def _layer_specs(cfg: ModelConfig, n: int, dtype: str, moe: bool) -> Tree:
+    return {**_attn_specs(cfg, n, dtype),
+            **(moe_param_specs(cfg, n, dtype) if moe else _mlp_specs(cfg, n, dtype))}
+
+
+def dataclass_ff(cfg: ModelConfig) -> ModelConfig:
+    """cfg with d_ff swapped for the leading dense layers' width."""
+    return dataclasses.replace(cfg, d_ff=cfg.dense_ff or cfg.d_ff)
+
+
 def abstract_params(cfg: ModelConfig) -> Tree:
     check_supported(cfg)
     dt = cfg.dtype
     v, d = cfg.vocab_padded, cfg.d_model
+    is_moe = cfg.num_experts > 0
     p: Tree = {
         "embedding": ParamSpec((v, d), ("vocab", "embed"), dt, "small"),
         "final_norm": ParamSpec((d,), ("embed",), dt, "zeros"),
     }
     if not cfg.tie_embeddings:
         p["unembed"] = ParamSpec((d, v), ("embed", "vocab"), dt, "small")
-    p["layers"] = {**_attn_specs(cfg, cfg.num_layers, dt),
-                   **_mlp_specs(cfg, cfg.num_layers, dt)}
+    if cfg.first_dense_layers:  # leading dense layers (deepseek-moe)
+        p["dense0"] = _layer_specs(dataclass_ff(cfg), cfg.first_dense_layers, dt,
+                                   moe=False)
+    n = cfg.num_layers - cfg.first_dense_layers if is_moe else cfg.num_layers
+    p["layers"] = _layer_specs(cfg, n, dt, moe=is_moe)
     return p
 
 
@@ -161,10 +188,13 @@ def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int) -> Tree:
                 ParamSpec(shape, logical, dt, "zeros"))
 
     n_periods, period, tail = layer_pattern(cfg)
-    if not period:
-        return {"layers": kvspec((cfg.num_layers,), seq_len)}
-    w = min(cfg.sliding_window, seq_len)
     c: Tree = {}
+    if cfg.first_dense_layers:
+        c["dense0"] = kvspec((cfg.first_dense_layers,), seq_len)
+    if not period:
+        c["layers"] = kvspec((cfg.num_layers - cfg.first_dense_layers,), seq_len)
+        return c
+    w = min(cfg.sliding_window, seq_len)
     if n_periods:
         c["local"] = kvspec((n_periods, cfg.local_global_pattern[0]), w)
         c["global"] = kvspec((n_periods,), seq_len)
@@ -262,24 +292,47 @@ def _attention(x, lp, cfg: ModelConfig, sincos, cache, cur_index, window):
     return L.merge_heads(att, lp["wo"])
 
 
+def _ffn(x, lp, cfg: ModelConfig, moe: bool, dropless: bool) -> torch.Tensor:
+    if not moe:
+        h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        return L.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+    h = L.rms_norm(x, lp["moe_norm"], cfg.norm_eps)
+    return (moe_ffn_dense_fallback if dropless else moe_ffn)(h, lp, cfg)[0]
+
+
 def _stack(params: Tree, x: torch.Tensor, cfg: ModelConfig, cache: Tree,
-           positions: torch.Tensor, cur_index) -> torch.Tensor:
+           positions: torch.Tensor, cur_index, dropless: bool) -> torch.Tensor:
     sincos = _sincos(cfg, positions)
-    for lp, (leaf, idx, window) in zip(params["layers"], layer_slots(cfg)):
+    moe = cfg.num_experts > 0
+    lps = ([(lp, False) for lp in params.get("dense0", [])]
+           + [(lp, moe) for lp in params["layers"]])
+    for (lp, is_moe), (leaf, idx, window) in zip(lps, layer_slots(cfg)):
         x = x + _attention(x, lp, cfg, sincos, tuple(c[idx] for c in cache[leaf]),
                            cur_index, window)
-        h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + L.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+        x = x + _ffn(x, lp, cfg, is_moe, dropless)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def _embed(params: Tree, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _embed(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
+           patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token embeddings; with ``embed_scale`` (gemma) scaled by
     sqrt(d_model), the root taken in the embeddings' type as the JAX package
-    takes it (bfloat16 rounds sqrt(5376) = 73.32 to 73.5)."""
+    takes it (bfloat16 rounds sqrt(5376) = 73.32 to 73.5).  A VLM's
+    ``patch_embeds`` [B, P, d_model] (P <= S) replace the first P
+    positions."""
     x = params["embedding"][tokens]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model, dtype=x.dtype, device=x.device) ** 0.5
+    if patch_embeds is not None:
+        b, s, d = x.shape
+        if cfg.family != "vlm":
+            raise ValueError(f"{cfg.name}: patch embeddings need the vlm family, "
+                             f"not {cfg.family!r}")
+        if (patch_embeds.dim() != 3 or patch_embeds.shape[0] != b
+                or patch_embeds.shape[1] > s or patch_embeds.shape[2] != d):
+            raise ValueError(f"patch_embeds {tuple(patch_embeds.shape)} do not fit "
+                             f"the embeddings [{b}, {s}, {d}]")
+        x[:, :patch_embeds.shape[1]] = patch_embeds.to(x.dtype)
     return x
 
 
@@ -289,25 +342,30 @@ def _unembed(params: Tree, cfg: ModelConfig) -> torch.Tensor:
 
 # ----------------------------------------------------------------- public API
 def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
-            max_len: Optional[int] = None):
+            max_len: Optional[int] = None, dropless: bool = False,
+            patch_embeds: Optional[torch.Tensor] = None):
     """tokens [B,S] -> (last-token logits [B,V] float32, cache).  The cache
     has ``max_len`` positions (default S), zeros past the prompt: the JAX
-    engine's padded decode layout, written directly."""
+    engine's padded decode layout, written directly.  ``dropless`` routes
+    MoE layers through ``moe_ffn_dense_fallback``; a VLM's ``patch_embeds``
+    [B, min(frontend_tokens, S), d_model] replace the first positions'
+    embeddings."""
     b, s = tokens.shape
     max_len = s if max_len is None else max_len
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
     cache = zeros(abstract_cache(cfg, b, max_len), tokens.device)
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, patch_embeds)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-    x = _stack(params, x, cfg, cache, positions, None)
+    x = _stack(params, x, cfg, cache, positions, None, dropless)
     return (x[:, -1] @ _unembed(params, cfg)).float(), cache
 
 
 def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor, cur_index,
-                cfg: ModelConfig) -> torch.Tensor:
+                cfg: ModelConfig, *, dropless: bool = False) -> torch.Tensor:
     """tokens [B] at positions ``cur_index`` (an int, or a [B] tensor on the
-    tokens' device) -> logits [B,V] float32; the cache is written in place."""
+    tokens' device) -> logits [B,V] float32; the cache is written in place.
+    A decode step injects no patch embeddings, as in the JAX package."""
     b = tokens.shape[0]
     if isinstance(cur_index, torch.Tensor):
         positions = cur_index.to(tokens.device)[:, None]
@@ -317,5 +375,5 @@ def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor, cur_index,
             raise ValueError(f"cur_index {cur_index} outside the cache")
         positions = torch.full((b, 1), cur_index, device=tokens.device)
     x = _embed(params, tokens[:, None], cfg)
-    x = _stack(params, x, cfg, cache, positions, cur_index)
+    x = _stack(params, x, cfg, cache, positions, cur_index, dropless)
     return (x[:, 0] @ _unembed(params, cfg)).float()

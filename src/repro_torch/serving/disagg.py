@@ -28,7 +28,12 @@ ring is dropped (§9).  rwkv6-7b's message is its recurrent state, the same
 34.08 MB at any prompt length (two bfloat16 token-shift leaves of 0.26 MB
 and the float32 WKV state, 32 x 64 x 64 x 64 x 4 B = 33.55 MB).
 ``build_llm_disagg_set`` therefore sizes each inbox from the shapes
-(``ring_bytes_for``).
+(``ring_bytes_for``).  The decode instance takes one inbox entry per
+segment it decodes (its scheduler ticks the slot batch, then polls once),
+so a burst of prefilled requests waits in the ring (internvl2-1b
+prefills its 13.2 MB messages faster than a segment decodes): its decode
+inbox holds a slot batch's worth of messages beside the in-flight and wrap
+allowance.
 
 Because of the engine's RNG contract, a request decoded in whatever slot mix
 is resident samples as it would alone, and its tokens equal a solo
@@ -84,16 +89,19 @@ def largest_message_bytes(cfg: ModelConfig, max_len: int) -> int:
     return MESSAGE_SLACK + 4 * cfg.vocab_padded + cache + prompt
 
 
-def ring_bytes_for(cfg: ModelConfig, max_len: int, stage: str = "decode") -> int:
-    """Inbox ring size of a stage: room for 4 of its largest message (two
-    in flight plus the unusable tail an entry leaves when it wraps take up
-    to 3).  The decode inbox takes whole caches; the prefill inbox takes
+def ring_bytes_for(cfg: ModelConfig, max_len: int, stage: str = "decode",
+                   max_slots: int = 1) -> int:
+    """Inbox ring size of a stage: room for ``max_slots`` + 3 of its
+    largest message (two in flight plus the unusable tail an entry leaves
+    when it wraps take up to 3; a decode stage of ``max_slots`` slots may
+    hold that many prefilled requests waiting, as it takes one entry per
+    segment).  The decode inbox takes whole caches; the prefill inbox takes
     prompts of at most ``max_len`` int32 tokens."""
     if stage == "prefill":
         largest = MESSAGE_SLACK + 4 * max_len
     else:
         largest = largest_message_bytes(cfg, max_len)
-    return max(DEFAULT_RING_BYTES, 4 * largest)
+    return max(DEFAULT_RING_BYTES, (max_slots + 3) * largest)
 
 
 def make_prefill_fn(engine: ServingEngine) -> Callable[[Any], Any]:
@@ -267,11 +275,11 @@ def build_llm_disagg_set(
     decode instance running a ``max_slots``-wide ``ContinuousDecoder``, both
     stage fns inline on their scheduler threads, no elastic control loop.
 
-    Every inbox ring holds four of the largest message it receives
-    (``ring_bytes_for``: a decode message is a whole B=1 cache at
-    ``max_len``).  The decoder publishes per-segment partials to the set's
-    replicated database and purges them on completion.  Returns
-    ``(set, decoder)``.
+    The prefill inbox holds four of the largest message it receives, the
+    decode inbox ``max_slots`` + 3 (``ring_bytes_for``: a decode message is
+    a whole B=1 cache at ``max_len``).  The decoder publishes per-segment
+    partials to the set's replicated database and purges them on
+    completion.  Returns ``(set, decoder)``.
     """
     ws = WorkflowSet(name, control_loop=False)
     db = ws.database
@@ -294,6 +302,7 @@ def build_llm_disagg_set(
                     max_wait_s=0.004, pad_to_full=prefill_batch > 1, inline=True,
                     ring_bytes=ring_bytes_for(engine.cfg, engine.max_len, "prefill"))
     ws.add_instance("decode0", stage="decode", max_batch=1, inline=True,
-                    ring_bytes=ring_bytes_for(engine.cfg, engine.max_len))
+                    ring_bytes=ring_bytes_for(engine.cfg, engine.max_len,
+                                              max_slots=max_slots))
     ws.add_proxy("p0")
     return ws, decoder

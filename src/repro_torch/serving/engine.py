@@ -3,10 +3,13 @@ language models the port carries (the per-stage compute of an LM stage).
 
 ``generate`` runs one prefill over the prompt and then the decode steps
 back to back on the device; the sampled tokens stay on the card until one
-host sync fetches the finished block.  The prefill writes its cache
-straight into the ``max_len`` decode layout, zeros past the prompt, which is
-what the JAX engine's zero pad of the prefill cache gives (rwkv6's recurrent
-state has no positions and is the same size at any ``max_len``).
+host sync fetches the finished block.  Every path runs MoE layers dropless
+(``moe_ffn_dense_fallback``), as the JAX engine does, so that a token's
+output never depends on the other tokens of its batch.  The prefill writes
+its cache straight into the ``max_len`` decode layout, zeros past the
+prompt, which is what the JAX engine's zero pad of the prefill cache gives
+(rwkv6's recurrent state has no positions and is the same size at any
+``max_len``).
 
 RNG contract
 ------------
@@ -133,12 +136,25 @@ class ServingEngine:
         return torch.clamp(tok, max=self.cfg.vocab_size - 1).to(torch.int32)
 
     # ------------------------------------------------- disaggregated stages
-    def prefill(self, prompts: np.ndarray):
+    def prefill(self, prompts: np.ndarray, patch_embeds=None):
         """The prefill stage: [B, P] prompts -> (logits [B, V] float32, cache
-        tree in the ``max_len`` decode layout), both on the device."""
+        tree in the ``max_len`` decode layout), both on the device.  MoE
+        layers run dropless, as the JAX engine runs them, so that each
+        token's output depends on it alone.  A VLM may take
+        ``patch_embeds`` [B, min(frontend_tokens, P), d_model]; the served
+        path passes none, as the JAX engine's passes only tokens."""
         tokens = torch.tensor(np.asarray(prompts, np.int32), device=self.device)
-        return registry.prefill(self.params, tokens, self.cfg,
-                                max_len=self.max_len)
+        if patch_embeds is not None:
+            patch_embeds = torch.as_tensor(patch_embeds).to(self.device)
+        return registry.prefill(self.params, tokens, self.cfg, max_len=self.max_len,
+                                dropless=True, patch_embeds=patch_embeds)
+
+    def decode_step(self, cache, tokens: torch.Tensor, cur_index) -> torch.Tensor:
+        """One decode step as the engine runs every one (MoE dropless):
+        tokens [B] at ``cur_index`` (an int or a [B] tensor) -> logits
+        [B, V]; ``cache`` is written in place."""
+        return registry.decode_step(self.params, cache, tokens, cur_index, self.cfg,
+                                    dropless=True)
 
     def init_slots(self, max_slots: int) -> Dict[str, Any]:
         """Fresh continuous-batching decode state: a ``max_slots``-wide slot
@@ -185,7 +201,7 @@ class ServingEngine:
             tok = self._clamp(_sample_rows(logits, state["keys"], state["step"],
                                            state["temp"]))
             adv = state["active"] & (state["remaining"] > 0)
-            new = registry.decode_step(self.params, state["cache"], tok, cur, self.cfg)
+            new = self.decode_step(state["cache"], tok, cur)
             logits = torch.where(adv[:, None], new, logits)
             ai = adv.to(torch.int32)
             cur = cur + ai
@@ -206,19 +222,21 @@ class ServingEngine:
 
     # ------------------------------------------------------ monolithic path
     def generate(self, prompts: np.ndarray, *, steps: int = 16,
-                 temperature: float = 0.0, seed: int = 0) -> GenerationResult:
-        """prompts: [B, P] int32.  One prefill, then ``steps`` decode steps
-        on the device; the only host sync fetches the finished block."""
+                 temperature: float = 0.0, seed: int = 0,
+                 patch_embeds=None) -> GenerationResult:
+        """prompts: [B, P] int32.  One prefill (with a VLM's
+        ``patch_embeds``, if given), then ``steps`` decode steps on the
+        device; the only host sync fetches the finished block."""
         b, p = prompts.shape
         if p + steps > self.max_len:
             raise ValueError(f"{p} + {steps} tokens exceed max_len {self.max_len}")
-        logits, cache = self.prefill(prompts)
+        logits, cache = self.prefill(prompts, patch_embeds)
         keys = torch.tensor([row_key(seed, r) for r in range(b)], device=self.device)
         out = []
         for i in range(steps):
             step = torch.full((b,), i, dtype=torch.int32, device=self.device)
             tok = self._clamp(_sample_rows(logits, keys, step, temperature))
-            logits = registry.decode_step(self.params, cache, tok, p + i, self.cfg)
+            logits = self.decode_step(cache, tok, p + i)
             out.append(tok)
         toks = torch.stack(out, dim=1).cpu().numpy()
         return GenerationResult(np.concatenate([prompts, toks], axis=1), p, steps)
@@ -249,11 +267,11 @@ class ServingEngine:
         keys = torch.tensor([row_key(seed, r) for r in range(b)], device=self.device)
         logits = None
         for t in range(p):
-            logits = registry.decode_step(self.params, cache, tokens[:, t], t, self.cfg)
+            logits = self.decode_step(cache, tokens[:, t], t)
         out = [prompts]
         for i in range(steps):
             step = torch.full((b,), i, dtype=torch.int32, device=self.device)
             cur = self._clamp(_sample_rows(logits, keys, step, temperature))
             out.append(cur.cpu().numpy()[:, None])
-            logits = registry.decode_step(self.params, cache, cur, p + i, self.cfg)
+            logits = self.decode_step(cache, cur, p + i)
         return GenerationResult(np.concatenate(out, axis=1).astype(np.int32), p, steps)

@@ -62,6 +62,8 @@ DECODE_CASES = [
     (8, 1024, 16, 8, 128, [1023, 700, 255, 256, 1, 0, 512, 64]),
     (2, 300, 24, 2, 128, [299, 100]),   # 12 query heads per kv head
     (1, 96, 8, 8, 128, 95),             # one query head per kv head
+    (8, 1024, 14, 2, 64, [1023, 700, 255, 256, 1, 0, 512, 64]),  # groups of 7
+    (8, 1024, 24, 8, 64, [1023, 700, 255, 256, 1, 0, 512, 64]),  # groups of 3
 ]
 
 
@@ -526,6 +528,52 @@ def test_flash_bf16_kernel_at_chatglm3_and_gemma3_heads_on_card(cuda, b, sq, sk,
     _check_bf16_flash(*_bf16_qkv(cuda, sq + kv, b, sq, sk, h, kv, d), causal)
 
 
+#: the prefill heads of internvl2-1b (14 over 2 of 64: groups of 7),
+#: granite-moe-3b-a800m (24 over 8 of 64: groups of 3), deepseek-moe-16b
+#: (16 over 16 of 128) and deepseek-67b (64 over 8 of 128) at a served
+#: 512-token prompt
+MOE_VLM_67B_PREFILLS = [
+    # b, sq, sk, h, kv, d, causal
+    (1, 512, 512, 14, 2, 64, True),
+    (1, 512, 512, 24, 8, 64, True),
+    (1, 512, 512, 16, 16, 128, True),
+    (1, 512, 512, 64, 8, 128, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", MOE_VLM_67B_PREFILLS)
+def test_flash_bf16_kernel_at_moe_vlm_and_67b_heads_on_card(cuda, b, sq, sk, h, kv, d,
+                                                           causal):
+    _check_bf16_flash(*_bf16_qkv(cuda, sq + h, b, sq, sk, h, kv, d), causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,d,f", [(64, 2048, 1408), (40, 1536, 512)])
+def test_dropless_moe_rows_do_not_depend_on_the_batch_on_card(cuda, e, d, f):
+    """The dropless MoE FFN in a decode step at deepseek-moe-16b's (64
+    experts of 2048 x 1408, 2 shared, top-6) and granite-moe-3b-a800m's (40
+    of 1536 x 512, top-8) widths: the first b rows of a slot batch of 8
+    equal a batch of b, bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_ffn_dense_fallback, moe_param_specs
+    from repro_torch.models.param import init_tree
+
+    arch = "deepseek-moe-16b" if e == 64 else "granite-moe-3b-a800m"
+    cfg = get_config(arch)
+    gen = torch.Generator(device=cuda).manual_seed(e)
+    lp = {k: v[0] for k, v in init_tree(moe_param_specs(
+        dataclasses.replace(cfg, d_model=d, d_ff=f), 1, "bfloat16"), gen, cuda).items()}
+    for _ in range(2):
+        x = torch.randn(8, 1, d, generator=gen, device=cuda).bfloat16()
+        full, _ = moe_ffn_dense_fallback(x, lp, cfg)
+        assert torch.isfinite(full.float()).all()
+        for b in (1, 2, 4):
+            assert torch.equal(moe_ffn_dense_fallback(x[:b], lp, cfg)[0], full[:b]), b
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.int8])
 def test_decode_kernel_at_groups_of_16_on_card(cuda, cache_dtype):
@@ -567,11 +615,19 @@ def test_ring_decode_through_the_kernel_on_card(cuda, dtype):
 @pytest.mark.parametrize("d_in,d_out", [(4096, 4096), (4096, 256), (4096, 13696),
                                         (13696, 4096), (4096, 65024), (5376, 4096),
                                         (5376, 2048), (4096, 5376), (5376, 21504),
-                                        (21504, 5376), (5376, 262144)])
+                                        (21504, 5376), (5376, 262144),
+                                        (8192, 8192), (8192, 1024), (8192, 22016),
+                                        (22016, 8192), (8192, 102400), (896, 896),
+                                        (896, 128), (896, 4864), (4864, 896),
+                                        (896, 151808), (1536, 1536), (1536, 512),
+                                        (1536, 49408), (2048, 11264), (11264, 2048),
+                                        (2048, 102400)])
 def test_decode_projection_rows_do_not_depend_on_the_batch_on_card(cuda, d_in, d_out):
-    """A decode step's bfloat16 projections at chatglm3-6b's and
-    gemma3-27b's widths: the first b rows of a slot batch of 8 equal a batch
-    of b, bit for bit, so a served stream can equal its solo generate."""
+    """A decode step's bfloat16 projections at chatglm3-6b's, gemma3-27b's,
+    deepseek-67b's, internvl2-1b's, granite-moe-3b-a800m's and
+    deepseek-moe-16b's widths: the first b rows of a slot batch of 8 equal a
+    batch of b, bit for bit, so a served stream can equal its solo
+    generate."""
     gen = torch.Generator(device=cuda).manual_seed(d_in + d_out)
     w = (torch.randn(d_in, d_out, generator=gen, device=cuda) / d_in ** 0.5).bfloat16()
     for _ in range(4):
@@ -579,3 +635,25 @@ def test_decode_projection_rows_do_not_depend_on_the_batch_on_card(cuda, d_in, d
         full = x @ w
         for b in (1, 2, 4):
             assert torch.equal(x[:b] @ w, full[:b]), b
+
+
+@pytest.mark.gpu
+def test_vae_conv_does_not_depend_on_free_memory_on_card(cuda):
+    """The Wan VAE's widest decoder convolution (192 to 96 channels at
+    480x480) on a batch of 4 gives the same numbers with 3 GB free as with
+    the card empty: cuDNN's FFT algorithms would ask for more workspace than
+    that and fall back to another algorithm; the VAE runs without cuDNN."""
+    from repro_torch.models.aigc.vae import _conv
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(4, 192, 480, 480, generator=gen, device=cuda)
+    w = torch.randn(96, 192, 3, 3, generator=gen, device=cuda) / 1728 ** 0.5
+    ref = _conv(x, w)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    hog = torch.empty(max(free - (3 << 30), 0), dtype=torch.uint8, device=cuda)
+    try:
+        assert torch.equal(_conv(x, w), ref)
+    finally:
+        del hog

@@ -139,8 +139,10 @@ def test_config_and_param_specs_match_jax():
 
 
 def test_unported_configs_raise():
-    for name, kw in (("moe", dict(num_experts=4, top_k=2)),
-                     ("vlm", dict(family="vlm"))):
+    """The families the transformer does not carry yet: whisper's
+    encoder-decoder (audio) and zamba2's Mamba2 layers (hybrid)."""
+    for name, kw in (("audio", dict(family="audio")),
+                     ("hybrid", dict(family="hybrid"))):
         cfg = dataclasses.replace(get_config("qwen3-1.7b"), name=name, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             transformer.abstract_params(cfg)
@@ -211,6 +213,8 @@ DECODE_CASES = [
     (2, 50, 8, 2, 64, [49, 0]),
     (3, 40, 4, 4, 32, [5, 39, 17]),
     (1, 96, 16, 8, 128, 95),
+    (2, 48, 21, 3, 64, [47, 6]),        # groups of 7 (internvl2-1b's 14 over 2)
+    (3, 40, 24, 8, 32, [39, 0, 17]),    # groups of 3 (granite-moe's 24 over 8)
 ]
 
 
