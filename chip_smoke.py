@@ -48,13 +48,21 @@ Phases, in order; any failure exits non-zero and prints no result:
    heads of internvl2-1b (groups of 7, D 64), granite-moe-3b-a800m (groups
    of 3, D 64), deepseek-moe-16b (groups of 1) and deepseek-67b (64 over 8)
    in the bfloat16 flash prefill at 512 tokens and in flash-decode over
-   both served caches.
+   both served caches.  whisper-large-v3's encoder self-attention (1500
+   frames) and cross-attention (64 over 1500) and zamba2-1.2b's shared
+   block (512 tokens) in the bfloat16 flash prefill; whisper's cross cache
+   (S 1500 at index 1499) and self cache (S 448) and zamba2's served cache
+   in flash-decode.  Every flash-decode call held against its plain
+   version runs with its partials filled with NaN first, so that a combine
+   that read them before the split wrote them would fail.
 3. The port on small inputs, card against CPU on the same weights: the SMALL
    Wan pipeline's latents and frames (same noise), and the reduced float32
    qwen3, chatglm3 (groups of 16), gemma3 (8 layers, window 16, rings
    wrapped in prefill and in decode), deepseek-moe (a dense layer, then a
    MoE layer), granite-moe (24/8 heads), internvl2 (14/2 heads, patch
-   embeddings) and rwkv6 engines' prefill logits and greedy tokens.
+   embeddings), whisper (random frames), zamba2 (5 layers, the shared
+   block after every 2; a 2-token prompt too) and rwkv6 engines' prefill
+   logits and greedy tokens.
 4. Serving, the main paths, each with the launch counters set to 0 just
    before and read just after: 2 requests through the Wan chain, 2 through
    the DAG and 2 through the audio-to-video DAG (``a2v``: toy asr and llm
@@ -63,15 +71,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    bfloat16 through the ``llm_disagg`` Workflow Set, each once with the
    bfloat16 cache (8 requests) and once with the int8 cache (4 requests);
    internvl2-1b the same way (text only, as the JAX engine serves it),
-   granite-moe-3b-a800m and deepseek-moe-16b with the bfloat16 cache (8
-   requests each, MoE layers dropless); then, with the Wan pipeline and
-   those engines freed, rwkv6-7b at full width and depth in bfloat16
-   through the same Workflow Set (8 requests, prompts of 64 to 3000
-   tokens); last, one at a time with every earlier model freed,
+   granite-moe-3b-a800m, deepseek-moe-16b and zamba2-1.2b with the
+   bfloat16 cache (8 requests each, MoE layers dropless; zamba2's prompts
+   of 64 to 256 tokens); then, with the Wan pipeline and those engines
+   freed, rwkv6-7b at full width and depth in bfloat16 through the same
+   Workflow Set (8 requests, prompts of 64 to 3000 tokens);
+   whisper-large-v3 at full width and depth in bfloat16 through
+   ``ServingEngine.generate`` (its cache is built per request: no slot
+   batch), batches of 4 at prompts of 4 and 64 tokens, 64 new tokens,
+   each row equal to its batch-1 run; last, one at a time with every
+   earlier model freed,
    gemma3-27b at full width and depth (8 requests, max_len 2048, rings
    wrapped in prefill and in decode) and deepseek-67b at full width and
    38 of its 95 layers (4 requests).  Each model's batch-1 against
-   batch-8 logit difference is printed.  Every request answered, nothing
+   batch-8 logit difference is printed (zamba2's must be 0).  Every request answered, nothing
    dropped, every join assembled, the counters risen by the expected
    launches, frames equal to ``WanI2VPipeline.generate``, latents equal to
    the pipeline's, and tokens equal to ``ServingEngine.generate``.
@@ -538,11 +551,14 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     by_arch = {}
     for arch in ("qwen3-1.7b", "chatglm3-6b", "internvl2-1b", "granite-moe-3b-a800m",
-                 "deepseek-moe-16b"):
+                 "deepseek-moe-16b", "zamba2-1.2b"):
         by_arch[arch] = llm_serving_phase(torch, np, dev, arch)
         gc.collect()          # the engines and their Workflow Sets
         torch.cuda.empty_cache()
     rwkv_launches = rwkv_serving_phase(torch, np, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_arch["whisper-large-v3"] = whisper_generate_phase(torch, np, dev)
     gc.collect()
     torch.cuda.empty_cache()
     # last, one at a time: gemma3-27b's 52.93 GiB of weights and deepseek-67b's
@@ -634,6 +650,47 @@ SERVED_DECODE_HEADS = [("g7", (2, 7, 64)), ("g3", (8, 3, 64)), ("g1", (16, 1, 12
 RING_SLOTS = 1024
 RING_CUR = [0, 1, 511, 1022, 1023, 1024, 1500, 3000]
 
+#: The decode reads of the slice-10 models, bfloat16 cache [B,KV,S,D]:
+#: name -> (B, KV, G, D, S, index).  whisper-large-v3's cross cache (the
+#: 1500 frames, read at F - 1 = 1499 every step: 1500 is no multiple of the
+#: split's chunk, so its last chunk is partial) and its self cache (the
+#: 448-token decoder context, a scalar index mid-cache) at the smoke's
+#: generate batch of 4; zamba2-1.2b's shared block over its served cache
+#: (8 slots, 1024 positions, a per-slot index).
+SLICE10_DECODE = [
+    ("fp_whisper_cross_1500", (4, 20, 1, 64, 1500, 1499)),
+    ("fp_whisper_self_448", (4, 20, 1, 64, 448, 200)),
+    ("fp_zamba2_served", (8, 32, 1, 64, 1024, None)),
+]
+
+
+def nan_partials(torch):
+    """Context: every flash-decode call fills its partials with NaN before
+    the split kernel writes them (``ops._partials`` patched here; the
+    package has no flag for it).  A combine that read them before the
+    split's writes (a missing ``griddepcontrol.wait``) returns NaN, where
+    ``torch.empty`` could hand it the right values of the previous identical
+    call."""
+    import contextlib
+
+    from repro_torch.kernels.decode_attention import ops
+
+    @contextlib.contextmanager
+    def patched():
+        real = ops._partials
+
+        def filled(q, cache, s):
+            acc, ml = real(q, cache, s)
+            acc.fill_(float("nan"))
+            ml.fill_(float("nan"))
+            return acc, ml
+        ops._partials = filled
+        try:
+            yield
+        finally:
+            ops._partials = real
+    return patched()
+
 
 def decode_kernel_phase(torch, F, dev, randn) -> list:
     """Flash-decode, float (bfloat16) and int8 cache, both layouts, at B 8,
@@ -644,8 +701,11 @@ def decode_kernel_phase(torch, F, dev, randn) -> list:
     1 and 8) over both caches; gemma3-27b's local-layer ring (KV
     16, G 2, 1024 slots) at the clamped index, held against
     ``attention_decode_ring``'s plain version at the unclamped one (in
-    float32 on the same numbers, rounded to bfloat16).  The bound counts the
-    cache positions this call's indices cover.  Kernel, plain version and
+    float32 on the same numbers, rounded to bfloat16); the slice-10 reads
+    (`SLICE10_DECODE`: whisper's cross cache at S 1500 and self cache at
+    S 448, zamba2's served shared block).  The call held against the plain
+    version runs with its partials filled with NaN (`nan_partials`).  The
+    bound counts the cache positions this call's indices cover.  Kernel, plain version and
     SDPA are timed by `device_ms` (the served caches rotate over copies
     that hold ROTATION_BYTES; one S 32768 call reads more than the L2
     holds), with the single call's time beside it as call_ms."""
@@ -661,11 +721,11 @@ def decode_kernel_phase(torch, F, dev, randn) -> list:
     (kqn, ks), (vqn, vs) = K.quantize_kv(kn), K.quantize_kv(vn)
     kqc, vqc = kqn.transpose(1, 2).contiguous(), vqn.transpose(1, 2).contiguous()
 
-    def served_heads(n_kv, g, dd):
-        """q [B,KV,G,D] and the served caches [B,KV,S,D] at S 1024:
-        (bfloat16 k, v) and (int8 k, v, k scale, v scale)."""
-        qs = randn(b, n_kv, g, dd).bfloat16()
-        ks_, vs_ = randn(b, s_served, n_kv, dd), randn(b, s_served, n_kv, dd)
+    def served_heads(n_kv, g, dd, bb=b, ss=s_served):
+        """q [B,KV,G,D] and the served caches [B,KV,S,D] (S 1024 unless
+        given): (bfloat16 k, v) and (int8 k, v, k scale, v scale)."""
+        qs = randn(bb, n_kv, g, dd).bfloat16()
+        ks_, vs_ = randn(bb, ss, n_kv, dd), randn(bb, ss, n_kv, dd)
         (kq_, ksc), (vq_, vsc) = K.quantize_kv(ks_), K.quantize_kv(vs_)
         kb, vb, kq_, vq_ = (x.transpose(1, 2).contiguous()
                             for x in (ks_.bfloat16(), vs_.bfloat16(), kq_, vq_))
@@ -708,6 +768,10 @@ def decode_kernel_phase(torch, F, dev, randn) -> list:
     for name, (qh, fph, i8h) in heads.items():
         cases += [(f"fp_served_{name}", "fp", fp, qh, fph, 2, s_served, cur_served),
                   (f"int8_served_{name}", "int8", i8, qh, i8h, 2, s_served, cur_served)]
+    for name, (bb, n_kv, g, dd, ss, cur) in SLICE10_DECODE:
+        qh, fph, _ = served_heads(n_kv, g, dd, bb, ss)
+        cases.append((name, "fp", fp, qh, fph, 2, ss,
+                      cur_served[:bb] if cur is None else cur))
     rows = []
     for name, kind, (kernel, plain), q, cache, seq_axis, s, cur_list in cases:
         b, kv, g, d = q.shape
@@ -721,9 +785,11 @@ def decode_kernel_phase(torch, F, dev, randn) -> list:
 
         def run_plain(c=sets[0]):             # a device index: no host copy
             return plain(*c, cur_t, seq_axis=seq_axis)
-        out = run_kernel()
-        torch.cuda.synchronize()
+        with nan_partials(torch):
+            out = run_kernel()
+            torch.cuda.synchronize()
         err, use = limit_errs(out, run_plain())
+        finite = bool(torch.isfinite(out).all())
         ms, plain_ms, call_ms, plain_call_ms = kernel_and_plain_ms(
             torch, [lambda c=c: run_kernel(c) for c in sets],
             [lambda c=c: run_plain(c) for c in sets], 10, force=True)
@@ -760,7 +826,7 @@ def decode_kernel_phase(torch, F, dev, randn) -> list:
                    library_ms=library_ms, library_call_ms=library_call_ms,
                    bytes=nbytes, copies=len(sets))
         rows.append(row)
-        print(f"decode {name:18s} q={row['q']} S={s} {row['layout']}: "
+        print(f"decode {name:18s} q={row['q']} S={s} {row['layout']}: NaN partials, "
               f"max_err={err:.3g} ({use:.3f} of the bf16 limit) ms={ms:.5f} "
               f"call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={library_ms if library_ms is None else round(library_ms, 5)} "
@@ -768,6 +834,8 @@ def decode_kernel_phase(torch, F, dev, randn) -> list:
               f"library vs kernel {lib_err if lib_err is None else round(lib_err, 5)}) "
               f"bound_ms={bound_ms:.5f} ({bound_by}, {nbytes / 1e9:.4f} GB; "
               f"{bound_ms / ms:.1%} of it) over {len(sets)} cache copies")
+        check(finite, f"decode {name}: non-finite output over NaN-filled partials "
+                      f"(the combine read them before the split wrote them)")
         check(use <= 1.0, f"decode {name}: max_err {err}, {use} of the bf16 limit "
                           f"|a-b| <= {BF16_RTOL} |b| + {BF16_ATOL}")
         del sets
@@ -782,7 +850,11 @@ def decode_kernel_phase(torch, F, dev, randn) -> list:
 #: 512-token prompt; gemma3-27b's global layers' (32 over 16) at a served
 #: 1500-token prompt; at a served 512-token prompt, internvl2-1b's (14 over
 #: 2 of 64: groups of 7), granite-moe-3b-a800m's (24 over 8 of 64: groups
-#: of 3), deepseek-moe-16b's (16 over 16) and deepseek-67b's (64 over 8).
+#: of 3), deepseek-moe-16b's (16 over 16) and deepseek-67b's (64 over 8);
+#: whisper-large-v3's encoder self-attention over its 1500 frames and its
+#: decoder's cross-attention of 64 prompt tokens over them (20 heads of 64,
+#: non-causal, Sk 1500 ending in a partial key tile), and zamba2-1.2b's
+#: shared block at a 512-token prompt (32 over 32 of 64).
 FLASH_BF16_CASES = [
     ("qwen3_prefill_512", (1, 512, 512, 16, 8, 128), True, 10),
     ("qwen3_prefill_2500", (1, 2500, 2500, 16, 8, 128), True, 10),
@@ -795,6 +867,9 @@ FLASH_BF16_CASES = [
     ("granite_prefill_512", (1, 512, 512, 24, 8, 64), True, 10),
     ("dsmoe_prefill_512", (1, 512, 512, 16, 16, 128), True, 10),
     ("deepseek67b_prefill_512", (1, 512, 512, 64, 8, 128), True, 10),
+    ("whisper_encoder_1500", (1, 1500, 1500, 20, 20, 64), False, 10),
+    ("whisper_cross_64x1500", (1, 64, 1500, 20, 20, 64), False, 10),
+    ("zamba2_prefill_512", (1, 512, 512, 32, 32, 64), True, 10),
 ]
 
 
@@ -937,9 +1012,20 @@ def flash_bf16_phase(torch, F, dev, randn) -> list:
 
 #: card vs CPU, float32: prefill logits within this share of the largest
 LLM_SMALL_RTOL = 1e-4
+#: The small models whose float32 logits at the JAX init rule's weights sit
+#: near LLM_SMALL_RTOL from the exact ones by themselves: the rule draws a
+#: stacked leaf with std 1/sqrt(layers) (0.71 at 2 layers), and reduced
+#: whisper's encoder, decoder and cross-attention compound it (its CPU
+#: float32 logits lie 1.0e-4 of the largest from a float64 run of the same
+#: weights, as this phase prints).  For these the smoke also
+#: runs the CPU in float64 and holds the card's and the CPU's float32
+#: logits to max(LLM_SMALL_RTOL, F64_FLOOR_FACTOR x the CPU's float32
+#: distance from float64), both against the CPU and against float64.
+F64_FLOOR = {"whisper-large-v3"}
+F64_FLOOR_FACTOR = 2.0
 
 
-#: The small phase's transformers: (label, arch, overrides of the reduced
+#: The small phase's language models: (label, arch, overrides of the reduced
 #: float32 config, prompt lengths).  chatglm3-6b at groups of 16 (16 query
 #: heads over 1 kv head, as the full model's 32 over 2); gemma3-27b at 8
 #: layers (one period of 5 local layers and 1 global one, 2 local tail
@@ -948,8 +1034,10 @@ LLM_SMALL_RTOL = 1e-4
 #: reduced (its dense layer 0, then a MoE layer of 4 experts, top-2, 1
 #: shared); granite-moe-3b-a800m at the full model's 24 query heads over 8;
 #: internvl2-1b at its 14 over 2, with 16 patch embeddings over the first
-#: positions of the prefill.
-SMALL_DENSE = [
+#: positions of the prefill; whisper-large-v3 reduced (2 encoder and 2
+#: decoder layers) over 16 random frames; zamba2-1.2b at 5 layers with the
+#: shared block after every 2 (two places and a tail layer).
+SMALL_LLM = [
     ("qwen3-1.7b", "qwen3-1.7b", {}, [12]),
     ("chatglm3-6b g16", "chatglm3-6b", dict(num_heads=16, num_kv_heads=1), [12]),
     ("gemma3-27b 8 layers window 16", "gemma3-27b",
@@ -959,21 +1047,23 @@ SMALL_DENSE = [
      dict(num_heads=24, num_kv_heads=8), [12]),
     ("internvl2-1b 14/2 heads with patch embeddings", "internvl2-1b",
      dict(num_heads=14, num_kv_heads=2), [20]),
+    ("whisper-large-v3 with random frames", "whisper-large-v3", {}, [12]),
+    ("zamba2-1.2b 5 layers, shared block every 2", "zamba2-1.2b",
+     dict(num_layers=5, hybrid_attn_every=2), [12, 2]),
 ]
 
 
 def llm_small_phase(torch, np, dev) -> None:
-    """The reduced float32 transformer engines (`SMALL_DENSE`) on the card
-    against the same engines on the CPU, on the same weights: prefill
-    logits, greedy tokens, and the flash and decode kernels launched on the
-    card."""
+    """The reduced float32 engines (`SMALL_LLM`) on the card against the
+    same engines on the CPU, on the same weights: prefill logits, greedy
+    tokens, and the flash and decode kernels launched on the card."""
     import dataclasses
 
     from repro_torch.kernels import decode_attention_grouped, flash_attention
     from repro_torch.launch.serve import llm_config
     from repro_torch.serving import ServingEngine
 
-    for label, arch, overrides, prompt_lens in SMALL_DENSE:
+    for label, arch, overrides, prompt_lens in SMALL_LLM:
         cfg = dataclasses.replace(llm_config(arch, "small"), **overrides)
         cpu = ServingEngine(cfg, max_len=64, seed=0, device="cpu")
         card = ServingEngine(cfg, params=_to(torch, cpu.params, dev), max_len=64,
@@ -981,26 +1071,41 @@ def llm_small_phase(torch, np, dev) -> None:
         for plen in prompt_lens:
             rng = np.random.default_rng(3)
             prompts = rng.integers(0, cfg.vocab_size, (2, plen)).astype(np.int32)
-            pe = None
+            pe = fr = None
             if cfg.family == "vlm":   # as the token embeddings' scale
                 pe = (rng.standard_normal((2, min(cfg.frontend_tokens, plen),
                                            cfg.d_model)) * 0.006).astype(np.float32)
+            if cfg.family == "audio":
+                fr = rng.standard_normal((2, cfg.frontend_tokens, cfg.d_model)
+                                         ).astype(np.float32)
             launches = (flash_attention.launches, decode_attention_grouped.launches)
-            lc, lg = cpu.prefill(prompts, pe)[0], card.prefill(prompts, pe)[0].cpu()
+            lc, lg = cpu.prefill(prompts, pe, fr)[0], card.prefill(prompts, pe, fr)[0].cpu()
             err = float((lc - lg).abs().max() / lc.abs().max())
-            toks_cpu = cpu.generate(prompts, steps=16, patch_embeds=pe).tokens
-            toks_card = card.generate(prompts, steps=16, patch_embeds=pe).tokens
+            toks_cpu = cpu.generate(prompts, steps=16, patch_embeds=pe, frames=fr).tokens
+            toks_card = card.generate(prompts, steps=16, patch_embeds=pe, frames=fr).tokens
             fl = flash_attention.launches - launches[0]
             dc = decode_attention_grouped.launches - launches[1]
+            tol, floor = LLM_SMALL_RTOL, ""
+            if arch in F64_FLOOR:
+                exact = ServingEngine(dataclasses.replace(cfg, dtype="float64"),
+                                      params=_to64(torch, cpu.params), max_len=64,
+                                      device="cpu")
+                l64 = exact.prefill(prompts, pe, fr if fr is None else
+                                    fr.astype(np.float64))[0]
+                cpu64, card64 = (float((x.double() - l64).abs().max() / l64.abs().max())
+                                 for x in (lc, lg))
+                tol = max(LLM_SMALL_RTOL, F64_FLOOR_FACTOR * cpu64)
+                floor = (f"; against float64: cpu {cpu64:.3g}, card {card64:.3g}")
+                check(card64 <= tol, f"small {label}: the card's logits lie {card64:.3g} "
+                                     f"from float64, over {tol:.3g}")
             print(f"small llm: {label} reduced float32, prompt {plen}: prefill "
-                  f"logits card vs cpu max_err/max|l|={err:.3g} (tol "
-                  f"{LLM_SMALL_RTOL}); greedy tokens equal: "
+                  f"logits card vs cpu max_err/max|l|={err:.3g} (tol {tol:.3g}{floor}); "
+                  f"greedy tokens equal: "
                   f"{bool(np.array_equal(toks_cpu, toks_card))}; launches flash={fl} "
                   f"decode={dc}")
             check(fl > 0 and dc > 0,
                   f"the small {label} run on the card did not launch the kernels")
-            check(err <= LLM_SMALL_RTOL, f"small {label}: prefill logits differ "
-                                         f"from the CPU")
+            check(err <= tol, f"small {label}: prefill logits differ from the CPU")
             check(np.array_equal(toks_cpu, toks_card),
                   f"small {label}: greedy tokens differ")
 
@@ -1011,6 +1116,8 @@ def llm_small_phase(torch, np, dev) -> None:
 #: gemma3-27b's 1500- and 1200-token prompts wrap its 1024-slot rings in the
 #: prefill, its 1010- and 1020-token ones during the 32 decode steps; it has
 #: no int8 cache.  internvl2-1b serves text only, as the JAX engine does.
+#: zamba2-1.2b's prompts of 64-256 tokens run its plain SSD loop, 38 x P
+#: steps a prefill; it has no int8 cache.
 LLM_SERVED = {
     "qwen3-1.7b": (1024, [("bf16 cache", "", [64, 512, 128, 256, 384, 96, 200, 448]),
                           ("int8 cache", "int8", [64, 512, 160, 320])]),
@@ -1025,7 +1132,20 @@ LLM_SERVED = {
     "deepseek-moe-16b": (1024, [("bf16 cache", "",
                                  [64, 512, 128, 256, 384, 96, 200, 448])]),
     "deepseek-67b": (1024, [("bf16 cache", "", [64, 512, 160, 320])]),
+    "zamba2-1.2b": (1024, [("bf16 cache", "", [64, 256, 128, 192, 96, 160, 224, 80])]),
 }
+
+
+def attention_layers(cfg):
+    """(flash launches a prefill, flash-decode launches a decode step): a
+    transformer's full-attention layers and all of its layers; zamba2's
+    shared block once per place for both."""
+    from repro_torch.models import mamba2, transformer
+
+    if cfg.family == "hybrid":
+        n = mamba2._periods(cfg)[0]
+        return n, n
+    return sum(1 for *_, w in transformer.layer_slots(cfg) if not w), cfg.num_layers
 
 
 def llm_serving_phase(torch, np, dev, arch: str) -> dict:
@@ -1034,8 +1154,10 @@ def llm_serving_phase(torch, np, dev, arch: str) -> dict:
     at 0.7, once per run of `LLM_SERVED`.  Every request answered, nothing
     dropped, flash launched once per full-attention layer and prefill
     (gemma3's local layers attend in plain PyTorch), flash-decode once per
-    layer and decode step, every stream equal to its solo ``generate``.
-    Returns the launch counts of the served runs."""
+    layer and decode step (zamba2: once per place of its shared block for
+    both), every stream equal to its solo ``generate``; zamba2's batch-1
+    against batch-8 differences 0.  Returns the launch counts of the served
+    runs."""
     import dataclasses
 
     from repro_torch.kernels import (
@@ -1045,7 +1167,7 @@ def llm_serving_phase(torch, np, dev, arch: str) -> dict:
     )
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import check_served, llm_config, llm_requests, serve
-    from repro_torch.models import registry, transformer
+    from repro_torch.models import mamba2, registry
     from repro_torch.serving import APP_LLM_DISAGG, ServingEngine, build_llm_disagg_set
     from repro_torch.serving.disagg import ring_bytes_for
 
@@ -1054,7 +1176,7 @@ def llm_serving_phase(torch, np, dev, arch: str) -> dict:
     cfg = llm_config(arch, "port")
     tag = cfg.name if cfg.num_layers == get_config(arch).num_layers else \
         f"{cfg.name} ({cfg.num_layers} layers)"
-    full_layers = sum(1 for *_, w in transformer.layer_slots(cfg) if not w)
+    full_layers, decode_layers = attention_layers(cfg)
     print(f"{tag}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
           f"before the engine")
     torch.cuda.reset_peak_memory_stats()
@@ -1066,6 +1188,12 @@ def llm_serving_phase(torch, np, dev, arch: str) -> dict:
     experts = (f" {cfg.num_experts} experts of d_ff {cfg.d_ff} (top-{cfg.top_k}, "
                f"{cfg.num_shared_experts} shared, {cfg.first_dense_layers} dense "
                f"layers of d_ff {cfg.dense_ff})" if cfg.num_experts else "")
+    if cfg.family == "hybrid":
+        d_inner, n_heads, conv_dim, _ = mamba2._dims(cfg)
+        experts = (f" (Mamba2: d_inner {d_inner}, {n_heads} SSM heads of "
+                   f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, conv_dim {conv_dim}; "
+                   f"the shared block's {cfg.num_heads} heads after every "
+                   f"{cfg.hybrid_attn_every} layers)")
     print(f"{tag}: {cfg.num_layers} layers ({full_layers} with full attention) "
           f"d_model {cfg.d_model} {cfg.num_heads}/{cfg.resolved_kv_heads} heads of "
           f"{cfg.resolved_head_dim} d_ff {cfg.d_ff}{experts} vocab {cfg.vocab_padded} "
@@ -1078,7 +1206,11 @@ def llm_serving_phase(torch, np, dev, arch: str) -> dict:
           f"memory at max_len "
           f"{max_len}")
 
-    batch_width_diff(torch, np, engine, slots, dev, tag)
+    d_logits, d_cache = batch_width_diff(torch, np, engine, slots, dev, tag)
+    if cfg.family == "hybrid":
+        check(d_logits == 0 and d_cache == 0,
+              f"{tag}: a request decodes other numbers as row 0 of a batch of "
+              f"{slots} than alone (logits {d_logits}, cache {d_cache})")
     rng = np.random.default_rng(5)
     counts = {}
     for label, cache_dtype, prompt_lens in runs:
@@ -1115,7 +1247,7 @@ def llm_serving_phase(torch, np, dev, arch: str) -> dict:
         check(lost == 0 and len(outs) == len(reqs), f"{tag} {label}: requests lost")
         check(stats.dropped == 0, f"{tag} {label}: {stats.dropped} messages dropped")
         check(fl == full_layers * len(reqs), f"{tag} {label}: flash launches {fl}")
-        check(dc == cfg.num_layers * decode_steps and dc > 0,
+        check(dc == decode_layers * decode_steps and dc > 0,
               f"{tag} {label}: decode launches {dc} for {decode_steps} steps")
 
         for i, (r, out) in enumerate(zip(reqs, outs)):
@@ -1135,7 +1267,7 @@ def llm_serving_phase(torch, np, dev, arch: str) -> dict:
                   f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f} "
                   f"GiB; served tokens equal solo generate")
             check(flash_attention.launches == full_layers
-                  and decode_kernel.launches == cfg.num_layers * steps,
+                  and decode_kernel.launches == decode_layers * steps,
                   f"{tag} {label}: request {i} solo generate launches")
         print(f"serve {tag} {label}: every request's tokens equal solo generate")
         del ws, decoder, eng
@@ -1292,13 +1424,14 @@ def wkv6_kernel_phase(torch, dev, randn) -> list:
     return rows
 
 
-def batch_width_diff(torch, np, engine, slots, dev, label, steps=4) -> None:
+def batch_width_diff(torch, np, engine, slots, dev, label, steps=4) -> tuple:
     """Does a slot batch's width change a request's numbers?  One request
     decoded ``steps`` greedy steps (the engine's decode step, MoE dropless)
     alone and as row 0 of a batch of ``slots`` (the other rows zero): the
     largest difference of its logits
     and of its cache leaves (for rwkv6 the recurrent state, which a decay
-    that rounds the other way moves while the logits still agree)."""
+    that rounds the other way moves while the logits still agree), returned
+    as (logits, cache)."""
     from repro_torch.models.param import tree_leaves
 
     cfg = engine.cfg
@@ -1319,6 +1452,7 @@ def batch_width_diff(torch, np, engine, slots, dev, label, steps=4) -> None:
     print(f"{label}: {steps} decode steps alone vs as row 0 of batch {slots}: "
           f"largest logit difference {d_logits:.6g} (max |logit| "
           f"{float(logits.abs().max()):.4g}), largest cache difference {d_cache:.6g}")
+    return d_logits, d_cache
 
 
 def rwkv_small_phase(torch, np, dev) -> None:
@@ -1439,6 +1573,107 @@ def rwkv_serving_phase(torch, np, dev) -> int:
     return wk
 
 
+#: whisper-large-v3 through ``ServingEngine.generate``: batches of
+#: WHISPER_BATCH requests at each of these prompt lengths, WHISPER_STEPS new
+#: greedy tokens, a self cache of the published 448-token decoder context
+WHISPER_PROMPTS = [4, 64]
+WHISPER_BATCH, WHISPER_MAX_LEN, WHISPER_STEPS = 4, 448, 64
+
+
+def whisper_generate_phase(torch, np, dev) -> dict:
+    """whisper-large-v3 at full width and depth in bfloat16 through
+    ``ServingEngine.generate`` over the stub (zero) frames, as the JAX
+    engine feeds them: its cache holds each request's cross K/V, so it has
+    no slot batch (``init_slots`` raises, as the JAX engine's does).  A
+    decode step's batch-1 against batch-4 differences 0; a batch of
+    WHISPER_BATCH at each of `WHISPER_PROMPTS`, each row's tokens equal to
+    that row's batch-1 ``generate``; flash launched once per
+    encoder layer and twice per decoder layer (self, cross) a prefill,
+    flash-decode twice per decoder layer a step (the self cache, and the
+    cross cache at index 1499).  Returns the batched runs' launch counts."""
+    from repro_torch.kernels import (
+        decode_attention_grouped,
+        decode_attention_int8_grouped,
+        flash_attention,
+    )
+    from repro_torch.launch.serve import llm_config
+    from repro_torch.models import registry
+    from repro_torch.serving import ServingEngine
+
+    kernels = (flash_attention, decode_attention_grouped, decode_attention_int8_grouped)
+    b, steps = WHISPER_BATCH, WHISPER_STEPS
+    cfg = llm_config("whisper-large-v3", "port")
+    per_prefill, per_step = cfg.encoder_layers + 2 * cfg.num_layers, 2 * cfg.num_layers
+    print(f"whisper: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+          f"before the engine")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, max_len=WHISPER_MAX_LEN, seed=0)
+    torch.cuda.synchronize()
+    cross = 2 * cfg.num_layers * cfg.resolved_kv_heads * cfg.frontend_tokens * \
+        cfg.resolved_head_dim * 2
+    self_kv = cross * WHISPER_MAX_LEN // cfg.frontend_tokens
+    print(f"whisper: {cfg.name} {cfg.encoder_layers} encoder and {cfg.num_layers} decoder "
+          f"layers d_model {cfg.d_model} {cfg.num_heads} heads of "
+          f"{cfg.resolved_head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab_padded} over "
+          f"{cfg.frontend_tokens} stub frames in {cfg.dtype}: "
+          f"{registry.count_params(cfg):,} params on {engine.device} in "
+          f"{time.perf_counter() - t0:.1f}s (peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB while drawing them); "
+          f"a request's cache: cross K/V {cross / 1e6:.2f} MB, self K/V "
+          f"{self_kv / 1e6:.2f} MB at max_len {WHISPER_MAX_LEN}")
+    try:
+        engine.init_slots(1)
+        fail("whisper: init_slots did not refuse the audio family")
+    except NotImplementedError as e:
+        print(f"whisper: init_slots refuses: {e}")
+    d_logits, d_cache = batch_width_diff(torch, np, engine, b, dev, "whisper-large-v3")
+    check(d_logits == 0 and d_cache == 0,
+          f"whisper: a row decodes other numbers in a batch of {b} than alone "
+          f"(logits {d_logits}, cache {d_cache})")
+    rng = np.random.default_rng(7)
+    counts = {"flash_attention": 0, "decode_attention_grouped": 0}
+    for plen in WHISPER_PROMPTS:
+        prompts = rng.integers(0, cfg.vocab_size, (b, plen)).astype(np.int32)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        engine.prefill(prompts)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t1) * 1e3
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        res = engine.generate(prompts, steps=steps)    # syncs: tokens to the host
+        wall = time.perf_counter() - t1
+        fl, dc = flash_attention.launches, decode_attention_grouped.launches
+        i8 = decode_attention_int8_grouped.launches
+        counts["flash_attention"] += fl
+        counts["decode_attention_grouped"] += dc
+        print(f"generate whisper-large-v3 B={b} prompt {plen}: {wall * 1e3:.1f} ms for "
+              f"{steps} tokens a row ({b * steps / wall:.1f} tokens/s, "
+              f"{(wall * 1e3 - prefill_ms) / steps:.2f} ms a decode step after a "
+              f"{prefill_ms:.1f} ms prefill); launches flash={fl} ({per_prefill} a "
+              f"prefill expected) decode={dc} ({dc / steps:.0f} per step), int8 "
+              f"decode={i8}, max_memory_allocated="
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check(fl == per_prefill and dc == per_step * steps and i8 == 0,
+              f"whisper prompt {plen}: launches flash {fl}, decode {dc}, int8 {i8}")
+        toks = res.tokens
+        check(toks.shape == (b, plen + steps) and np.array_equal(toks[:, :plen], prompts)
+              and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+              f"whisper prompt {plen}: tokens {toks.shape} out of shape or range")
+        for i in range(b):
+            solo = engine.generate(prompts[i:i + 1], steps=steps).tokens
+            check(np.array_equal(solo, toks[i:i + 1]),
+                  f"whisper prompt {plen}: row {i} differs from its batch-1 generate")
+        print(f"generate whisper-large-v3 prompt {plen}: every row's tokens equal its "
+              f"batch-1 generate ({len(set(map(tuple, toks[:, plen:].tolist())))} "
+              f"distinct rows)")
+    del engine
+    return counts
+
+
 def _tap(fn, workflow, store, request_seeds):
     def tapped(p):
         out = fn(p)
@@ -1458,6 +1693,15 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def _to64(torch, tree):
+    """A parameter tree with every floating leaf in float64."""
+    if isinstance(tree, dict):
+        return {k: _to64(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to64(torch, v) for v in tree]
+    return tree.double() if tree.is_floating_point() else tree
 
 
 def _to(torch, tree, dev):

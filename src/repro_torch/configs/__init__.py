@@ -17,6 +17,8 @@ _ARCH_MODULES = {
     "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
     "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b",
     "internvl2-1b": "repro_torch.configs.internvl2_1b",
+    "whisper-large-v3": "repro_torch.configs.whisper_large_v3",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)
@@ -25,7 +27,7 @@ ARCH_IDS = tuple(_ARCH_MODULES)
 def _module(arch_id: str):
     if arch_id not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; the port has: "
-                       f"{sorted(_ARCH_MODULES)} (ROADMAP Queue 1 lists the rest)")
+                       f"{sorted(_ARCH_MODULES)}")
     return importlib.import_module(_ARCH_MODULES[arch_id])
 
 

@@ -81,6 +81,13 @@ class ModelConfig:
             raise ValueError(
                 f"{self.name}: an int8 KV cache is refused for sliding-window "
                 f"layers (gemma3's local ring caches have no int8 form)")
+        # the JAX package's encdec.py and mamba2.py only cast their caches to
+        # cache_dtype: neither family has a quantized layout with scales
+        if self.resolved_cache_dtype == "int8" and self.family in ("audio", "hybrid"):
+            raise ValueError(
+                f"{self.name}: an int8 KV cache is refused for the {self.family} "
+                f"family (its caches have no int8 layout with scales; they are "
+                f"served in {self.dtype})")
 
     @property
     def resolved_head_dim(self) -> int:

@@ -9,9 +9,11 @@ the one place where a layout changes:
 * a ``layers`` subtree of stacked ``[nl, ...]`` leaves becomes a list of
   ``nl`` dicts of per-layer views (the Wan stages and the language models
   alike: ``models/transformer.py`` loops over that list, and its layer i
-  reads views into the stacked tensors, so nothing is copied), and so does
-  a ``dense0`` subtree (deepseek-moe's leading dense layers);
-* every leaf under ``encoder`` / ``decoder`` (the VAE's convs) goes from
+  reads views into the stacked tensors, so nothing is copied), and so do
+  a ``dense0`` subtree (deepseek-moe's leading dense layers) and the
+  ``encoder`` / ``decoder`` layer stacks of the encoder-decoder (whisper's,
+  told apart by their ``norm`` leaf);
+* every leaf under the VAE's ``encoder`` / ``decoder`` (convs) goes from
   HWIO to OIHW.
 
 Everything else keeps its shape, so the same matmuls run on the same
@@ -29,11 +31,16 @@ from repro_torch.device import DeviceLike, resolve_device
 Tree = Dict[str, Any]
 
 
+def _is_layer_stack(key: str, val) -> bool:
+    return key in ("layers", "dense0") or (key in ("encoder", "decoder")
+                                            and "norm" in val)
+
+
 def to_port_layout(tree: Tree) -> Tree:
     """A parameter tree of tensors in the JAX layout -> the port's layout."""
     out: Tree = {}
     for key, val in tree.items():
-        if key in ("layers", "dense0"):
+        if _is_layer_stack(key, val):
             n = next(iter(val.values())).shape[0]
             out[key] = [{name: leaf[i] for name, leaf in val.items()}
                         for i in range(n)]

@@ -5,6 +5,7 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_request --workflow llm --llm-arch rwkv6-7b
     PYTHONPATH=src python -m repro_torch.launch.profile_request --workflow llm --llm-arch gemma3-27b --max-len 2048
     PYTHONPATH=src python -m repro_torch.launch.profile_request --workflow llm --llm-arch deepseek-moe-16b
+    PYTHONPATH=src python -m repro_torch.launch.profile_request --workflow llm --llm-arch zamba2-1.2b
 
 ``--workflow wan`` (the default): one monolithic ``generate`` of the Wan I2V
 pipeline at a profile's widths, after the per-stage wall times.
@@ -13,7 +14,9 @@ through the ``llm_disagg`` Workflow Set with ``--llm-arch`` (qwen3-1.7b by
 default, or any other arch of ``configs.ARCH_IDS``) at full width in
 bfloat16 and the depth served on one card (``launch.serve.llm_config``),
 after one warm-up request; each run prints the MB of KV pages (or
-recurrent state) it shipped.
+recurrent state) it shipped.  For zamba2 it first prints one prefill's wall
+time and the share of it in the plain SSD loop (``mamba2.ssd_scan``, each
+call timed between device syncs).
 
 Prints the request's wall time, the device time by kernel (top rows of
 ``key_averages``), the kernels' summed device time against the wall time
@@ -68,6 +71,8 @@ def llm_request(arch: str, cache_dtype: str, max_len: int):
     engine = ServingEngine(llm_config(arch, "port", cache_dtype),
                            max_len=max_len, seed=0)
     rng = np.random.default_rng(0)
+    if engine.cfg.family == "hybrid":
+        ssd_share(engine)
 
     def run():
         req = llm_requests(engine.cfg, rng, [256], 32, [0.0])[0]
@@ -78,6 +83,44 @@ def llm_request(arch: str, cache_dtype: str, max_len: int):
         print(f"kv pages: {ws.transport_stats().kv_bytes / 1e6:.1f} MB shipped")
     run()
     return run
+
+
+def ssd_share(engine, prompt_len: int = 256) -> None:
+    """One prefill of ``prompt_len`` tokens: its wall time alone, then again
+    with every ``mamba2.ssd_scan`` call timed between device syncs, and the
+    loop's share of that prefill."""
+    from repro_torch.models import mamba2
+
+    prompts = np.random.default_rng(1).integers(
+        0, engine.cfg.vocab_size, (1, prompt_len)).astype(np.int32)
+
+    def prefill_s() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.prefill(prompts)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    prefill_s()
+    alone = prefill_s()
+    inner, spent = mamba2.ssd_scan, []
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    mamba2.ssd_scan = timed
+    try:
+        wall = prefill_s()
+    finally:
+        mamba2.ssd_scan = inner
+    print(f"prefill of {prompt_len} tokens: {alone * 1e3:.1f} ms wall; with the SSD "
+          f"loop timed {wall * 1e3:.1f} ms, of which ssd_scan {sum(spent) * 1e3:.1f} ms "
+          f"in {len(spent)} calls ({100 * sum(spent) / wall:.1f} %)")
 
 
 def main() -> int:

@@ -12,6 +12,7 @@ and push requests through it.
     PYTHONPATH=src python -m repro_torch.launch.serve --workflow llm --llm-arch granite-moe-3b-a800m
     PYTHONPATH=src python -m repro_torch.launch.serve --workflow llm --llm-arch internvl2-1b
     PYTHONPATH=src python -m repro_torch.launch.serve --workflow llm --llm-arch deepseek-67b
+    PYTHONPATH=src python -m repro_torch.launch.serve --workflow llm --llm-arch zamba2-1.2b
     PYTHONPATH=src python -m repro_torch.launch.serve --profile small --device cpu
 
 Workflows (docs/workflows.md, docs/disaggregation.md):
@@ -23,9 +24,14 @@ Workflows (docs/workflows.md, docs/disaggregation.md):
             -> diffusion -> vae_decode, a nested two-branch DAG whose toy
             asr and llm stages (numpy) feed the real Wan DAG;
   * llm   — disaggregated prefill/decode LLM serving: prefill ships each
-            request's KV cache (rwkv6: its recurrent state) as KVPages over
+            request's KV cache (rwkv6: its recurrent state; zamba2: its
+            Mamba2 states and its shared block's KV caches) as KVPages over
             the fabric into a continuous-batching decode stage; every token
             stream is checked against the engine's own ``generate``.
+            whisper-large-v3 is refused with the engine's
+            ``NotImplementedError``: its cache holds each request's cross
+            K/V and has no slot batch, as in the JAX package (it serves
+            through ``ServingEngine.generate``).
 
 Profiles: ``port`` (the default) is the size served on one H100 — for the
 Wan workflows FULL's widths at cut depth, for ``llm`` the model at full
@@ -247,7 +253,8 @@ def llm_config(arch: str, profile: str, cache_dtype: str = ""):
     the depth one card holds (``configs.port_config``: deepseek-67b's
     ``PORT_LAYERS``, the rest whole), the reduced float32 config at
     ``small``.  An attention-free model (rwkv6) has no KV cache, so a cache
-    type is refused for it."""
+    type is refused for it; the config refuses an int8 cache for gemma3's
+    rings and for the audio and hybrid families (ValueError)."""
     cfg = port_config(arch) if profile == "port" else get_config(arch)
     if cache_dtype and cfg.attention_free:
         raise ValueError(
@@ -372,8 +379,8 @@ def main() -> int:
                          "at port, 64 at small; gemma3-27b serves at 2048)")
     ap.add_argument("--cache-dtype", default="", choices=["", "int8"],
                     help="--workflow llm: KV cache type ('' = the model's; "
-                         "refused for the attention-free rwkv6 and for "
-                         "gemma3's ring caches)")
+                         "refused for the attention-free rwkv6, for "
+                         "gemma3's ring caches, whisper and zamba2)")
     args = ap.parse_args()
 
     if args.workflow == "llm":

@@ -49,6 +49,36 @@ def row_mean(x: torch.Tensor) -> torch.Tensor:
     return rows.mean(dim=-1)[:n].reshape(*x.shape[:-1], 1)
 
 
+#: cuBLAS picks a product's algorithm by its shape, and with it the order in
+#: which a row's sum is taken: a skinny product (few outputs, a long sum)
+#: it splits along the sum by the number of rows, so a request decoded alone
+#: and in a slot batch of 8 would round apart.  A decode step's products
+#: that must not depend on the batch run on blocks of exactly this many
+#: rows, zero-padded (``row_blocks_matmul``).
+ROW_BLOCK = 16
+
+
+def row_blocks_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` over blocks of exactly ``ROW_BLOCK`` rows of x [..., D],
+    zero-padded."""
+    rows = x.reshape(-1, x.shape[-1])
+    n = rows.shape[0]
+    rows = F.pad(rows, (0, 0, 0, -n % ROW_BLOCK))
+    blocks = [blk @ w for blk in rows.split(ROW_BLOCK)]
+    out = blocks[0] if len(blocks) == 1 else torch.cat(blocks)
+    return out[:n].reshape(*x.shape[:-1], w.shape[-1])
+
+
+def per_row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [B, S, D] @ w [D, N], each batch row's result as it would be alone:
+    a decode step's rows (S == 1) in ``row_blocks_matmul``, a longer
+    sequence row by row, so that every product has the same shape at any
+    batch size."""
+    if x.shape[1] == 1:
+        return row_blocks_matmul(x, w)
+    return torch.cat([x[i:i + 1] @ w for i in range(x.shape[0])])
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Scales by ``1 + w``, in float32."""
     dt = x.dtype

@@ -1,19 +1,19 @@
-"""Uniform model API over the families the port carries: dense, moe and
-vlm (the transformer) and ssm (rwkv6).
+"""Uniform model API over every family of the JAX package: dense, moe and
+vlm (the transformer), ssm (rwkv6), audio (the encoder-decoder, whisper)
+and hybrid (Mamba2 with a shared attention block, zamba2).
 
   abstract_params(cfg)                      -> ParamSpec tree (JAX layout)
   init_params(cfg, generator, device)       -> the port's tree of tensors
-  prefill(params, tokens, cfg, max_len=, dropless=, patch_embeds=)
+  prefill(params, tokens, cfg, max_len=, dropless=, patch_embeds=, frames=)
                                             -> (logits, cache)
   decode_step(params, cache, tokens, cur_index, cfg, dropless=) -> logits
   abstract_cache(cfg, B, S)                 -> ParamSpec tree
   count_params(cfg), count_active_params(cfg)
 
-``dropless`` and ``patch_embeds`` reach the transformer; rwkv6 ignores
-them, as the JAX package's does.
-
-A family without a port raises ``NotImplementedError`` naming the ROADMAP
-item that will bring it.
+``dropless`` and ``patch_embeds`` reach the transformer; the other
+families ignore ``dropless``, as the JAX package's do.  ``frames`` (the
+stub audio frames [B, frontend_tokens, d_model]) is the encoder-decoder's
+and only its.
 """
 from __future__ import annotations
 
@@ -24,20 +24,20 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import to_port_layout
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import encdec, mamba2, rwkv6, transformer
 from repro_torch.models.param import count, init_tree
 
 Tree = Dict[str, Any]
 
 _FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer,
-           "ssm": rwkv6}
+           "ssm": rwkv6, "audio": encdec, "hybrid": mamba2}
 
 
 def module_for(cfg: ModelConfig):
     if cfg.family not in _FAMILY:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported (ROADMAP Queue 1, "
-            f"remaining families)")
+            f"{cfg.name}: unknown family {cfg.family!r}; the port carries "
+            f"{sorted(_FAMILY)}")
     return _FAMILY[cfg.family]
 
 

@@ -45,14 +45,6 @@ Tree = Dict[str, Any]
 LORA_MIX = 32
 LORA_DECAY = 64
 GROUP_NORM_EPS = 64e-5
-#: A decode step's two skinny projections (to the 5 x 32 LoRA inputs and to
-#: the 64 decay inputs) have too few outputs to fill the card, so cuBLAS
-#: splits their 4096-long sums, and it picks the split by the number of
-#: rows: a slot batch of 8 and a request alone sum in another order, and a
-#: decay that rounds the other way in bfloat16 moves the recurrent state.
-#: They run on blocks of exactly this many rows (zero-padded), so that a
-#: request decodes the same bits in any slot batch.
-DECODE_ROWS = 16
 
 
 def abstract_params(cfg: ModelConfig) -> Tree:
@@ -142,17 +134,6 @@ def _shifted(xn: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
     return torch.cat([x_prev[:, None], xn[:, :-1]], dim=1)
 
 
-def _row_blocks_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` over blocks of exactly ``DECODE_ROWS`` rows of x [..., D],
-    zero-padded."""
-    rows = x.reshape(-1, x.shape[-1])
-    n = rows.shape[0]
-    rows = F.pad(rows, (0, 0, 0, -n % DECODE_ROWS))
-    blocks = [blk @ w for blk in rows.split(DECODE_ROWS)]
-    out = blocks[0] if len(blocks) == 1 else torch.cat(blocks)
-    return out[:n].reshape(*x.shape[:-1], w.shape[-1])
-
-
 def _ddlerp(x, xx, lp, matmul=torch.matmul):
     """Data-dependent lerp producing the (r, k, v, w, g) inputs
     [B,T,5,D].  x/xx: [B,T,D]."""
@@ -173,7 +154,10 @@ def _time_mix(x, lp, cfg: ModelConfig, x_prev, wkv_state, seq_mode: bool):
     h, kdim = cfg.num_heads, cfg.resolved_head_dim
     xn = L.rms_norm(x, lp["ln_att"], cfg.norm_eps)
     xx = _shifted(xn, x_prev) if seq_mode else x_prev[:, None]
-    skinny = torch.matmul if seq_mode else _row_blocks_matmul
+    # a decode step's two skinny projections (to the 5 x 32 LoRA inputs and
+    # to the 64 decay inputs): a decay that rounds the other way in bfloat16
+    # would move the recurrent state
+    skinny = torch.matmul if seq_mode else L.row_blocks_matmul
     mixed = _ddlerp(xn, xx, lp, skinny)
     xr, xk, xv, xw, xg = (mixed[:, :, i] for i in range(5))
     r = (xr @ lp["w_r"]).reshape(b, t, h, kdim)

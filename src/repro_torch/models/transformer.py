@@ -59,19 +59,17 @@ Tree = Dict[str, Any]
 FULL_ATTENTION_MAX = 2048
 
 
-#: families this module carries; "audio" (whisper's encoder-decoder) and
-#: "hybrid" (zamba2's Mamba2 layers) wait for ROADMAP Queue 1, items 1c, 1d
+#: families this module carries; models/registry.py routes the others
+#: (ssm: rwkv6.py, audio: encdec.py, hybrid: mamba2.py)
 FAMILIES = ("dense", "moe", "vlm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The configurations the port carries; the rest raise, naming the
-    ROADMAP item that will port them."""
+    """The configurations this module carries; the rest raise."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not the transformer's "
-            f"{FAMILIES} (models/registry.py routes each ported family; ROADMAP "
-            f"Queue 1 lists the rest: item 1c 'audio', item 1d 'hybrid')")
+            f"{FAMILIES}; models/registry.py routes it to its own module")
     loc, glob = cfg.local_global_pattern
     if (loc or glob) and (glob != 1 or not cfg.sliding_window):
         raise NotImplementedError(

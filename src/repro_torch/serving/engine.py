@@ -9,7 +9,12 @@ output never depends on the other tokens of its batch.  The prefill writes
 its cache straight into the ``max_len`` decode layout, zeros past the
 prompt, which is what the JAX engine's zero pad of the prefill cache gives
 (rwkv6's recurrent state has no positions and is the same size at any
-``max_len``).
+``max_len``; zamba2's Mamba2 states neither, beside its shared block's KV
+caches).  The encoder-decoder (whisper) prefills over stub frames, zeros
+[B, frontend_tokens, d_model] in the model's type unless the caller passes
+``frames``, as the JAX engine does; its cache holds each request's cross
+K/V, so it has no slot batch (``init_slots`` raises, as the JAX engine's
+does) and serves through ``generate``.
 
 RNG contract
 ------------
@@ -48,7 +53,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, generator, resolve_device
-from repro_torch.models import registry
+from repro_torch.models import encdec, registry
 from repro_torch.models.param import tree_leaves, tree_map, zeros
 
 _M32 = 0xFFFFFFFF
@@ -136,18 +141,35 @@ class ServingEngine:
         return torch.clamp(tok, max=self.cfg.vocab_size - 1).to(torch.int32)
 
     # ------------------------------------------------- disaggregated stages
-    def prefill(self, prompts: np.ndarray, patch_embeds=None):
+    def _frames(self, batch: int, frames=None) -> torch.Tensor:
+        """The encoder-decoder's stub frames on the device: ``frames`` if
+        given, else zeros [B, frontend_tokens, d_model] in the model's type,
+        as the JAX engine feeds them."""
+        if frames is not None:
+            return torch.as_tensor(frames).to(self.device)
+        return torch.zeros((batch, self.cfg.frontend_tokens, self.cfg.d_model),
+                           dtype=getattr(torch, self.cfg.dtype), device=self.device)
+
+    def prefill(self, prompts: np.ndarray, patch_embeds=None, frames=None):
         """The prefill stage: [B, P] prompts -> (logits [B, V] float32, cache
         tree in the ``max_len`` decode layout), both on the device.  MoE
         layers run dropless, as the JAX engine runs them, so that each
         token's output depends on it alone.  A VLM may take
         ``patch_embeds`` [B, min(frontend_tokens, P), d_model]; the served
-        path passes none, as the JAX engine's passes only tokens."""
+        path passes none, as the JAX engine's passes only tokens.  The
+        encoder-decoder takes ``frames`` [B, frontend_tokens, d_model]
+        (zeros by default); no other family does."""
         tokens = torch.tensor(np.asarray(prompts, np.int32), device=self.device)
         if patch_embeds is not None:
             patch_embeds = torch.as_tensor(patch_embeds).to(self.device)
+        kw = {}
+        if self.cfg.family == "audio":
+            kw["frames"] = self._frames(tokens.shape[0], frames)
+        elif frames is not None:
+            raise ValueError(f"{self.cfg.name}: frames need the audio family, not "
+                             f"{self.cfg.family!r}")
         return registry.prefill(self.params, tokens, self.cfg, max_len=self.max_len,
-                                dropless=True, patch_embeds=patch_embeds)
+                                dropless=True, patch_embeds=patch_embeds, **kw)
 
     def decode_step(self, cache, tokens: torch.Tensor, cur_index) -> torch.Tensor:
         """One decode step as the engine runs every one (MoE dropless):
@@ -159,6 +181,10 @@ class ServingEngine:
     def init_slots(self, max_slots: int) -> Dict[str, Any]:
         """Fresh continuous-batching decode state: a ``max_slots``-wide slot
         cache plus per-slot progress and sampling vectors, all inactive."""
+        if self.cfg.family == "audio":
+            raise NotImplementedError(
+                "continuous batching needs the uniform abstract_cache layout; "
+                "the audio enc-dec cache is built per request")
         n, dev = max_slots, self.device
         return {
             "cache": zeros(registry.abstract_cache(self.cfg, n, self.max_len), dev),
@@ -223,14 +249,15 @@ class ServingEngine:
     # ------------------------------------------------------ monolithic path
     def generate(self, prompts: np.ndarray, *, steps: int = 16,
                  temperature: float = 0.0, seed: int = 0,
-                 patch_embeds=None) -> GenerationResult:
+                 patch_embeds=None, frames=None) -> GenerationResult:
         """prompts: [B, P] int32.  One prefill (with a VLM's
-        ``patch_embeds``, if given), then ``steps`` decode steps on the
-        device; the only host sync fetches the finished block."""
+        ``patch_embeds`` or the encoder-decoder's ``frames``, if given),
+        then ``steps`` decode steps on the device; the only host sync
+        fetches the finished block."""
         b, p = prompts.shape
         if p + steps > self.max_len:
             raise ValueError(f"{p} + {steps} tokens exceed max_len {self.max_len}")
-        logits, cache = self.prefill(prompts, patch_embeds)
+        logits, cache = self.prefill(prompts, patch_embeds, frames)
         keys = torch.tensor([row_key(seed, r) for r in range(b)], device=self.device)
         out = []
         for i in range(steps):
@@ -258,11 +285,19 @@ class ServingEngine:
                            seed: int = 0) -> GenerationResult:
         """The token-at-a-time loop: the prompt fed one decode step at a
         time, one host sync per generated token.  The parity baseline for
-        ``generate``, not a serving path; it shares the RNG contract."""
+        ``generate``, not a serving path; it shares the RNG contract.  The
+        encoder-decoder starts from the cache of its zero frames
+        (``encdec.make_decode_cache``: the cross K/V, zero self K/V), the
+        other families from zeros."""
         b, p = prompts.shape
         if p + steps > self.max_len:
             raise ValueError(f"{p} + {steps} tokens exceed max_len {self.max_len}")
-        cache = zeros(registry.abstract_cache(self.cfg, b, self.max_len), self.device)
+        if self.cfg.family == "audio":
+            cache = encdec.make_decode_cache(self.params, self._frames(b), self.cfg,
+                                             self.max_len)
+        else:
+            cache = zeros(registry.abstract_cache(self.cfg, b, self.max_len),
+                          self.device)
         tokens = torch.tensor(np.asarray(prompts, np.int32), device=self.device)
         keys = torch.tensor([row_key(seed, r) for r in range(b)], device=self.device)
         logits = None

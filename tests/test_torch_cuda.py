@@ -381,6 +381,44 @@ def test_decode_kernel_rows_do_not_depend_on_the_batch_on_card(cuda, cache_dtype
         assert torch.equal(alone, batch[i:i + 1]), (i, c)
 
 
+#: Served decode reads, [B,KV,S,D] caches: (B, KV, G, D, S, index; None = a
+#: mixed index per row)
+SERVED_DECODE_READS = [
+    (8, 8, 2, 128, 1024, None),     # qwen3-1.7b's served cache
+    (8, 32, 1, 64, 1024, None),     # zamba2-1.2b's shared block
+    (4, 20, 1, 64, 1500, 1499),     # whisper-large-v3's cross cache at F - 1
+    (4, 20, 1, 64, 448, 200),       # whisper-large-v3's self cache
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("b,kv,g,d,s,cur", SERVED_DECODE_READS)
+def test_decode_combine_reads_the_partials_after_the_split_on_card(
+        cuda, monkeypatch, cache_dtype, b, kv, g, d, s, cur):
+    """The partials filled with NaN before every call: a combine that read
+    them before the split kernel wrote them (without its
+    ``griddepcontrol.wait``) would return NaN, where ``torch.empty`` could
+    hand it the right values of the previous identical call.  Three calls in
+    a row, each against its plain version."""
+    from repro_torch.kernels.decode_attention import ops
+
+    real = ops._partials
+
+    def filled(q, cache, n):
+        acc, ml = real(q, cache, n)
+        acc.fill_(float("nan"))
+        ml.fill_(float("nan"))
+        return acc, ml
+
+    monkeypatch.setattr(ops, "_partials", filled)
+    q, cache = _decode_case(cuda, s + kv, b, s, kv, g, d, 2, cache_dtype, torch.bfloat16)
+    idx = cur if cur is not None else torch.tensor(
+        [s - 1, 700, 511, 256, 255, 1, 0, 64][:b], dtype=torch.int32, device=cuda)
+    for _ in range(3):
+        assert torch.isfinite(_check_decode(q, cache, idx, 2)).all()
+
+
 @pytest.mark.gpu
 def test_decode_kernels_copy_by_the_tma(cuda):
     """Every instantiation of the split kernel (3 head sizes x 4 type pairs
@@ -500,15 +538,13 @@ def test_norms_of_a_row_do_not_depend_on_the_batch_on_card(cuda, d):
 def test_skinny_decode_projection_rows_do_not_depend_on_the_batch_on_card(cuda, n):
     """rwkv6's decay and LoRA projections in a decode step: row 0 of a slot
     batch equals the row alone, bit for bit, at rwkv6-7b's widths."""
-    from repro_torch.models.rwkv6 import _row_blocks_matmul
-
     gen = torch.Generator(device=cuda).manual_seed(n)
     w = (torch.randn(4096, n, generator=gen, device=cuda) / 64).bfloat16()
     for _ in range(8):
         x = torch.randn(20, 1, 5, 4096, generator=gen, device=cuda).bfloat16()[:, :, 3]
-        full = _row_blocks_matmul(x, w)
+        full = L.row_blocks_matmul(x, w)
         for b in (1, 2, 8, 16):
-            assert torch.equal(_row_blocks_matmul(x[:b], w), full[:b]), b
+            assert torch.equal(L.row_blocks_matmul(x[:b], w), full[:b]), b
 
 
 #: chatglm3-6b's prefill heads (32 query heads over 2 kv heads of 128:

@@ -45,6 +45,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
               "repro_torch.kernels.decode_attention.ops",
               "repro_torch.kernels.rwkv6_wkv.ops",
               "repro_torch.models.transformer", "repro_torch.models.rwkv6",
+              "repro_torch.models.encdec", "repro_torch.models.mamba2",
               "repro_torch.serving.disagg", "repro_torch.serving.engine",
               "repro_torch.configs.qwen3_1p7b", "repro_torch.configs.rwkv6_7b"):
         assert m in mods

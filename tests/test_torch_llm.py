@@ -34,7 +34,7 @@ from repro_torch.core.messaging import KVPages, WorkflowMessage
 from repro_torch.kernels import decode_attention as K
 from repro_torch.launch.serve import check_served
 from repro_torch.models import layers as L
-from repro_torch.models import transformer
+from repro_torch.models import registry, transformer
 from repro_torch.serving import APP_LLM_DISAGG, ServingEngine, build_llm_disagg_set
 from repro_torch.serving.disagg import (
     DEFAULT_RING_BYTES,
@@ -139,13 +139,29 @@ def test_config_and_param_specs_match_jax():
 
 
 def test_unported_configs_raise():
-    """The families the transformer does not carry yet: whisper's
-    encoder-decoder (audio) and zamba2's Mamba2 layers (hybrid)."""
+    """The families the transformer does not carry: whisper's
+    encoder-decoder (audio) and zamba2's Mamba2 layers (hybrid) have
+    modules of their own, to which its message points."""
     for name, kw in (("audio", dict(family="audio")),
                      ("hybrid", dict(family="hybrid"))):
         cfg = dataclasses.replace(get_config("qwen3-1.7b"), name=name, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="models/registry.py"):
             transformer.abstract_params(cfg)
+
+
+@pytest.mark.parametrize("arch,family,module", [
+    ("whisper-large-v3", "audio", "encdec"), ("zamba2-1.2b", "hybrid", "mamba2")])
+def test_registry_routes_audio_and_hybrid(arch, family, module):
+    """``registry.abstract_params`` takes both families to their modules; an
+    unknown family raises, naming the ones the port carries."""
+    from repro_torch.models import encdec, mamba2
+
+    cfg = get_config(arch)
+    mod = {"encdec": encdec, "mamba2": mamba2}[module]
+    assert cfg.family == family and registry.module_for(cfg) is mod
+    assert registry.abstract_params(cfg) == mod.abstract_params(cfg)
+    with pytest.raises(NotImplementedError, match="carries"):
+        registry.module_for(dataclasses.replace(cfg, family="unknown"))
 
 
 def test_weights_of_a_jax_tree_carry_across(weights, port_weights):

@@ -31,6 +31,7 @@ from repro_torch.kernels import wkv6
 from repro_torch.kernels.rwkv6_wkv import wkv6_ref
 from repro_torch.launch import serve as launcher
 from repro_torch.launch.serve import check_served
+from repro_torch.models import layers as L
 from repro_torch.models import registry, rwkv6, transformer
 from repro_torch.serving import APP_LLM_DISAGG, ServingEngine, build_llm_disagg_set
 from repro_torch.serving.disagg import largest_message_bytes, ring_bytes_for
@@ -275,7 +276,7 @@ def test_decode_projections_in_row_blocks_equal_the_plain_product():
     w = t(rng.standard_normal((40, 7)).astype(np.float32))
     for b in (1, 8, 16, 21, 40):
         x = t(rng.standard_normal((b, 1, 40)).astype(np.float32))
-        got = rwkv6._row_blocks_matmul(x, w)
+        got = L.row_blocks_matmul(x, w)
         assert got.shape == (b, 1, 7)
         np.testing.assert_allclose(got.numpy(), (x @ w).numpy(), rtol=1e-6, atol=1e-6)
 
