@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only decode    # set-up and the decode cases alone
     python3 chip_smoke.py --only wkv6      # set-up and the WKV6 cases alone
+    python3 chip_smoke.py --only train     # set-up and the training phase alone
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -88,7 +89,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    dropped, every join assembled, the counters risen by the expected
    launches, frames equal to ``WanI2VPipeline.generate``, latents equal to
    the pipeline's, and tokens equal to ``ServingEngine.generate``.
-5. A ``{"kernels": [...]}`` line, then the last line
+5. Training (``--only train`` runs set-up and this phase alone): the flash
+   backward kernel (``flash_attention_bwd.cu``: its instantiations'
+   registers, spills and FFMA count) against ``attention_bwd_ref`` at
+   qwen3-1.7b's training shape, zamba2-1.2b's shared block, whisper's
+   cross-attention and a float32 band of the Wan DiT, each timed beside the
+   plain version and SDPA's backward (``torch.profiler``) with its bound;
+   one loss and gradient of qwen3-1.7b at full width and 2 layers through
+   the flash kernels against the same with the attention's forward and
+   backward patched to their plain versions; then qwen3-1.7b at full width
+   and depth through ``launch.train`` (8 AdamW steps of 4 x 256 tokens of
+   a bigram chain over 1,024 of its ids),
+   the counters set to 0 just before and read just after: ce finite and
+   falling, 56 flash forward and 28 backward launches a step, step time,
+   tokens/s and peak memory; then two steps under ``torch.profiler``: the
+   device time by kind of kernel and the device's busy share.
+6. A ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -97,6 +113,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -269,8 +286,8 @@ def main(argv) -> int:
     import torch
 
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
-    if argv and only not in ("decode", "wkv6"):
-        print("usage: chip_smoke.py [--only decode|wkv6]", file=sys.stderr)
+    if argv and only not in ("decode", "wkv6", "train"):
+        print("usage: chip_smoke.py [--only decode|wkv6|train]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -332,6 +349,10 @@ def main(argv) -> int:
         return 0
     if only == "wkv6":
         print(json.dumps({"wkv6": wkv6_kernel_phase(torch, dev, randn)}))
+        return 0
+    if only == "train":
+        print(json.dumps({"train": train_phase(torch, F, np, dev, randn, lib_path)},
+                         default=str))
         return 0
 
     t_dim, t_heads = PORT.text_d_model // PORT.text_heads, PORT.text_heads
@@ -567,6 +588,8 @@ def main(argv) -> int:
         by_arch[arch] = llm_serving_phase(torch, np, dev, arch)
         gc.collect()
         torch.cuda.empty_cache()
+    train = train_phase(torch, F, np, dev, randn, lib_path)
+    by_arch["train qwen3-1.7b"] = {"flash_attention": train["run"]["flash_launches"]}
     llm = {k: sum(c.get(k, 0) for c in by_arch.values())
            for k in ("flash_attention", "decode_attention_grouped",
                      "decode_attention_int8_grouped")}
@@ -629,6 +652,19 @@ def main(argv) -> int:
         ms=served["ms"], plain_ms=served["plain_ms"], bound_ms=served["bound_ms"],
         bound_by=served["bound_by"], library_ms=None, at="served_512",
         fma_bound_ms=served["fma_bound_ms"], hmma=wkv_hmma, shapes=wkv_rows))
+    qb = next(r for r in train["rows"] if r["shape"] == "qwen3_train_4x256")
+    kernels.append(dict(
+        name="flash_attention_backward", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+        # no TPU kernel: the gradient the JAX package takes by autodiff of
+        # its plain attention, which it trains with
+        replaces="src/repro/models/layers.py:136", tpu_kernel=None,
+        launches=train["run"]["flash_bwd_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in train["rows"]),
+        ms=qb["ms"], plain_ms=qb["plain_ms"], bound_ms=qb["bound_ms"],
+        bound_by=qb["bound_by"], library_ms=qb["library_ms"], at="qwen3_train_4x256",
+        fma_bound_ms=qb["fma_bound_ms"], build=train["build"], shapes=train["rows"],
+        grad_check=train["grad_check"], train=train["run"]))
     print(f"total {time.perf_counter() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1672,6 +1708,339 @@ def whisper_generate_phase(torch, np, dev) -> dict:
               f"distinct rows)")
     del engine
     return counts
+
+
+#: The flash backward kernel's cases (``flash_attention_bwd.cu``): name ->
+#: ((B, Sq, Sk, H, KV, D), causal, dtype, repetitions).  qwen3-1.7b's layer
+#: at the training run's B 4, S 256 (16 query heads over 8); zamba2-1.2b's
+#: shared block (32/32 heads of 64, causal); whisper-large-v3's
+#: cross-attention, 64 decoder tokens over the 1500 frames; a band of the
+#: Wan DiT's float32 self-attention (40 heads of 128, 2048 of its 18,900
+#: tokens), standing in for ``diffusion_loss``'s gradient.
+TRAIN_BWD_CASES = [
+    ("qwen3_train_4x256", (4, 256, 256, 16, 8, 128), True, "bfloat16", 10),
+    ("zamba2_train_512", (1, 512, 512, 32, 32, 64), True, "bfloat16", 10),
+    ("whisper_cross_64x1500", (1, 64, 1500, 20, 20, 64), False, "bfloat16", 10),
+    ("dit_band_2048", (1, 2048, 2048, 40, 40, 128), False, "float32", 3),
+]
+#: The full-width gradient check: qwen3-1.7b at 2 of its 28 layers, one
+#: loss and gradient with the flash kernels against the same with the
+#: attention's forward and backward patched to their plain versions, on the
+#: same bfloat16 weights and batch.  Both compute attention in float32 and
+#: round each output once to bfloat16, so an element of o, dq, dk or dv may
+#: round one step apart; downstream every weight gradient is a bfloat16
+#: product summed over the batch's 1,024 tokens, which moves an element by
+#: a few bfloat16 steps of its leaf's largest.  Each leaf is held to
+#: max|a - b| <= GRAD_CHECK_SHARE max|b| (a missing or wrong gradient is
+#: off by its whole size), the loss to GRAD_CHECK_LOSS_RTOL.
+GRAD_CHECK_LAYERS = 2
+GRAD_CHECK_SHARE = 2 ** -5
+GRAD_CHECK_LOSS_RTOL = 1e-3
+#: The full run: qwen3-1.7b at full width and depth through
+#: ``launch.train``, AdamW at lr 1e-3, B 4 x S 256 tokens of the bigram data
+#: drawn from the first 1,024 ids (the model keeps all 151,936): over the
+#: whole vocabulary a batch almost never repeats a token and 8 steps learn
+#: nothing (lr 3e-4: ce 11.9628 -> 11.9570, inside the batches' noise).
+TRAIN_ARGS = ["--arch", "qwen3-1.7b", "--preset", "full", "--steps", "8",
+              "--batch", "4", "--seq", "256", "--log-every", "1", "--lr", "1e-3",
+              "--data-vocab", "1024"]
+
+
+def flash_bwd_build_report(lib_path) -> dict:
+    """The backward kernel's build: each of its 18 instantiations (three
+    kernels, two types, three head sizes) with its registers and spills from
+    ptxas and its float32 FMAs (FFMA) in the SASS: it runs on the CUDA
+    cores."""
+    found = sass_report(lib_path, "bwd_", "FFMA")
+    for name, r in sorted(found.items()):
+        print(f"flash bwd build: {name}: FFMA {r['count']}, registers "
+              f"{r.get('registers')}, spill stores/loads {r.get('spill')} bytes")
+    check(len(found) == 18, f"flash bwd: {len(found)} instantiations, expected 18")
+    return {"ffma": sum(r["count"] for r in found.values()),
+            "spills": sum(sum(r.get("spill", (0, 0))) for r in found.values())}
+
+
+def sdpa_backward_ms(torch, F, q, k, v, do, causal: bool, reps: int) -> float:
+    """Device ms of SDPA's backward alone on these inputs ([B,S,H,D] here,
+    [B,H,S,D] for SDPA), by ``torch.profiler``: the summed device time of
+    the kernels that ``reps`` gradient calls launch, over ``reps``."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    h, kv = q.shape[2], k.shape[2]
+    dos = do.transpose(1, 2)
+    backends = ([SDPBackend.EFFICIENT_ATTENTION] if q.dtype == torch.float32
+                else [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION])
+    for expand in (False, True):
+        # grouped heads natively if a fused backend takes them, else K and V
+        # repeated to every query head before the call
+        g = h // kv if expand else 1
+        qs, ks, vs = (x.transpose(1, 2).repeat_interleave(g if x is not q else 1, dim=1)
+                      .detach().requires_grad_() for x in (q, k, v))
+        try:
+            with sdpa_kernel(backends):
+                out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                                     enable_gqa=h != kv and not expand)
+                torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True)  # warm-up
+            break
+        except RuntimeError as e:
+            check(not expand and h != kv, f"sdpa backward: {e}")
+            print(f"sdpa backward: no fused backend takes {h} over {kv} heads; "
+                  f"K and V repeated")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True)
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type.name == "CUDA")
+    check(us > 0, "sdpa backward: the profiler saw no device time")
+    return us / 1e3 / reps
+
+
+def flash_bwd_kernel_phase(torch, F, dev, randn) -> list:
+    """The backward kernel against ``attention_bwd_ref`` on the forward
+    kernel's output (bfloat16 within one bfloat16 step, float32 to its f32
+    limit, element by element over dq, dk and dv), its time beside the plain
+    version's and SDPA's backward, and its bound: 10 Sq Sk D flops a head
+    (half of it causal) at the bfloat16 tensor-core rate, or for float32 as
+    three TF32 products (the FMA bound beside it), against the bytes of q,
+    k, v, o, dO, dq, dk and dv read or written once."""
+    from repro_torch.kernels import flash_attention, flash_attention_backward
+    from repro_torch.kernels.flash_attention import attention_bwd_ref
+
+    rows = []
+    for name, (b, sq, sk, h, kv, d), causal, dt, reps in TRAIN_BWD_CASES:
+        dtype = getattr(torch, dt)
+        q, do = (randn(b, sq, h, d).to(dtype) for _ in range(2))
+        k, v = (randn(b, sk, kv, d).to(dtype) for _ in range(2))
+        with torch.no_grad():
+            o = flash_attention(q, k, v, causal=causal)
+        ours = flash_attention_backward(q, k, v, o, do, causal=causal)
+        torch.cuda.synchronize()
+        ref = attention_bwd_ref(q, k, v, o, do, causal=causal)
+        tol = (BF16_ATOL, BF16_RTOL) if dt == "bfloat16" else (F32_ATOL, F32_RTOL)
+        errs = [limit_errs(a, r, *tol) for a, r in zip(ours, ref)]
+        err, use = max(e[0] for e in errs), max(e[1] for e in errs)
+        del ours, ref
+        sets = rotation((q, k, v, o, do))
+        ms, plain_ms, call_ms, plain_call_ms = kernel_and_plain_ms(
+            torch, [lambda c=c: flash_attention_backward(*c, causal=causal) for c in sets],
+            [lambda c=c: attention_bwd_ref(*c, causal=causal) for c in sets], reps)
+        library_ms = sdpa_backward_ms(torch, F, q, k, v, do, causal, reps)
+        elem = 2 if dt == "bfloat16" else 4
+        nbytes = elem * (4 * b * sq * h * d + 4 * b * sk * kv * d)
+        flops = 10.0 * b * h * sq * sk * d * (0.5 if causal else 1.0)
+        if dt == "bfloat16":
+            bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+            fma_bound_ms = bound(nbytes, flops)[0]
+        else:
+            bound_ms, bound_by = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+            fma_bound_ms = bound(nbytes, flops)[0]
+        row = dict(shape=name, q=[b, sq, h, d], kv=[b, sk, kv, d], causal=causal,
+                   dtype=dt, max_abs_err=err, limit_use=use, ms=ms, call_ms=call_ms,
+                   plain_ms=plain_ms, plain_call_ms=plain_call_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, fma_bound_ms=fma_bound_ms, library_ms=library_ms,
+                   vs_library=ms / library_ms, bound_share=bound_ms / ms)
+        rows.append(row)
+        print(f"flash bwd {name} q={row['q']} kv={row['kv']} {dt} causal={causal}: "
+              f"max_err={err:.3g} ({use:.3f} of the {dt} limit) ms={ms:.4f} "
+              f"call_ms={call_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"sdpa_bwd_ms={library_ms:.4f} (kernel/sdpa {ms / library_ms:.2f}x) "
+              f"bound_ms={bound_ms:.4f} ({bound_by}; {bound_ms / ms:.1%} of it) "
+              f"fma_bound_ms={fma_bound_ms:.4f}")
+        check(use <= 1.0, f"flash bwd {name}: max_err {err}, {use} of the {dt} limit")
+        del q, k, v, o, do, sets
+    return rows
+
+
+def plain_attention(torch):
+    """Context: the flash wrapper's forward and backward on the card run
+    their plain versions (``ops._forward`` and ``ops._backward`` patched
+    here; the package has no switch for it), for the gradient check."""
+    import contextlib
+
+    from repro_torch.kernels.flash_attention import attention_bwd_ref, attention_ref, ops
+
+    @contextlib.contextmanager
+    def patched():
+        real = ops._forward, ops._backward
+        ops._forward = lambda q, k, v, c, s: attention_ref(q, k, v, causal=c, sm_scale=s)
+        ops._backward = lambda q, k, v, o, do, c, s: attention_bwd_ref(
+            q, k, v, o, do, causal=c, sm_scale=s)
+        try:
+            yield
+        finally:
+            ops._forward, ops._backward = real
+    return patched()
+
+
+def train_grad_check(torch, np, dev) -> dict:
+    """qwen3-1.7b at full width, `GRAD_CHECK_LAYERS` layers, bfloat16: one
+    loss and gradient of ``registry.loss_fn`` through the flash kernels,
+    then the same with the plain attention (`plain_attention`)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_port_layout
+    from repro_torch.device import generator
+    from repro_torch.kernels import flash_attention, flash_attention_backward
+    from repro_torch.models import registry
+    from repro_torch.models.param import spec_leaves, tree_leaves
+    from repro_torch.training.data import data_iterator
+    from repro_torch.training.train_step import init_params
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=GRAD_CHECK_LAYERS)
+    params = init_params(cfg, generator(0, dev), dev)
+    names = ["/".join(p) for p, _ in spec_leaves(registry.abstract_params(cfg))]
+    batch = next(data_iterator(cfg.vocab_size, 4, 256, seed=0))
+    batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev) for k, v in batch.items()}
+
+    def loss_and_grads():
+        loss, _ = registry.loss_fn(to_port_layout(params), batch, cfg)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        torch.cuda.synchronize()
+        return float(loss.detach()), grads
+
+    counts = (flash_attention.launches, flash_attention_backward.launches)
+    loss_k, grads_k = loss_and_grads()
+    launched = (flash_attention.launches - counts[0],
+                flash_attention_backward.launches - counts[1])
+    with plain_attention(torch):
+        counts = (flash_attention.launches, flash_attention_backward.launches)
+        loss_p, grads_p = loss_and_grads()
+        check((flash_attention.launches, flash_attention_backward.launches) == counts,
+              "grad check: the plain run launched a flash kernel")
+    check(launched == (2 * GRAD_CHECK_LAYERS, GRAD_CHECK_LAYERS),
+          f"grad check: the kernel run launched {launched} (forward, backward)")
+    shares = {}
+    for name, a, b in zip(names, grads_k, grads_p):
+        check(bool(torch.isfinite(a).all()), f"grad check: {name} not finite")
+        ref = float(b.float().abs().max())
+        shares[name] = float((a.float() - b.float()).abs().max()) / max(ref, 1e-30)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst = max(shares, key=shares.get)
+    print(f"train grad check: qwen3-1.7b full width, {GRAD_CHECK_LAYERS} layers, B 4 S 256 "
+          f"bf16: loss kernels {loss_k:.6f} plain {loss_p:.6f} (rel {loss_rel:.3g}, tol "
+          f"{GRAD_CHECK_LOSS_RTOL}); {len(shares)} gradient leaves, largest "
+          f"max|a-b|/max|b| {shares[worst]:.4g} at {worst} (tol {GRAD_CHECK_SHARE}); "
+          f"launches forward {launched[0]} backward {launched[1]}")
+    for name in sorted(shares):
+        print(f"  grad check {name}: {shares[name]:.4g}")
+    check(loss_rel <= GRAD_CHECK_LOSS_RTOL, "grad check: the losses differ")
+    check(shares[worst] <= GRAD_CHECK_SHARE, f"grad check: {worst} differs")
+    return dict(loss_kernels=loss_k, loss_plain=loss_p, loss_rel=loss_rel,
+                worst_leaf=worst, worst_share=shares[worst])
+
+
+def train_run(torch, dev) -> dict:
+    """qwen3-1.7b at full width and depth through ``launch.train`` (its
+    ``train``, as ``main`` runs it): the launch counters set to 0 just
+    before and read just after; ce finite and falling, both flash kernels
+    launched (2 forward per layer and step: the forward and its recompute
+    under checkpointing; 1 backward)."""
+    from repro_torch.kernels import flash_attention, flash_attention_backward
+    from repro_torch.launch import train as launcher
+
+    args = launcher.parser().parse_args(TRAIN_ARGS)
+    torch.cuda.empty_cache()
+    flash_attention.launches = 0
+    flash_attention_backward.launches = 0
+    out = launcher.train(args)
+    fwd, bwd = flash_attention.launches, flash_attention_backward.launches
+    cfg, ces = out["cfg"], out["ce"]
+    steady = sorted(out["step_s"][1:])
+    step_ms = 1e3 * steady[len(steady) // 2]
+    tokens = args.batch * args.seq
+    res = dict(ce_first=ces[0], ce_last=ces[-1], steps=args.steps, batch=args.batch,
+               seq=args.seq, step_ms=step_ms, first_step_ms=1e3 * out["step_s"][0],
+               tokens_per_s=tokens / (step_ms / 1e3),
+               launcher_tokens_per_s=out["tokens_per_s"],
+               peak_gib=out["peak_bytes"] / 2 ** 30, flash_launches=fwd,
+               flash_bwd_launches=bwd)
+    print(f"train qwen3-1.7b full ({cfg.num_layers} layers, {cfg.dtype}): ce "
+          f"{ces[0]:.4f} -> {ces[-1]:.4f} in {args.steps} steps of {args.batch}x{args.seq}; "
+          f"step {step_ms:.1f} ms (median after the first, {res['first_step_ms']:.0f} ms), "
+          f"{res['tokens_per_s']:.0f} tokens/s, peak {res['peak_gib']:.2f} GiB; launches "
+          f"flash {fwd} ({fwd / args.steps:.0f} a step) backward {bwd} "
+          f"({bwd / args.steps:.0f} a step)")
+    check(all(math.isfinite(c) for c in ces), "train: non-finite ce")
+    check(ces[-1] < ces[0], f"train: ce did not fall ({ces[0]} -> {ces[-1]})")
+    check(fwd == 2 * cfg.num_layers * args.steps and bwd == cfg.num_layers * args.steps,
+          f"train: launches flash {fwd}, backward {bwd}")
+    return res
+
+
+#: kernel name -> kind, for the training step's device-time breakdown
+STEP_KINDS = (("bwd_", "flash backward"), ("flash_fwd", "flash forward"),
+              ("gemm", "matrix products"), ("xmma", "matrix products"),
+              ("cutlass", "matrix products"), ("nvjet", "matrix products"),
+              ("reduce", "reductions"), ("elementwise", "elementwise"),
+              ("vectorized", "elementwise"))
+
+
+def train_profile(torch, dev, steps: int = 2) -> dict:
+    """Where a qwen3-1.7b training step's device time goes, under
+    ``torch.profiler``: one warm-up step, then ``steps`` profiled; the
+    kernels' summed device time by kind (`STEP_KINDS`, by name) and the
+    device's busy share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train as launcher
+    from repro_torch.device import generator
+    from repro_torch.training import adamw_init, make_train_step
+    from repro_torch.training.data import data_iterator
+    from repro_torch.training.train_step import init_params
+
+    args = launcher.parser().parse_args(TRAIN_ARGS)
+    cfg = launcher.build_config(args.arch, args.preset)
+    params = init_params(cfg, generator(args.seed, dev), dev)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, lr=args.lr)
+    data = data_iterator(args.data_vocab or cfg.vocab_size, args.batch, args.seq,
+                         seed=args.seed)
+    batches = [{k: torch.as_tensor(v, dtype=torch.long, device=dev)
+                for k, v in next(data).items()} for _ in range(steps + 1)]
+    params, opt, _ = step(params, opt, batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b in batches[1:]:
+            params, opt, _ = step(params, opt, b)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    kinds, launches = {}, 0
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA":
+            continue
+        kind = next((k for key, k in STEP_KINDS if key in e.key), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3 / steps
+        launches += e.count
+    busy = sum(kinds.values())
+    check(busy > 0, "train profile: the profiler saw no device time")
+    print(f"train profile: a step {wall_ms:.1f} ms wall under the profiler, device busy "
+          f"{busy:.1f} ms ({busy / wall_ms:.1%}), {launches / steps:.0f} kernels a step: "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(kinds.items(), key=lambda x: -x[1])))
+    del params, opt
+    return dict(wall_ms=wall_ms, busy_ms=busy, kernels_per_step=launches / steps,
+                by_kind_ms=kinds)
+
+
+def train_phase(torch, F, np, dev, randn, lib_path) -> dict:
+    """The training phase (``--only train``): the backward kernel's build
+    and cases, the full-width gradient check, the full run."""
+    build = flash_bwd_build_report(lib_path)
+    rows = flash_bwd_kernel_phase(torch, F, dev, randn)
+    grad = train_grad_check(torch, np, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = train_run(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = train_profile(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(build=build, rows=rows, grad_check=grad, run=run, profile=prof)
 
 
 def _tap(fn, workflow, store, request_seeds):

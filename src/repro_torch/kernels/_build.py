@@ -33,6 +33,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {
     "repro_flash_attention_f32": ([_P, _P, _P, _P] + [_I] * 7 + [_F, _P], _I),
     "repro_flash_attention_bf16": ([_P, _P, _P, _P] + [_I] * 7 + [_F, _P], _I),
+    "repro_flash_attention_bwd": ([_P] * 10 + [_I] * 8 + [_F, _P], _I),
     "repro_decode_attention": ([_P] * 7 + [_I] * 5 + [_L] * 3 + [_I, _F, _P], _I),
     "repro_decode_attention_int8": ([_P] * 9 + [_I] * 5 + [_L] * 3 + [_I, _F, _P], _I),
     "repro_decode_attention_chunk": ([_I, _I], _I),
@@ -115,6 +116,18 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = library().repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """A kernel without a backward refuses inputs that need a gradient while
+    grad mode is on: its result, filled through ctypes, would carry no
+    ``grad_fn``, and everything before it would train on a silently missing
+    gradient.  Serving runs without grad and is never refused."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} has no backward kernel: its inputs need a "
+                           f"gradient, which the CUDA kernel cannot give")
 
 
 def count_launch(wrapper) -> None:

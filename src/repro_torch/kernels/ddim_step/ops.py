@@ -2,7 +2,8 @@
 
 A tensor on the CPU goes to the plain version (``ref.ddim_step_ref``); a
 tensor on the card launches the CUDA kernel (``csrc/ddim_step.cu``) or
-raises.  ``ddim_step.launches`` counts the kernel launches and nothing
+raises, and raises too under grad mode when an input needs a gradient (the
+kernel has no backward).  ``ddim_step.launches`` counts the kernel launches and nothing
 else.
 """
 from __future__ import annotations
@@ -23,6 +24,7 @@ def ddim_step(x: torch.Tensor, eps: torch.Tensor, alpha_t,
     c1, c2 = ddim_coefs(alpha_t, alpha_prev)
     if x.device.type == "cpu":
         return ddim_step_ref(x, eps.to(x.dtype), c1, c2)
+    _build.refuse_grad("ddim_step", x, eps)
 
     for name, t in (("x", x), ("eps", eps)):
         if t.device != x.device or t.device.type != "cuda":

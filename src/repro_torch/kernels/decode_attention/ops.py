@@ -9,7 +9,9 @@ int8 KV cache, in either cache layout.
       [B,KV,S,D] (the serving layout the model keeps)
 
 A tensor on the CPU goes to the plain version (``ref.py``); a tensor on the
-card launches the CUDA kernel (``csrc/decode_attention.cu``) or raises.
+card launches the CUDA kernel (``csrc/decode_attention.cu``) or raises, and
+raises too under grad mode when an input needs a gradient (the kernel has
+no backward).
 ``cur_index`` is an int, a 0-d tensor or a [B] vector of last valid
 positions (>= 0); on the card it is handed over as an int32 [B] tensor
 without a host sync.  ``decode_attention_grouped.launches`` and
@@ -94,6 +96,7 @@ def decode_attention_grouped(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type != "cuda" or q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q is {q.dtype} on {q.device}; the kernel takes "
                         f"float32 or bfloat16 on a CUDA device")
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache)
     s, sb, skv, ss = _check_cache(q, (("k_cache", k_cache), ("v_cache", v_cache)),
                                   seq_axis, q.dtype)
     b, kv, g, d = q.shape
@@ -122,6 +125,7 @@ def decode_attention_int8_grouped(q: torch.Tensor, k_q: torch.Tensor,
     if q.device.type != "cuda" or q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q is {q.dtype} on {q.device}; the kernel takes "
                         f"float32 or bfloat16 on a CUDA device")
+    _build.refuse_grad("decode_attention_int8", q, k_q, v_q, k_scale, v_scale)
     s, sb, skv, ss = _check_cache(q, (("k_q", k_q), ("v_q", v_q)), seq_axis,
                                   torch.int8)
     b, kv, g, d = q.shape

@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the flash-attention kernel.
+"""Plain PyTorch versions of the flash-attention kernel and of its backward.
 
 The same function as the kernel, computed one (batch, head) pair and one
 chunk of query rows at a time, so that the [Sq, Sk] score matrix of a
@@ -38,3 +38,41 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 p = torch.softmax(s, dim=-1)
                 out[bi, r0:r0 + q_chunk, hi] = (p @ vh).to(q.dtype)
     return out
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, *, causal: bool = False,
+                      sm_scale=None, q_chunk: int = 4096):
+    """The gradient of ``attention_ref``: (dq, dk, dv) for the output
+    gradient ``do`` [B,Sq,H,D], given the forward's output ``o``.  In
+    float32, one (batch, head) pair and one chunk of query rows at a time:
+    P from the recomputed scores, dP = dO V^T, delta = rowsum(dO o), dS =
+    P (dP - delta), dq = dS K scale, dk = dS^T Q scale, dv = P^T dO.  dk and
+    dv of a kv head sum over its group of query heads in float32 and round
+    once; each result in its input's type."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    group = h // kv
+    scale = sm_scale if sm_scale is not None else d ** -0.5
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    kpos = torch.arange(sk, device=q.device)
+    for bi in range(b):
+        for hi in range(h):
+            kh = k[bi, :, hi // group].float()
+            vh = v[bi, :, hi // group].float()
+            for r0 in range(0, sq, q_chunk):
+                qh = q[bi, r0:r0 + q_chunk, hi].float() * scale
+                doh = do[bi, r0:r0 + q_chunk, hi].float()
+                s = qh @ kh.T
+                if causal:
+                    qpos = torch.arange(r0, r0 + qh.shape[0], device=q.device)
+                    s = s.masked_fill(kpos[None, :] > qpos[:, None], NEG_INF)
+                p = torch.softmax(s, dim=-1)
+                delta = (doh * o[bi, r0:r0 + q_chunk, hi].float()).sum(-1, keepdim=True)
+                ds = p * (doh @ vh.T - delta)
+                dq[bi, r0:r0 + q_chunk, hi] = (ds @ kh * scale).to(q.dtype)
+                dk[bi, :, hi // group] += ds.T @ qh
+                dv[bi, :, hi // group] += p.T @ doh
+    return dq, dk.to(k.dtype), dv.to(v.dtype)

@@ -1,7 +1,9 @@
 """Public WKV6 wrapper: [B,T,H,K] inputs, any T >= 1, float32 or bfloat16.
 
-A tensor on the CPU goes to the plain version (``ref.wkv6_ref``); a tensor
-on the card launches the CUDA kernel (``csrc/wkv6.cu``) or raises.
+A tensor on the CPU goes to the plain version (``ref.wkv6_ref``, which
+autograd differentiates); a tensor on the card launches the CUDA kernel
+(``csrc/wkv6.cu``) or raises, and raises too under grad mode when an input
+needs a gradient, since the kernel has no backward yet.
 ``wkv6.launches`` counts the kernel launches and nothing else.
 """
 from __future__ import annotations
@@ -33,6 +35,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         raise ValueError("wkv6 needs at least one time step")
     if r.device.type == "cpu":
         return wkv6_ref(r, k, v, w, u, state)
+    _build.refuse_grad("wkv6", r, k, v, w, u, state)
 
     for name, x in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u), ("state", state)):
         if x.device != r.device or x.device.type != "cuda":

@@ -5,7 +5,8 @@ NodeManager keeps scaling (Figure 10).
 
 Each self- and cross-attention goes through the flash-attention kernel and
 each sampling step's update through the DDIM-step kernel
-(``repro_torch.models.layers``).
+(``repro_torch.models.layers``); ``diffusion_loss`` is the training
+objective, whose gradient runs through the flash backward kernel.
 """
 from __future__ import annotations
 
@@ -157,3 +158,24 @@ def ddim_sample(params: Tree, z_init_tokens: torch.Tensor,
                           text_emb, cfg)
         x = L.ddim_update(x, eps, alphas[t], alphas[t_prev])
     return x
+
+
+def diffusion_loss(params: Tree, z_tokens: torch.Tensor, text_emb: torch.Tensor,
+                   cfg: WanPipelineConfig, *, t: Optional[torch.Tensor] = None,
+                   noise: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Noise-prediction MSE: z_tokens [B,N,patch_dim] noised at timesteps
+    ``t`` [B] (ints in [0, 1000)) with ``noise``, each given or drawn from
+    ``generator`` (the JAX package draws both with ``jax.random``); the DiT
+    differentiates through the flash backward kernel on the card."""
+    b = z_tokens.shape[0]
+    if t is None:
+        t = torch.randint(0, 1000, (b,), generator=generator, device=z_tokens.device)
+    if noise is None:
+        noise = torch.randn(z_tokens.shape, generator=generator, dtype=z_tokens.dtype,
+                            device=z_tokens.device)
+    alphas, _ = schedule(1)
+    a = torch.as_tensor(alphas, device=z_tokens.device)[t.long()][:, None, None]
+    noisy = torch.sqrt(a) * z_tokens + torch.sqrt(1 - a) * noise
+    pred = dit_forward(params, noisy, t, text_emb, cfg)
+    return torch.mean((pred - noise) ** 2)

@@ -1,4 +1,5 @@
-"""VAE encode/decode stages: convolutional autoencoder on pixel frames.
+"""VAE encode/decode stages: convolutional autoencoder on pixel frames, and
+``vae_loss``, its training objective.
 
 The public functions keep the JAX package's NHWC layout; the convolutions
 run in NCHW with OIHW weights (``repro_torch.convert`` transposes them).
@@ -86,6 +87,19 @@ def moments(params: Tree, frames: torch.Tensor,
     return mu, logvar.clamp(-10.0, 10.0)
 
 
+def encode(params: Tree, frames: torch.Tensor, cfg: WanPipelineConfig, *,
+           noise: Optional[torch.Tensor] = None,
+           generator: Optional[torch.Generator] = None):
+    """frames [B,H,W,3] -> (latent sample, mu, logvar) [B,h,w,C_lat]: the
+    reparameterization noise given as ``noise``, or drawn whole from
+    ``generator`` (the JAX package draws it with ``jax.random``)."""
+    mu, logvar = moments(params, frames, cfg)
+    if noise is None:
+        noise = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
+                            device=mu.device)
+    return mu + torch.exp(0.5 * logvar) * noise, mu, logvar
+
+
 def encode_batched(params: Tree, frames: torch.Tensor, cfg: WanPipelineConfig,
                    generators: Optional[Sequence[torch.Generator]] = None,
                    noise: Optional[torch.Tensor] = None):
@@ -114,3 +128,14 @@ def decode(params: Tree, z: torch.Tensor, cfg: WanPipelineConfig) -> torch.Tenso
         x = F.silu(_conv(x, params["decoder"][f"up{i}_a"]))
         x = x + F.silu(_conv(x, params["decoder"][f"up{i}_b"]))
     return torch.tanh(_conv(x, params["decoder"]["to_rgb"])).permute(0, 2, 3, 1)
+
+
+def vae_loss(params: Tree, frames: torch.Tensor, cfg: WanPipelineConfig, *,
+             noise: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None):
+    """Reconstruction + 1e-4 KL of frames [B,H,W,3] -> (loss, {"rec",
+    "kl"}); the noise as ``encode`` takes it."""
+    z, mu, logvar = encode(params, frames, cfg, noise=noise, generator=generator)
+    rec = torch.mean((decode(params, z, cfg) - frames) ** 2)
+    kl = -0.5 * torch.mean(1 + logvar - mu ** 2 - torch.exp(logvar))
+    return rec + 1e-4 * kl, {"rec": rec, "kl": kl}

@@ -32,6 +32,11 @@ as it would alone, every product runs at a shape that does not depend on
 the batch (``layers.per_row_matmul``: a prefill row by row, a decode step
 on blocks of 16 rows), since cuBLAS sums a row in an order it picks by the
 product's shape; the kernels and norms already treat each row apart.
+
+``loss_fn`` is the training path: the encoder over the stub frames and the
+decoder with no cache, each layer under ``torch.utils.checkpoint``, then the
+chunked cross entropy through the embedding's transpose; every attention
+differentiates through the flash backward kernel on the card.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -130,16 +136,23 @@ def _mlp(x: torch.Tensor, lp: Tree, cfg: ModelConfig) -> torch.Tensor:
                             lp["w2"])
 
 
-def encode(params: Tree, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """frames [B, F, D] stub embeddings -> encoder output [B, F, D]."""
+def _encoder_layer(x: torch.Tensor, lp: Tree, cfg: ModelConfig) -> torch.Tensor:
+    h = L.rms_norm(x, lp["norm"], cfg.norm_eps)
+    q, k, v = (_project(h, lp[w]) for w in ("wq", "wk", "wv"))
+    x = x + _merge(L.attention_full(q, k, v, causal=False), lp["wo"])
+    return x + _mlp(x, lp, cfg)
+
+
+def encode(params: Tree, frames: torch.Tensor, cfg: ModelConfig, *,
+           remat: bool = False) -> torch.Tensor:
+    """frames [B, F, D] stub embeddings -> encoder output [B, F, D];
+    ``remat`` runs each layer under ``torch.utils.checkpoint`` (training)."""
     _, f, d = frames.shape
     pos = torch.arange(f, device=frames.device)
     x = frames + _sinusoid(pos, d)[None].to(frames.dtype)
     for lp in params["encoder"]:
-        h = L.rms_norm(x, lp["norm"], cfg.norm_eps)
-        q, k, v = (_project(h, lp[w]) for w in ("wq", "wk", "wv"))
-        x = x + _merge(L.attention_full(q, k, v, causal=False), lp["wo"])
-        x = x + _mlp(x, lp, cfg)
+        x = (checkpoint(_encoder_layer, x, lp, cfg, use_reentrant=False) if remat
+             else _encoder_layer(x, lp, cfg))
     return L.rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
@@ -154,39 +167,54 @@ def _cross_kv(enc: torch.Tensor, lp: Tree):
     return _project(enc, lp["x_wk"]), _project(enc, lp["x_wv"])
 
 
+def _decoder_layer(x: torch.Tensor, lp: Tree, cfg: ModelConfig,
+                   enc: Optional[torch.Tensor], cache, cur_index: Optional[int]):
+    """One decoder layer; ``cache`` is its (self k, self v, cross k, cross v)
+    views, or None in training, which writes nothing."""
+    h = L.rms_norm(x, lp["norm"], cfg.norm_eps)
+    q, k, v = (_project(h, lp[w]) for w in ("wq", "wk", "wv"))
+    if cur_index is None:
+        if x.shape[1] > FULL_ATTENTION_MAX:
+            att = L.attention_blockwise(q, k, v, causal=True)
+        else:
+            att = L.attention_full(q, k, v, causal=True)
+        if cache is not None:
+            _write_prompt(cache[:2], k, v, 0)
+    else:
+        _write_token(cache[:2], k[:, 0], v[:, 0], cur_index)
+        att = L.attention_decode(q[:, 0], cache[0], cache[1], cur_index)[:, None]
+    x = x + _merge(att, lp["wo"])
+
+    h = L.rms_norm(x, lp["x_norm"], cfg.norm_eps)
+    qx = _project(h, lp["x_wq"])
+    if cur_index is None:
+        kx, vx = _cross_kv(enc, lp)
+        attx = L.attention_full(qx, kx, vx, causal=False)
+        if cache is not None:
+            cache[2].copy_(kx.transpose(1, 2))
+            cache[3].copy_(vx.transpose(1, 2))
+    else:
+        attx = L.attention_decode(qx[:, 0], cache[2], cache[3],
+                                  cache[2].shape[2] - 1)[:, None]
+    x = x + _merge(attx, lp["x_wo"])
+    return x + _mlp(x, lp, cfg)
+
+
 def _decoder_stack(params: Tree, x: torch.Tensor, enc: Optional[torch.Tensor],
-                   cfg: ModelConfig, cache: Tree, cur_index: Optional[int]) -> torch.Tensor:
+                   cfg: ModelConfig, cache: Optional[Tree],
+                   cur_index: Optional[int]) -> torch.Tensor:
     """x [B, S, D] with positions added.  ``cur_index`` None is the prefill
     (``enc`` the encoder output; the self and cross caches are written),
     an int a decode step (``enc`` unused; the cross cache is read at
-    ``frontend_tokens - 1``)."""
-    ck, cv, xk, xv = cache["decoder"]
+    ``frontend_tokens - 1``); ``cache`` None is the training forward, each
+    layer under ``torch.utils.checkpoint``."""
     for i, lp in enumerate(params["decoder"]):
-        h = L.rms_norm(x, lp["norm"], cfg.norm_eps)
-        q, k, v = (_project(h, lp[w]) for w in ("wq", "wk", "wv"))
-        if cur_index is None:
-            if x.shape[1] > FULL_ATTENTION_MAX:
-                att = L.attention_blockwise(q, k, v, causal=True)
-            else:
-                att = L.attention_full(q, k, v, causal=True)
-            _write_prompt((ck[i], cv[i]), k, v, 0)
+        if cache is None:
+            x = checkpoint(_decoder_layer, x, lp, cfg, enc, None, None,
+                           use_reentrant=False)
         else:
-            _write_token((ck[i], cv[i]), k[:, 0], v[:, 0], cur_index)
-            att = L.attention_decode(q[:, 0], ck[i], cv[i], cur_index)[:, None]
-        x = x + _merge(att, lp["wo"])
-
-        h = L.rms_norm(x, lp["x_norm"], cfg.norm_eps)
-        qx = _project(h, lp["x_wq"])
-        if cur_index is None:
-            kx, vx = _cross_kv(enc, lp)
-            attx = L.attention_full(qx, kx, vx, causal=False)
-            xk[i].copy_(kx.transpose(1, 2))
-            xv[i].copy_(vx.transpose(1, 2))
-        else:
-            attx = L.attention_decode(qx[:, 0], xk[i], xv[i],
-                                      xk.shape[3] - 1)[:, None]
-        x = x + _merge(attx, lp["x_wo"])
-        x = x + _mlp(x, lp, cfg)
+            x = _decoder_layer(x, lp, cfg, enc, tuple(c[i] for c in cache["decoder"]),
+                               cur_index)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -237,6 +265,20 @@ def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor, cur_index,
     x = _embed_tokens(params, tokens[:, None], cfg, pos)
     x = _decoder_stack(params, x, None, cfg, cache, cur_index)
     return _logits(params, x[:, 0])
+
+
+def loss_fn(params: Tree, batch: Tree, cfg: ModelConfig, **_):
+    """batch: frames [B, F, D], tokens [B,S], labels [B,S] -> (ce, {"ce",
+    "aux": 0.0}): the encoder over the frames, the decoder in training
+    mode, the cross entropy through the embedding's transpose."""
+    tokens = batch["tokens"]
+    frames = batch["frames"].to(device=tokens.device, dtype=params["embedding"].dtype)
+    enc = encode(params, frames, cfg, remat=True)
+    x = _embed_tokens(params, tokens, cfg, torch.arange(tokens.shape[1],
+                                                        device=tokens.device))
+    x = _decoder_stack(params, x, enc, cfg, None, None)
+    ce = L.chunked_cross_entropy(x, params["embedding"].T, batch["labels"])
+    return ce, {"ce": ce, "aux": 0.0}
 
 
 def make_decode_cache(params: Tree, frames: torch.Tensor, cfg: ModelConfig,

@@ -1,7 +1,8 @@
 """Shared model layers: RMS norm, RoPE, head projections, attention (causal
 and non-causal flash prefill, flash-decode over a float or an int8 cache,
 sliding-window attention and the ring-cache decode), the per-token int8
-quantizer, the SwiGLU MLP and the DDIM update.
+quantizer, the SwiGLU MLP, the DDIM update and the chunked cross-entropy
+loss of the training path.
 
 The path is chosen by the tensor's device and nothing else: a CUDA tensor
 goes through the hand-written kernels in ``repro_torch.kernels`` (which
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import (
     ddim_step,
@@ -248,3 +250,28 @@ def ddim_update(x: torch.Tensor, eps: torch.Tensor, alpha_t,
     """One deterministic (eta = 0) DDIM update, fused into ``c1*x + c2*eps``
     with host-side float32 coefficients (``repro_torch.kernels.ddim_step``)."""
     return ddim_step(x, eps, alpha_t, alpha_prev)
+
+
+def _ce_sum(h: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Summed cross entropy of one chunk: h [B,C,D] -> float32 logits."""
+    logits = (h @ unembed).float()
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+
+def chunked_cross_entropy(hidden: torch.Tensor, unembed: torch.Tensor,
+                          labels: torch.Tensor, *, chunk: int = 512) -> torch.Tensor:
+    """Mean cross entropy over B*S of ``hidden`` [B,S,D] @ ``unembed``
+    [D,V] against ``labels`` [B,S], without the [B,S,V] logits: the sequence
+    in chunks of ``chunk`` positions (halved until it divides S), each under
+    ``torch.utils.checkpoint`` so that its float32 logits are recomputed in
+    the backward and never saved, as the JAX package's checkpointed scan."""
+    b, s, _ = hidden.shape
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk //= 2
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, chunk):
+        tot = tot + checkpoint(_ce_sum, hidden[:, i:i + chunk], unembed,
+                               labels[:, i:i + chunk], use_reentrant=False)
+    return tot / (b * s)

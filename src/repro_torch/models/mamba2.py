@@ -24,6 +24,11 @@ KV, S, hd]}``.  Unlike the JAX functions, which return a new cache,
 ``prefill`` fills a zeroed cache of ``max_len`` positions and
 ``decode_step`` advances the cache it is given in place.
 
+``loss_fn`` is the training path: the same stack from zero states and
+with no cache, each Mamba2 layer and each place of the shared block under
+``torch.utils.checkpoint``, then the chunked cross entropy; the shared
+block's attention differentiates through the flash backward kernel.
+
 Everything here but the shared block's attention is plain PyTorch, as it is
 plain jnp in the JAX package (which has no kernel for ``ssd_scan``): the
 prefill's recurrence runs step by step in float32, in the JAX scan's
@@ -40,6 +45,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -175,8 +181,9 @@ def shared_block_specs(cfg: ModelConfig) -> Tree:
 def _shared_block(x: torch.Tensor, sp: Tree, cfg: ModelConfig, cache,
                   cur_index) -> torch.Tensor:
     """The shared block at one place: ``cache`` is that place's (k, v)
-    [B,KV,S,hd], written in place; ``cur_index`` None is the prefill, an int
-    or a [B] vector a decode step (per-row positions)."""
+    [B,KV,S,hd], written in place, or None in training; ``cur_index`` None
+    is the prefill, an int or a [B] vector a decode step (per-row
+    positions)."""
     b, s = x.shape[:2]
     if cur_index is None:
         positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
@@ -232,22 +239,39 @@ def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int) -> Tree:
     return c
 
 
-def _stack(params: Tree, x: torch.Tensor, cfg: ModelConfig, cache: Tree,
+def _train_layer(x, lp, cfg: ModelConfig, zero_state):
+    return mamba_layer(x, lp, cfg, zero_state, True)[0]
+
+
+def _stack(params: Tree, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Tree],
            cur_index) -> torch.Tensor:
     """Every Mamba2 layer, the shared block after each full period, then the
     tail layers; each layer's state and each place's KV written into
-    ``cache`` in place.  ``cur_index`` None is the prefill."""
+    ``cache`` in place.  ``cur_index`` None is the prefill; with ``cache``
+    None too, the training forward: zero states, nothing written, each
+    layer and each shared-block place under ``torch.utils.checkpoint``."""
     n_p, every, _ = _periods(cfg)
     shared = params.get("shared")
-    conv, ssd = cache["mamba"]
+    if cache is None:
+        spec = abstract_cache(cfg, x.shape[0], 0)["mamba"]
+        zero_state = tuple(torch.zeros(s.shape[1:], dtype=getattr(torch, s.dtype),
+                                       device=x.device) for s in spec)
     for i, lp in enumerate(params["layers"]):
-        x, (nc, nst) = mamba_layer(x, lp, cfg, (conv[i], ssd[i]), cur_index is None)
-        conv[i].copy_(nc)
-        ssd[i].copy_(nst)
+        if cache is None:
+            x = checkpoint(_train_layer, x, lp, cfg, zero_state, use_reentrant=False)
+        else:
+            conv, ssd = cache["mamba"]
+            x, (nc, nst) = mamba_layer(x, lp, cfg, (conv[i], ssd[i]), cur_index is None)
+            conv[i].copy_(nc)
+            ssd[i].copy_(nst)
         p = (i + 1) // every - 1
         if shared is not None and (i + 1) % every == 0 and p < n_p:
-            x = _shared_block(x, shared, cfg, tuple(c[p] for c in cache["attn"]),
-                              cur_index)
+            if cache is None:
+                x = checkpoint(_shared_block, x, shared, cfg, None, None,
+                               use_reentrant=False)
+            else:
+                x = _shared_block(x, shared, cfg, tuple(c[p] for c in cache["attn"]),
+                                  cur_index)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -265,6 +289,13 @@ def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
     cache = zeros(abstract_cache(cfg, b, max_len), tokens.device)
     x = _stack(params, params["embedding"][tokens], cfg, cache, None)
     return (x[:, -1] @ params["unembed"]).float(), cache
+
+
+def loss_fn(params: Tree, batch: Tree, cfg: ModelConfig, **_):
+    """batch: tokens [B,S], labels [B,S] -> (ce, {"ce", "aux": 0.0})."""
+    x = _stack(params, params["embedding"][batch["tokens"]], cfg, None, None)
+    ce = L.chunked_cross_entropy(x, params["unembed"], batch["labels"])
+    return ce, {"ce": ce, "aux": 0.0}
 
 
 def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor, cur_index,

@@ -7,13 +7,15 @@ and hybrid (Mamba2 with a shared attention block, zamba2).
   prefill(params, tokens, cfg, max_len=, dropless=, patch_embeds=, frames=)
                                             -> (logits, cache)
   decode_step(params, cache, tokens, cur_index, cfg, dropless=) -> logits
+  loss_fn(params, batch, cfg, dropless=)    -> (loss, {"ce", "aux"})
   abstract_cache(cfg, B, S)                 -> ParamSpec tree
   count_params(cfg), count_active_params(cfg)
 
 ``dropless`` and ``patch_embeds`` reach the transformer; the other
 families ignore ``dropless``, as the JAX package's do.  ``frames`` (the
 stub audio frames [B, frontend_tokens, d_model]) is the encoder-decoder's
-and only its.
+and only its.  ``loss_fn``'s batch holds tokens and labels [B,S], and
+``patch_embeds`` (vlm) or ``frames`` (audio).
 """
 from __future__ import annotations
 
@@ -49,6 +51,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: torch.device) -> Tree:
     """Random weights by the JAX init rules, in the port's layout."""
     return to_port_layout(init_tree(abstract_params(cfg), generator, device))
+
+
+def loss_fn(params: Tree, batch: Tree, cfg: ModelConfig, **kw):
+    return module_for(cfg).loss_fn(params, batch, cfg, **kw)
 
 
 def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, **kw):

@@ -28,6 +28,11 @@ The prefill's recurrence runs through the hand-written WKV6 kernel for any
 prompt length (``kernels.wkv6``: the CUDA kernel for a CUDA tensor, its
 plain version on the CPU).  A decode step stays plain PyTorch (``wkv6_step``),
 as the JAX package keeps it out of the kernel.
+
+``loss_fn`` is the training path: every layer from a zero state, under
+``torch.utils.checkpoint``, and the chunked cross entropy.  On the CPU the
+recurrence is the plain version, which autograd differentiates; on the card
+the WKV6 kernel has no backward yet and refuses inputs that need a gradient.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import wkv6
@@ -191,16 +197,21 @@ def _channel_mix(x, lp, cfg: ModelConfig, x_prev, seq_mode: bool):
     return out, xn[:, -1]
 
 
+def _layer(x, lp, cfg: ModelConfig, xp_att, xp_ffn, st, seq_mode: bool):
+    """-> (x after the layer, new x_prev of each block, new wkv state)."""
+    att, nxa, nst = _time_mix(x, lp, cfg, xp_att, st, seq_mode)
+    x = x + att
+    ffn, nxf = _channel_mix(x, lp, cfg, xp_ffn, seq_mode)
+    return x + ffn, nxa, nxf, nst
+
+
 def _stack(params: Tree, x: torch.Tensor, cfg: ModelConfig, cache: Tree,
            seq_mode: bool) -> torch.Tensor:
     """Every layer over x, writing each layer's new state into its views of
     ``cache`` in place; returns the final-normed activations."""
     xp_att, xp_ffn, st = cache["rwkv"]
     for i, lp in enumerate(params["layers"]):
-        att, nxa, nst = _time_mix(x, lp, cfg, xp_att[i], st[i], seq_mode)
-        x = x + att
-        ffn, nxf = _channel_mix(x, lp, cfg, xp_ffn[i], seq_mode)
-        x = x + ffn
+        x, nxa, nxf, nst = _layer(x, lp, cfg, xp_att[i], xp_ffn[i], st[i], seq_mode)
         xp_att[i].copy_(nxa)
         xp_ffn[i].copy_(nxf)
         st[i].copy_(nst)
@@ -219,6 +230,27 @@ def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
     cache = zeros(abstract_cache(cfg, b, s), tokens.device)
     x = _stack(params, params["embedding"][tokens], cfg, cache, True)
     return (x[:, -1] @ params["unembed"]).float(), cache
+
+
+def _train_layer(x, lp, cfg: ModelConfig, x_prev, state):
+    return _layer(x, lp, cfg, x_prev, x_prev, state, True)[0]
+
+
+def loss_fn(params: Tree, batch: Tree, cfg: ModelConfig, **_):
+    """batch: tokens [B,S], labels [B,S] -> (ce, {"ce", "aux": 0.0}): every
+    layer over the whole sequence from a zero state, each under
+    ``torch.utils.checkpoint``."""
+    tokens = batch["tokens"]
+    b = tokens.shape[0]
+    x = params["embedding"][tokens]
+    x_prev = x.new_zeros((b, cfg.d_model))
+    k = cfg.resolved_head_dim
+    state = torch.zeros((b, cfg.num_heads, k, k), dtype=torch.float32, device=x.device)
+    for lp in params["layers"]:
+        x = checkpoint(_train_layer, x, lp, cfg, x_prev, state, use_reentrant=False)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    ce = L.chunked_cross_entropy(x, params["unembed"], batch["labels"])
+    return ce, {"ce": ce, "aux": 0.0}
 
 
 def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor, cur_index,

@@ -39,6 +39,13 @@ first wrap its valid slots are the prefix 0..cur, so that index computes
 
 A MoE layer's FFN is ``moe.moe_ffn`` (the capacity dispatch) or, with
 ``dropless=True`` as the serving engine runs it, ``moe.moe_ffn_dense_fallback``.
+
+``loss_fn`` is the training path: a full causal forward with no cache, each
+layer under ``torch.utils.checkpoint`` (the JAX package's ``remat=True``),
+the MoE layers' load-balancing losses summed beside it, and the chunked
+cross entropy.  Its attention is the flash kernel's forward (run again in
+the backward's recompute) with the backward kernel as its gradient; a local
+layer's stays plain windowed attention, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -252,7 +260,8 @@ def _write_token(cache: Tuple[torch.Tensor, ...], k1: torch.Tensor,
 
 
 def _attention(x, lp, cfg: ModelConfig, sincos, cache, cur_index, window):
-    """One attention sub-block; ``cur_index`` None is the prefill; a
+    """One attention sub-block; ``cur_index`` None is the prefill, or with
+    ``cache`` None too the training forward, which writes no cache; a
     ``window`` > 0 makes it a local layer over a ring cache.  Writes the
     layer's cache in place and returns the residual delta."""
     h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
@@ -271,7 +280,8 @@ def _attention(x, lp, cfg: ModelConfig, sincos, cache, cur_index, window):
             att = L.attention_blockwise(q, k, v, causal=True, window=window)
         else:
             att = L.attention_full(q, k, v, causal=True, window=window)
-        _write_prompt(cache, k, v, window)
+        if cache is not None:
+            _write_prompt(cache, k, v, window)
     else:
         k1, v1 = k[:, 0], v[:, 0]
         if window:
@@ -290,25 +300,42 @@ def _attention(x, lp, cfg: ModelConfig, sincos, cache, cur_index, window):
     return L.merge_heads(att, lp["wo"])
 
 
-def _ffn(x, lp, cfg: ModelConfig, moe: bool, dropless: bool) -> torch.Tensor:
+def _ffn(x, lp, cfg: ModelConfig, moe: bool, dropless: bool):
+    """-> (residual delta, the MoE layer's aux loss; 0.0 for a dense one)."""
     if not moe:
         h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        return L.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+        return L.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), 0.0
     h = L.rms_norm(x, lp["moe_norm"], cfg.norm_eps)
-    return (moe_ffn_dense_fallback if dropless else moe_ffn)(h, lp, cfg)[0]
+    return (moe_ffn_dense_fallback if dropless else moe_ffn)(h, lp, cfg)
 
 
-def _stack(params: Tree, x: torch.Tensor, cfg: ModelConfig, cache: Tree,
-           positions: torch.Tensor, cur_index, dropless: bool) -> torch.Tensor:
+def _layer(x, lp, cfg: ModelConfig, sincos, cache, cur_index, window, moe, dropless):
+    x = x + _attention(x, lp, cfg, sincos, cache, cur_index, window)
+    ff, aux = _ffn(x, lp, cfg, moe, dropless)
+    return x + ff, aux
+
+
+def _stack(params: Tree, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Tree],
+           positions: torch.Tensor, cur_index, dropless: bool):
+    """Every layer, then the final norm -> (x, aux).  ``cache`` None is the
+    training forward: each layer under ``torch.utils.checkpoint``, so that
+    only its input is kept and its activations are recomputed in the
+    backward, and aux sums the MoE layers' load-balancing losses (0.0 when
+    there are none, and when serving)."""
     sincos = _sincos(cfg, positions)
     moe = cfg.num_experts > 0
     lps = ([(lp, False) for lp in params.get("dense0", [])]
            + [(lp, moe) for lp in params["layers"]])
+    aux = 0.0
     for (lp, is_moe), (leaf, idx, window) in zip(lps, layer_slots(cfg)):
-        x = x + _attention(x, lp, cfg, sincos, tuple(c[idx] for c in cache[leaf]),
-                           cur_index, window)
-        x = x + _ffn(x, lp, cfg, is_moe, dropless)
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if cache is None:
+            x, a = checkpoint(_layer, x, lp, cfg, sincos, None, None, window, is_moe,
+                              dropless, use_reentrant=False)
+            aux = aux + a
+        else:
+            x, _ = _layer(x, lp, cfg, sincos, tuple(c[idx] for c in cache[leaf]),
+                          cur_index, window, is_moe, dropless)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def _embed(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
@@ -355,7 +382,7 @@ def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
     cache = zeros(abstract_cache(cfg, b, max_len), tokens.device)
     x = _embed(params, tokens, cfg, patch_embeds)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-    x = _stack(params, x, cfg, cache, positions, None, dropless)
+    x, _ = _stack(params, x, cfg, cache, positions, None, dropless)
     return (x[:, -1] @ _unembed(params, cfg)).float(), cache
 
 
@@ -373,5 +400,20 @@ def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor, cur_index,
             raise ValueError(f"cur_index {cur_index} outside the cache")
         positions = torch.full((b, 1), cur_index, device=tokens.device)
     x = _embed(params, tokens[:, None], cfg)
-    x = _stack(params, x, cfg, cache, positions, cur_index, dropless)
+    x, _ = _stack(params, x, cfg, cache, positions, cur_index, dropless)
     return (x[:, 0] @ _unembed(params, cfg)).float()
+
+
+def loss_fn(params: Tree, batch: Tree, cfg: ModelConfig, *, dropless: bool = False):
+    """batch: tokens [B,S], labels [B,S] (and a VLM's ``patch_embeds``) ->
+    (ce + 0.01 aux, {"ce", "aux"}): the mean next-token cross entropy and
+    the MoE layers' summed load-balancing loss (0 for a dense stack)."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = _embed(params, tokens, cfg,
+               batch.get("patch_embeds") if cfg.family == "vlm" else None)
+    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    x, aux = _stack(params, x, cfg, None, positions, None, dropless)
+    ce = L.chunked_cross_entropy(x, _unembed(params, cfg), batch["labels"])
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}

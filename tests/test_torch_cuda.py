@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions.  These tests need a CUDA device and ``nvcc`` and skip elsewhere;
+versions; the flash backward kernel, the wrappers that refuse a gradient
+they cannot give, and a deterministic training step.  These tests need a CUDA device and ``nvcc`` and skip elsewhere;
 this file imports no JAX, so it runs on a machine with the card:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -15,10 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import _build, ddim_step, flash_attention
+from repro_torch.kernels import _build, ddim_step, flash_attention, flash_attention_backward
 from repro_torch.kernels import decode_attention as K
 from repro_torch.kernels.ddim_step import ddim_coefs, ddim_step_ref
-from repro_torch.kernels.flash_attention import attention_ref
+from repro_torch.kernels.flash_attention import attention_bwd_ref, attention_ref
 from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_ref
 from repro_torch.models import layers as L
 from repro_torch.models.layers import rms_norm, row_mean
@@ -69,8 +70,9 @@ DECODE_CASES = [
 
 def test_every_binding_has_a_c_entry_point():
     sources = {p.name for p in _build.sources()}
-    assert sources == {"flash_attention.cu", "flash_attention_bf16.cu", "ddim_step.cu",
-                       "decode_attention.cu", "wkv6.cu", "runtime.cu"}
+    assert sources == {"flash_attention.cu", "flash_attention_bf16.cu",
+                       "flash_attention_bwd.cu", "ddim_step.cu", "decode_attention.cu",
+                       "wkv6.cu", "runtime.cu"}
     text = "".join(p.read_text() for p in _build.sources())
     entries = set(re.findall(r'extern "C" [\w\s*]+?\b(repro_\w+)\(', text))
     assert entries == set(_build.SIGNATURES)
@@ -693,3 +695,163 @@ def test_vae_conv_does_not_depend_on_free_memory_on_card(cuda):
         assert torch.equal(_conv(x, w), ref)
     finally:
         del hog
+
+
+#: The backward kernel's cases: every head size, causal and not, GQA,
+#: Sq != Sk, ragged tiles, grids wider than the card, and the smoke's four
+#: (qwen3-1.7b's training layer, zamba2-1.2b's shared block, whisper's
+#: cross-attention, a band of the Wan DiT).
+FLASH_BWD_CASES = [
+    # b, sq, sk, h, kv, d, causal
+    (1, 64, 64, 2, 2, 32, False),
+    (2, 70, 70, 4, 2, 32, True),
+    (2, 33, 97, 6, 2, 64, False),
+    (1, 150, 150, 4, 1, 128, True),
+    (1, 300, 200, 8, 8, 128, False),
+    (2, 129, 129, 12, 4, 64, True),
+    (4, 256, 256, 16, 8, 128, True),
+    (1, 512, 512, 32, 32, 64, True),
+    (1, 64, 1500, 20, 20, 64, False),
+    (1, 2048, 2048, 40, 40, 128, False),
+]
+
+
+def _flash_bwd_inputs(cuda, seed, b, sq, sk, h, kv, d, causal, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q, do = (torch.randn(b, sq, h, d, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, sk, kv, d, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    with torch.no_grad():
+        o = flash_attention(q, k, v, causal=causal)
+    return q, k, v, o, do
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", FLASH_BWD_CASES)
+def test_flash_backward_kernel_matches_plain_on_card(cuda, dtype, b, sq, sk, h, kv, d, causal):
+    """dq, dk, dv of the backward kernel against ``attention_bwd_ref`` on the
+    same inputs (the forward kernel's o): float32 to 2e-5, bfloat16 within
+    one bfloat16 step, element by element."""
+    q, k, v, o, do = _flash_bwd_inputs(cuda, b * sq + d, b, sq, sk, h, kv, d, causal, dtype)
+    launches = flash_attention_backward.launches
+    ours = flash_attention_backward(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_backward.launches == launches + 1
+    ref = attention_bwd_ref(q, k, v, o, do, causal=causal)
+    for name, a, r in zip(("dq", "dk", "dv"), ours, ref):
+        assert a.dtype == dtype and a.shape == r.shape, name
+        torch.testing.assert_close(a.float(), r.float(), **TOLS[dtype], msg=name)
+
+
+@pytest.mark.gpu
+def test_flash_backward_kernel_is_deterministic_on_card(cuda):
+    q, k, v, o, do = _flash_bwd_inputs(cuda, 7, 2, 256, 256, 16, 8, 128, True,
+                                       torch.bfloat16)
+    first = flash_attention_backward(q, k, v, o, do, causal=True)
+    for _ in range(3):
+        for a, b in zip(first, flash_attention_backward(q, k, v, o, do, causal=True)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_differentiates_through_the_backward_kernel_on_card(cuda, dtype):
+    """autograd through ``flash_attention`` on the card: one forward launch,
+    one backward launch, and exactly the backward kernel's gradients."""
+    q, k, v, o, do = _flash_bwd_inputs(cuda, 11, 2, 100, 100, 8, 2, 64, True, dtype)
+    qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+    fwd, bwd = flash_attention.launches, flash_attention_backward.launches
+    out = flash_attention(qq, kk, vv, causal=True)
+    grads = torch.autograd.grad(out, (qq, kk, vv), do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_backward.launches) == (fwd + 1, bwd + 1)
+    assert torch.equal(out, o)
+    for a, b in zip(grads, flash_attention_backward(q, k, v, o, do, causal=True)):
+        assert torch.equal(a, b)
+
+
+def _wkv_call(cuda, rg):
+    x = torch.randn(1, 8, 2, 32, device=cuda, requires_grad=rg)
+    w = torch.rand(1, 8, 2, 32, device=cuda)
+    return lambda: wkv6(x, x, x, w, torch.zeros(2, 32, device=cuda),
+                        torch.zeros(1, 2, 32, 32, device=cuda))
+
+
+def _decode_call(cuda, rg):
+    q = torch.randn(2, 2, 2, 64, device=cuda, requires_grad=rg)
+    kc = torch.randn(2, 2, 32, 64, device=cuda)
+    return lambda: K.decode_attention_grouped(q, kc, kc, 5)
+
+
+def _decode_int8_call(cuda, rg):
+    q = torch.randn(2, 2, 2, 64, device=cuda, requires_grad=rg)
+    kc = torch.zeros(2, 2, 32, 64, dtype=torch.int8, device=cuda)
+    sc = torch.ones(2, 2, 32, device=cuda)
+    return lambda: K.decode_attention_int8_grouped(q, kc, kc, sc, sc, 5)
+
+
+def _ddim_call(cuda, rg):
+    x = torch.randn(100, device=cuda, requires_grad=rg)
+    return lambda: ddim_step(x, torch.randn(100, device=cuda), 0.5, 0.6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make", [_wkv_call, _decode_call, _decode_int8_call, _ddim_call])
+def test_kernels_without_a_backward_refuse_a_gradient_on_card(cuda, make):
+    """Under grad mode an input that needs a gradient makes the wrapper
+    raise, naming the missing backward, rather than return a result that
+    drops the gradient; without grad (serving) or without such an input it
+    launches."""
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        make(cuda, True)()
+    with torch.no_grad():
+        make(cuda, True)()
+    make(cuda, False)()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_rwkv6_training_on_the_card_raises_at_the_wkv6_guard(cuda):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.training.train_step import init_params, make_train_step
+    from repro_torch.training import adamw_init
+
+    cfg = dataclasses.replace(get_config("rwkv6-7b").reduced(), dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    tok = torch.randint(0, cfg.vocab_size, (2, 16), device=cuda)
+    with pytest.raises(RuntimeError, match="wkv6 has no backward kernel"):
+        make_train_step(cfg)(params, adamw_init(params), {"tokens": tok, "labels": tok})
+    assert registry.module_for(cfg).__name__.endswith("rwkv6")
+
+
+@pytest.mark.gpu
+def test_two_training_steps_from_one_start_give_equal_weights_on_card(cuda):
+    """One AdamW step of reduced qwen3 in bfloat16 (the flash forward and
+    backward kernels in both of its layers), twice from the same weights
+    and batch: every leaf equal bit for bit, the backward having no
+    atomics."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.training import adamw_init, make_train_step
+    from repro_torch.training.train_step import init_params
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(), dtype="bfloat16")
+    tok = torch.randint(0, cfg.vocab_size, (2, 2, 128),
+                        generator=torch.Generator().manual_seed(1)).to(cuda)
+    runs = []
+    for _ in range(2):
+        params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+        bwd = flash_attention_backward.launches
+        params, _, m = make_train_step(cfg, lr=1e-3)(params, adamw_init(params),
+                                                      {"tokens": tok[0], "labels": tok[1]})
+        torch.cuda.synchronize()
+        assert flash_attention_backward.launches == bwd + cfg.num_layers
+        assert torch.isfinite(m["loss"])
+        runs.append([p.detach().clone() for p in tree_leaves(params)])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
