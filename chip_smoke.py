@@ -15,7 +15,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    the shapes its path gives it: flash attention (float32, on the tensor
    cores as 3xTF32: its HGMMA count from the SASS, its registers and spills
    from ptxas) and the DDIM step at the Wan I2V ``PORT`` profile (full
-   widths), plus a small causal GQA case and a ragged case, each float32
+   widths), plus a small causal GQA case, a ragged case and the float32
+   ``100m`` training preset's causal GQA shape (B 4, S 256), each float32
    flash case timed beside SDPA; flash-decode (its TMA bulk copies, UBLKCP,
    from the SASS, its registers and spills from ptxas) over a bfloat16 and
    an int8 cache in both layouts at B 8, KV 8, G 2, D 128, S 32768 with a
@@ -90,20 +91,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    launches, frames equal to ``WanI2VPipeline.generate``, latents equal to
    the pipeline's, and tokens equal to ``ServingEngine.generate``.
 5. Training (``--only train`` runs set-up and this phase alone): the flash
-   backward kernel (``flash_attention_bwd.cu``: its instantiations'
-   registers, spills and FFMA count) against ``attention_bwd_ref`` at
-   qwen3-1.7b's training shape, zamba2-1.2b's shared block, whisper's
-   cross-attention and a float32 band of the Wan DiT, each timed beside the
-   plain version and SDPA's backward (``torch.profiler``) with its bound;
-   one loss and gradient of qwen3-1.7b at full width and 2 layers through
-   the flash kernels against the same with the attention's forward and
-   backward patched to their plain versions; then qwen3-1.7b at full width
-   and depth through ``launch.train`` (8 AdamW steps of 4 x 256 tokens of
-   a bigram chain over 1,024 of its ids),
+   backward kernels' builds (``flash_attention_bwd_bf16.cu`` on the tensor
+   cores: each instantiation's HGMMA count, registers and spills, failing at
+   0 HGMMA or a spill; ``flash_attention_bwd.cu``'s 9 float32
+   instantiations on the CUDA cores: their FFMA counts) and the kernels
+   against ``attention_bwd_ref`` at qwen3-1.7b's training shape,
+   zamba2-1.2b's shared block, whisper's cross-attention, qwen3-1.7b's heads
+   at 4096 causal tokens (in bfloat16, from the log-sum-exp the forward
+   kernel stores, each with its distance and bias from the float32
+   gradient in bfloat16 steps), a float32 band of the Wan DiT and the
+   float32 ``100m`` preset's shape, each timed beside the plain version and
+   SDPA's backward (``torch.profiler``) with its bound, and the bfloat16 forward at
+   qwen3-1.7b's training shape timed with and without its log-sum-exp
+   store; one loss and gradient of qwen3-1.7b at full width and 2 layers
+   through the flash kernels against the same with the attention's forward
+   and backward patched to their plain versions; then qwen3-1.7b at full
+   width and depth through ``launch.train`` (8 AdamW steps of 4 x 256
+   tokens of a bigram chain over 1,024 of its ids),
    the counters set to 0 just before and read just after: ce finite and
    falling, 56 flash forward and 28 backward launches a step, step time,
-   tokens/s and peak memory; then two steps under ``torch.profiler``: the
-   device time by kind of kernel and the device's busy share.
+   tokens/s and peak memory; two steps under ``torch.profiler``: the device
+   time by kind of kernel and the device's busy share; last, the
+   launcher's float32 ``100m`` preset (12 layers, heads of 64) for 3 steps,
+   the float32 backward's path, its counters read the same way.
 6. A ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -365,6 +375,8 @@ def main(argv) -> int:
         ("dit_cross", (1, n, t_len, d_heads, d_heads, d_dim), False, 5),
         ("causal_gqa", (2, 300, 300, 8, 2, 64), True, 10),
         ("ragged", (1, 1000, 777, 4, 4, 128), False, 10),
+        # the launcher's float32 100m preset at the smoke's B 4, S 256
+        ("train_100m", (4, 256, 256, 8, 4, 64), True, 10),
     ]
     flash_hgmma = flash_build_report(lib_path, "flash_fwd_f32")
     flash_rows = []
@@ -652,19 +664,27 @@ def main(argv) -> int:
         ms=served["ms"], plain_ms=served["plain_ms"], bound_ms=served["bound_ms"],
         bound_by=served["bound_by"], library_ms=None, at="served_512",
         fma_bound_ms=served["fma_bound_ms"], hmma=wkv_hmma, shapes=wkv_rows))
-    qb = next(r for r in train["rows"] if r["shape"] == "qwen3_train_4x256")
-    kernels.append(dict(
-        name="flash_attention_backward", route="cuda",
-        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
-        # no TPU kernel: the gradient the JAX package takes by autodiff of
-        # its plain attention, which it trains with
-        replaces="src/repro/models/layers.py:136", tpu_kernel=None,
-        launches=train["run"]["flash_bwd_launches"],
-        max_abs_err=max(r["max_abs_err"] for r in train["rows"]),
-        ms=qb["ms"], plain_ms=qb["plain_ms"], bound_ms=qb["bound_ms"],
-        bound_by=qb["bound_by"], library_ms=qb["library_ms"], at="qwen3_train_4x256",
-        fma_bound_ms=qb["fma_bound_ms"], build=train["build"], shapes=train["rows"],
-        grad_check=train["grad_check"], train=train["run"]))
+    # no TPU kernel behind either backward: the gradient the JAX package
+    # takes by autodiff of its plain attention, which it trains with
+    bf16_rows = [r for r in train["rows"] if r["dtype"] == "bfloat16"]
+    f32_rows = [r for r in train["rows"] if r["dtype"] == "float32"]
+    for name, src, rows, at, run in (
+            ("flash_attention_backward_bf16", "flash_attention_bwd_bf16.cu", bf16_rows,
+             "qwen3_train_4x256", train["run"]),
+            ("flash_attention_backward", "flash_attention_bwd.cu", f32_rows,
+             "qwen3_100m_4x256", train["run_f32"])):
+        main = next(r for r in rows if r["shape"] == at)
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/flash_attention/csrc/{src}",
+            replaces="src/repro/models/layers.py:136", tpu_kernel=None,
+            launches=run["flash_bwd_launches"],
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+            bound_by=main["bound_by"], library_ms=main["library_ms"], at=at,
+            fma_bound_ms=main["fma_bound_ms"], build=train["build"], shapes=rows,
+            train=run, **({"grad_check": train["grad_check"]}
+                          if run is train["run"] else {})))
     print(f"total {time.perf_counter() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1714,14 +1734,20 @@ def whisper_generate_phase(torch, np, dev) -> dict:
 #: ((B, Sq, Sk, H, KV, D), causal, dtype, repetitions).  qwen3-1.7b's layer
 #: at the training run's B 4, S 256 (16 query heads over 8); zamba2-1.2b's
 #: shared block (32/32 heads of 64, causal); whisper-large-v3's
-#: cross-attention, 64 decoder tokens over the 1500 frames; a band of the
-#: Wan DiT's float32 self-attention (40 heads of 128, 2048 of its 18,900
-#: tokens), standing in for ``diffusion_loss``'s gradient.
+#: cross-attention, 64 decoder tokens over the 1500 frames; qwen3-1.7b's
+#: heads at 4096 causal tokens, where the tensor core's truncated sums over
+#: 64 query tiles bias the bfloat16 kernel most; a band of the Wan DiT's
+#: float32 self-attention (40 heads of 128, 2048 of its 18,900 tokens),
+#: standing in for ``diffusion_loss``'s gradient; the launcher's float32
+#: ``100m`` preset at the smoke's B 4, S 256 (8 heads of 64 over 4), the
+#: float32 kernel's shape in `train_run` (`TRAIN_F32_ARGS`).
 TRAIN_BWD_CASES = [
     ("qwen3_train_4x256", (4, 256, 256, 16, 8, 128), True, "bfloat16", 10),
     ("zamba2_train_512", (1, 512, 512, 32, 32, 64), True, "bfloat16", 10),
     ("whisper_cross_64x1500", (1, 64, 1500, 20, 20, 64), False, "bfloat16", 10),
+    ("qwen3_long_4096", (1, 4096, 4096, 16, 8, 128), True, "bfloat16", 3),
     ("dit_band_2048", (1, 2048, 2048, 40, 40, 128), False, "float32", 3),
+    ("qwen3_100m_4x256", (4, 256, 256, 8, 4, 64), True, "float32", 10),
 ]
 #: The full-width gradient check: qwen3-1.7b at 2 of its 28 layers, one
 #: loss and gradient with the flash kernels against the same with the
@@ -1736,6 +1762,11 @@ TRAIN_BWD_CASES = [
 GRAD_CHECK_LAYERS = 2
 GRAD_CHECK_SHARE = 2 ** -5
 GRAD_CHECK_LOSS_RTOL = 1e-3
+#: The float32 path of the backward: the launcher's default ``100m`` preset
+#: (a 12-layer qwen3 of width 512, float32), 3 steps.
+TRAIN_F32_ARGS = ["--arch", "qwen3-1.7b", "--preset", "100m", "--steps", "3",
+                  "--batch", "4", "--seq", "256", "--log-every", "1", "--lr", "1e-3",
+                  "--data-vocab", "1024"]
 #: The full run: qwen3-1.7b at full width and depth through
 #: ``launch.train``, AdamW at lr 1e-3, B 4 x S 256 tokens of the bigram data
 #: drawn from the first 1,024 ids (the model keeps all 151,936): over the
@@ -1747,17 +1778,44 @@ TRAIN_ARGS = ["--arch", "qwen3-1.7b", "--preset", "full", "--steps", "8",
 
 
 def flash_bwd_build_report(lib_path) -> dict:
-    """The backward kernel's build: each of its 18 instantiations (three
-    kernels, two types, three head sizes) with its registers and spills from
-    ptxas and its float32 FMAs (FFMA) in the SASS: it runs on the CUDA
-    cores."""
-    found = sass_report(lib_path, "bwd_", "FFMA")
-    for name, r in sorted(found.items()):
-        print(f"flash bwd build: {name}: FFMA {r['count']}, registers "
+    """The backward kernels' builds.  bfloat16 (``flash_attention_bwd_bf16.cu``):
+    the 3 instantiations of its kernel on the tensor cores (dK, dV and dQ
+    blocks in one launch, at three head sizes), each with its warpgroup MMAs
+    (HGMMA) in the SASS, its registers and spills; fails at 0 HGMMA or at a
+    spill, also of its pre-pass and combine.  float32 (``flash_attention_bwd.cu``): its 9
+    instantiations (three kernels, three head sizes) with their float32
+    FMAs (FFMA): it runs on the CUDA cores."""
+    import re
+
+    f32, bf16 = {}, {}
+    for name, r in sass_report(lib_path, "bwd_", "FFMA").items():
+        m = re.search(r"\d(bwd_(?:stats|dkdv|dq))ILi(\d+)E", name)
+        if m and "bf16" not in m.group(1):
+            f32[f"{m.group(1)}<float, {m.group(2)}>"] = r
+    for name, r in sass_report(lib_path, "flash_bwd_bf16", "HGMMA").items():
+        m = re.search(r"\d(flash_bwd_bf16_[a-z]+)(?:ILi(\d+)E)?", name)
+        bf16[m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")] = r
+    for label, r in sorted(f32.items()):
+        print(f"flash bwd f32 build: {label}: FFMA {r['count']}, registers "
               f"{r.get('registers')}, spill stores/loads {r.get('spill')} bytes")
-    check(len(found) == 18, f"flash bwd: {len(found)} instantiations, expected 18")
-    return {"ffma": sum(r["count"] for r in found.values()),
-            "spills": sum(sum(r.get("spill", (0, 0))) for r in found.values())}
+    check(len(f32) == 9, f"flash bwd f32: {len(f32)} instantiations, expected 9")
+    wgmma = 0
+    for label, r in sorted(bf16.items()):
+        on_tc = "_main<" in label
+        wgmma += on_tc
+        print(f"flash bwd bf16 build: {label}: HGMMA {r['count']}, registers "
+              f"{r.get('registers')}, spill stores/loads {r.get('spill')} bytes; "
+              f"ptxas on wgmma: {r.get('wgmma_notes', 'nothing')}")
+        check(not on_tc or r["count"] > 0, f"flash bwd bf16: no HGMMA in {label}")
+        check(r.get("spill", (0, 0)) == (0, 0), f"flash bwd bf16: {label} spills")
+    check(wgmma == 3, f"flash bwd bf16: {wgmma} instantiations on the tensor cores, "
+                      f"expected 3")
+    hgmma = sum(r["count"] for r in bf16.values())
+    print(f"flash bwd bf16 build: {hgmma} HGMMA instructions in {wgmma} instantiations")
+    return {"f32_ffma": sum(r["count"] for r in f32.values()),
+            "f32_spills": sum(sum(r.get("spill", (0, 0))) for r in f32.values()),
+            "bf16_hgmma": hgmma,
+            "bf16_registers": {k: r.get("registers") for k, r in bf16.items()}}
 
 
 def sdpa_backward_ms(torch, F, q, k, v, do, causal: bool, reps: int) -> float:
@@ -1798,35 +1856,105 @@ def sdpa_backward_ms(torch, F, q, k, v, do, causal: bool, reps: int) -> float:
     return us / 1e3 / reps
 
 
+def kernel_split_ms(torch, fn, reps: int, prefix: str) -> dict:
+    """Device ms per call of each kernel whose name holds ``prefix``, over
+    ``reps`` calls of ``fn`` under ``torch.profiler`` (by the kernel's name
+    after the prefix, e.g. ``kv<128>``)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(re.escape(prefix) + r"(\w+(?:<\d+>)?)", e.key)
+        if e.device_type.name == "CUDA" and m:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + e.self_device_time_total / 1e3 / reps
+    check(len(out) > 0, f"the profiler saw no {prefix} kernel")
+    return out
+
+
+def bf16_steps(torch, ours, exact) -> dict:
+    """Each of dq, dk, dv against the float32 gradient of the same bfloat16
+    inputs, in bfloat16 steps of the exact value, over the elements above
+    1e-3 of its largest: -> name -> (largest distance, mean signed distance
+    along the exact value's sign).  A negative mean is a bias toward zero,
+    as the tensor core's truncated sums into its accumulator give."""
+    out = {}
+    for name, a, e in zip(("dq", "dk", "dv"), ours, exact):
+        big = e.abs() > 1e-3 * float(e.abs().max())
+        step = torch.exp2(torch.floor(torch.log2(e.abs().clamp_min(1e-30))) - 7)
+        dist = ((a.float() - e) / step)[big]
+        out[name] = (float(dist.abs().max()), float((dist * e.sign()[big]).mean()))
+    return out
+
+
+def lse_store_cost(torch, q, k, v, causal: bool) -> dict:
+    """The bfloat16 forward at these inputs with and without its log-sum-exp
+    store: the same bits of o, and device ms of each, in turns (without,
+    with, with, without)."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_with_lse
+
+    with torch.no_grad():
+        o = flash_attention(q, k, v, causal=causal)
+    o_lse, _ = flash_attention_with_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    check(torch.equal(o, o_lse), "flash bf16: o differs with the log-sum-exp store")
+    sets = rotation((q, k, v))
+    off = [lambda c=c: flash_attention(*c, causal=causal) for c in sets]
+    on = [lambda c=c: flash_attention_with_lse(*c, causal=causal) for c in sets]
+    with torch.no_grad():
+        t = [device_ms(torch, f) for f in (off, on, on, off)]
+    ms_off, ms_on = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    return dict(ms_without=ms_off, ms_with=ms_on, cost=ms_on / ms_off - 1, runs_ms=t)
+
+
 def flash_bwd_kernel_phase(torch, F, dev, randn) -> list:
-    """The backward kernel against ``attention_bwd_ref`` on the forward
-    kernel's output (bfloat16 within one bfloat16 step, float32 to its f32
-    limit, element by element over dq, dk and dv), its time beside the plain
-    version's and SDPA's backward, and its bound: 10 Sq Sk D flops a head
-    (half of it causal) at the bfloat16 tensor-core rate, or for float32 as
-    three TF32 products (the FMA bound beside it), against the bytes of q,
-    k, v, o, dO, dq, dk and dv read or written once."""
+    """The backward kernels against ``attention_bwd_ref`` (recomputing the
+    softmax) on the forward kernel's output (bfloat16 within one bfloat16
+    step, from the log-sum-exp the forward kernel stores; float32 to its f32
+    limit; element by element over dq, dk and dv), their time beside the
+    plain version's and SDPA's backward, and their bound: 10 Sq Sk D flops a
+    head (half of it causal) at the bfloat16 tensor-core rate, or for
+    float32 as three TF32 products (the FMA bound beside it), against the
+    bytes of q, k, v, o, dO, dq, dk and dv read or written once.  At
+    qwen3-1.7b's training shape, the forward's time with and without the
+    log-sum-exp store (`lse_store_cost`)."""
     from repro_torch.kernels import flash_attention, flash_attention_backward
-    from repro_torch.kernels.flash_attention import attention_bwd_ref
+    from repro_torch.kernels.flash_attention import attention_bwd_ref, flash_attention_with_lse
 
     rows = []
     for name, (b, sq, sk, h, kv, d), causal, dt, reps in TRAIN_BWD_CASES:
         dtype = getattr(torch, dt)
         q, do = (randn(b, sq, h, d).to(dtype) for _ in range(2))
         k, v = (randn(b, sk, kv, d).to(dtype) for _ in range(2))
-        with torch.no_grad():
-            o = flash_attention(q, k, v, causal=causal)
-        ours = flash_attention_backward(q, k, v, o, do, causal=causal)
+        if dt == "bfloat16":
+            o, lse = flash_attention_with_lse(q, k, v, causal=causal)
+        else:
+            with torch.no_grad():
+                o, lse = flash_attention(q, k, v, causal=causal), None
+        ours = flash_attention_backward(q, k, v, o, do, causal=causal, lse=lse)
         torch.cuda.synchronize()
         ref = attention_bwd_ref(q, k, v, o, do, causal=causal)
         tol = (BF16_ATOL, BF16_RTOL) if dt == "bfloat16" else (F32_ATOL, F32_RTOL)
         errs = [limit_errs(a, r, *tol) for a, r in zip(ours, ref)]
         err, use = max(e[0] for e in errs), max(e[1] for e in errs)
+        steps = (bf16_steps(torch, ours, attention_bwd_ref(
+            *(x.float() for x in (q, k, v, o, do)), causal=causal))
+            if dt == "bfloat16" else None)
         del ours, ref
-        sets = rotation((q, k, v, o, do))
+        sets = rotation((q, k, v, o, do) + ((lse,) if lse is not None else ()))
         ms, plain_ms, call_ms, plain_call_ms = kernel_and_plain_ms(
-            torch, [lambda c=c: flash_attention_backward(*c, causal=causal) for c in sets],
-            [lambda c=c: attention_bwd_ref(*c, causal=causal) for c in sets], reps)
+            torch, [lambda c=c: flash_attention_backward(*c[:5], causal=causal,
+                                                         lse=c[5] if len(c) > 5 else None)
+                    for c in sets],
+            [lambda c=c: attention_bwd_ref(*c[:5], causal=causal) for c in sets], reps)
         library_ms = sdpa_backward_ms(torch, F, q, k, v, do, causal, reps)
         elem = 2 if dt == "bfloat16" else 4
         nbytes = elem * (4 * b * sq * h * d + 4 * b * sk * kv * d)
@@ -1841,7 +1969,8 @@ def flash_bwd_kernel_phase(torch, F, dev, randn) -> list:
                    dtype=dt, max_abs_err=err, limit_use=use, ms=ms, call_ms=call_ms,
                    plain_ms=plain_ms, plain_call_ms=plain_call_ms, bound_ms=bound_ms,
                    bound_by=bound_by, fma_bound_ms=fma_bound_ms, library_ms=library_ms,
-                   vs_library=ms / library_ms, bound_share=bound_ms / ms)
+                   vs_library=ms / library_ms, bound_share=bound_ms / ms,
+                   steps_from_f32=steps)
         rows.append(row)
         print(f"flash bwd {name} q={row['q']} kv={row['kv']} {dt} causal={causal}: "
               f"max_err={err:.3g} ({use:.3f} of the {dt} limit) ms={ms:.4f} "
@@ -1850,7 +1979,22 @@ def flash_bwd_kernel_phase(torch, F, dev, randn) -> list:
               f"bound_ms={bound_ms:.4f} ({bound_by}; {bound_ms / ms:.1%} of it) "
               f"fma_bound_ms={fma_bound_ms:.4f}")
         check(use <= 1.0, f"flash bwd {name}: max_err {err}, {use} of the {dt} limit")
-        del q, k, v, o, do, sets
+        if dt == "bfloat16":
+            print(f"flash bwd {name} from the float32 gradient, in bfloat16 steps: "
+                  + ", ".join(f"{t} at most {m:.3f}, mean along its sign {b:+.4f}"
+                              for t, (m, b) in steps.items()))
+            row["kernels_ms"] = split = kernel_split_ms(
+                torch, lambda: flash_attention_backward(q, k, v, o, do, causal=causal, lse=lse),
+                reps, "flash_bwd_bf16_")
+            print(f"flash bwd {name} by kernel (torch.profiler, device ms a call): "
+                  + ", ".join(f"{kk} {vv:.4f}" for kk, vv in split.items())
+                  + f"; sum {sum(split.values()):.4f}")
+        if name == "qwen3_train_4x256":
+            row["forward_lse_store"] = c = lse_store_cost(torch, q, k, v, causal)
+            print(f"flash fwd {name} bf16 causal={causal}: without the log-sum-exp store "
+                  f"ms={c['ms_without']:.4f}, with it ms={c['ms_with']:.4f} "
+                  f"({c['cost']:+.1%}); o equal bit for bit")
+        del q, k, v, o, do, lse, sets
     return rows
 
 
@@ -1863,10 +2007,11 @@ def plain_attention(torch):
     from repro_torch.kernels.flash_attention import attention_bwd_ref, attention_ref, ops
 
     @contextlib.contextmanager
-    def patched():
+    def patched():   # the plain backward recomputes the softmax, as before
         real = ops._forward, ops._backward
-        ops._forward = lambda q, k, v, c, s: attention_ref(q, k, v, causal=c, sm_scale=s)
-        ops._backward = lambda q, k, v, o, do, c, s: attention_bwd_ref(
+        ops._forward = lambda q, k, v, c, s, lse=None: attention_ref(
+            q, k, v, causal=c, sm_scale=s)
+        ops._backward = lambda q, k, v, o, do, c, s, lse=None: attention_bwd_ref(
             q, k, v, o, do, causal=c, sm_scale=s)
         try:
             yield
@@ -1933,16 +2078,17 @@ def train_grad_check(torch, np, dev) -> dict:
                 worst_leaf=worst, worst_share=shares[worst])
 
 
-def train_run(torch, dev) -> dict:
-    """qwen3-1.7b at full width and depth through ``launch.train`` (its
-    ``train``, as ``main`` runs it): the launch counters set to 0 just
-    before and read just after; ce finite and falling, both flash kernels
-    launched (2 forward per layer and step: the forward and its recompute
-    under checkpointing; 1 backward)."""
+def train_run(torch, dev, argv=TRAIN_ARGS) -> dict:
+    """A model through ``launch.train`` (its ``train``, as ``main`` runs it;
+    qwen3-1.7b at full width and depth unless ``argv`` says otherwise): the
+    launch counters set to 0 just before and read just after; ce finite and
+    falling, both flash kernels launched (2 forward per
+    layer and step: the forward and its recompute under checkpointing; 1
+    backward)."""
     from repro_torch.kernels import flash_attention, flash_attention_backward
     from repro_torch.launch import train as launcher
 
-    args = launcher.parser().parse_args(TRAIN_ARGS)
+    args = launcher.parser().parse_args(argv)
     torch.cuda.empty_cache()
     flash_attention.launches = 0
     flash_attention_backward.launches = 0
@@ -1952,13 +2098,14 @@ def train_run(torch, dev) -> dict:
     steady = sorted(out["step_s"][1:])
     step_ms = 1e3 * steady[len(steady) // 2]
     tokens = args.batch * args.seq
-    res = dict(ce_first=ces[0], ce_last=ces[-1], steps=args.steps, batch=args.batch,
+    res = dict(preset=args.preset, dtype=cfg.dtype, ce_first=ces[0], ce_last=ces[-1],
+               steps=args.steps, batch=args.batch,
                seq=args.seq, step_ms=step_ms, first_step_ms=1e3 * out["step_s"][0],
                tokens_per_s=tokens / (step_ms / 1e3),
                launcher_tokens_per_s=out["tokens_per_s"],
                peak_gib=out["peak_bytes"] / 2 ** 30, flash_launches=fwd,
                flash_bwd_launches=bwd)
-    print(f"train qwen3-1.7b full ({cfg.num_layers} layers, {cfg.dtype}): ce "
+    print(f"train {args.arch} {args.preset} ({cfg.num_layers} layers, {cfg.dtype}): ce "
           f"{ces[0]:.4f} -> {ces[-1]:.4f} in {args.steps} steps of {args.batch}x{args.seq}; "
           f"step {step_ms:.1f} ms (median after the first, {res['first_step_ms']:.0f} ms), "
           f"{res['tokens_per_s']:.0f} tokens/s, peak {res['peak_gib']:.2f} GiB; launches "
@@ -2040,7 +2187,11 @@ def train_phase(torch, F, np, dev, randn, lib_path) -> dict:
     prof = train_profile(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(build=build, rows=rows, grad_check=grad, run=run, profile=prof)
+    run_f32 = train_run(torch, dev, TRAIN_F32_ARGS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(build=build, rows=rows, grad_check=grad, run=run, profile=prof,
+                run_f32=run_f32)
 
 
 def _tap(fn, workflow, store, request_seeds):

@@ -54,157 +54,32 @@
 // next tile's copies are started behind both.  No `wgmma` sits on a path
 // that depends on the thread (ptxas serialises those).  TMA, a producer
 // warp, a persistent grid and ping-pong between warpgroups are later work.
+//
+// The log-sum-exp for the backward.  Where the caller passes a float32
+// [B, H, Sq] buffer (training), the epilogue also stores each row's
+// log-sum-exp of the scaled, masked scores in natural-log units,
+// (m + log2 l) ln 2, with m the running max in the kernel's log2 units and
+// l the row's sum: flash_attention_bwd_bf16.cu reads it instead of
+// recomputing it.  With a null pointer (serving) the kernel does the same
+// work and writes the same bits as without the option.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "wgmma.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int BQ = 64;    // query rows per block: one warpgroup's wgmma M
 constexpr int BK = 64;    // keys per kv tile
-constexpr int NT = 128;   // threads per block: one warpgroup
-
-// Shared-memory layout of a [rows, D] bfloat16 tile: D / CW chunks side by
-// side, each [rows][CW] with rows of RB bytes in the swizzle `wgmma` reads.
-template <int D>
-struct Tile {
-  static constexpr int CW = D < 64 ? D : 64;                 // columns per chunk
-  static constexpr int RB = CW * 2;                          // 128 or 64 bytes
-  static constexpr uint64_t MODE = RB == 128 ? 1 : 2;        // 128B / 64B swizzle
-  // byte offset of 16-byte unit u of row r within a chunk
-  __device__ static uint32_t at(int r, int u) {
-    const int x = RB == 128 ? (r & 7) : ((r >> 1) & 3);
-    return r * RB + ((u ^ x) << 4);
-  }
-};
-
-// wgmma descriptor of a tile (smem_desc in wgmma.cuh): 8-row atoms of RB-byte
-// rows in the tile's swizzle.
-template <int D>
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
-  return smem_desc(addr, lbo, 8 * Tile<D>::RB, Tile<D>::MODE);
-}
-
-// Copy rows [row0, row0 + R) of a [*, D] matrix with row stride `stride`
-// into the tile at `dst`; rows at or past `rows` are filled with zeros.
-template <int D, int R>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, size_t stride,
-                                          int row0, int rows, int tid) {
-  using T = Tile<D>;
-  constexpr int UPR = D / 8, UPC = T::CW / 8;  // 16-byte units per row, per chunk row
-  static_assert((R * UPR) % NT == 0, "tile does not split evenly over the threads");
-#pragma unroll
-  for (int i = 0; i < R * UPR / NT; ++i) {
-    const int idx = tid + i * NT;
-    const int r = idx / UPR, u = idx % UPR;
-    const bool ok = row0 + r < rows;
-    const bf16* g = src + (size_t)(ok ? row0 + r : 0) * stride + u * 8;
-    const uint32_t s = dst + (u / UPC) * (R * T::RB) + T::at(r, u % UPC);
-    cp_async16(s, g, ok);
-  }
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// ---- wgmma: D[64 x N] (+)= A[64 x 16] B[16 x N], bfloat16 in, float32 out.
-// _ss: A and B K-major in shared memory.  _rs: A from registers (the
-// accumulator layout of 16 columns, packed in bfloat16 pairs), B MN-major.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                            int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
-                                            uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                            uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                            uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (D == 32) wgmma_rs_n32(d, a, db, 1);
-  else if constexpr (D == 64) wgmma_rs_n64(d, a, db, 1);
-  else wgmma_rs_n128(d, a, db, 1);
-}
+constexpr int NT = WG;    // threads per block: one warpgroup
 
 template <int D>
 __global__ void __launch_bounds__(NT)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ o,
+               const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                int H, int KV, int Sq, int Sk, int causal, float scale_log2) {
   using T = Tile<D>;
   constexpr uint32_t Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
@@ -363,6 +238,8 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int rr = 0; rr < 2; ++rr) {
     l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
     l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+    if (lse != nullptr && col == 0 && row[rr] < Sq)
+      lse[(size_t)bh * Sq + row[rr]] = (m[rr] + log2f(l[rr])) * 0.6931471805599453f;
     l[rr] = 1.f / fmaxf(l[rr], 1e-30f);
   }
 #pragma unroll
@@ -375,8 +252,9 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H,
-                   int KV, int Sq, int Sk, int causal, float scale, cudaStream_t stream) {
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int B,
+                   int H, int KV, int Sq, int Sk, int causal, float scale,
+                   cudaStream_t stream) {
   constexpr size_t bytes = (size_t)(BQ + 4 * BK) * D * 2 + 1024;  // + alignment
   const unsigned tiles = (Sq + BQ - 1) / BQ;
   if (tiles > 65535u) return cudaErrorInvalidValue;
@@ -384,26 +262,29 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, 
       flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, tiles);
-  flash_fwd_bf16<D><<<grid, NT, bytes, stream>>>(q, k, v, o, H, KV, Sq, Sk, causal,
+  flash_fwd_bf16<D><<<grid, NT, bytes, stream>>>(q, k, v, o, lse, H, KV, Sq, Sk, causal,
                                                  scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes.  Returns a cudaError_t; 0 on success.
+// C entry point, bound with ctypes; lse is a float32 [B, H, Sq] buffer or
+// null.  Returns a cudaError_t; 0 on success.
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k, const void* v,
-                                          void* o, int B, int H, int KV, int Sq, int Sk,
-                                          int D, int causal, float scale, void* stream) {
+                                          void* o, void* lse, int B, int H, int KV, int Sq,
+                                          int Sk, int D, int causal, float scale,
+                                          void* stream) {
   const bf16* qt = static_cast<const bf16*>(q);
   const bf16* kt = static_cast<const bf16*>(k);
   const bf16* vt = static_cast<const bf16*>(v);
   bf16* ot = static_cast<bf16*>(o);
+  float* lt = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch<32>(qt, kt, vt, ot, B, H, KV, Sq, Sk, causal, scale, s);
-    case 64: return launch<64>(qt, kt, vt, ot, B, H, KV, Sq, Sk, causal, scale, s);
-    case 128: return launch<128>(qt, kt, vt, ot, B, H, KV, Sq, Sk, causal, scale, s);
+    case 32: return launch<32>(qt, kt, vt, ot, lt, B, H, KV, Sq, Sk, causal, scale, s);
+    case 64: return launch<64>(qt, kt, vt, ot, lt, B, H, KV, Sq, Sk, causal, scale, s);
+    case 128: return launch<128>(qt, kt, vt, ot, lt, B, H, KV, Sq, Sk, causal, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

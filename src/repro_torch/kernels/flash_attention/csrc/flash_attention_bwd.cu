@@ -1,13 +1,15 @@
-// Flash attention backward on Hopper (sm_90a), float32 or bfloat16 inputs.
+// Flash attention backward on Hopper (sm_90a) in float32, on the CUDA cores.
 //
-// The gradient of the forward kernels in flash_attention.cu and
-// flash_attention_bf16.cu, which replace the Pallas TPU kernel `_flash_kernel`
+// The gradient of the float32 forward kernel in flash_attention.cu, which
+// replaces the float32 route of the Pallas TPU kernel `_flash_kernel`
 // (src/repro/kernels/flash_attention/kernel.py:36).  The TPU kernel has no
 // backward: the JAX package trains with its plain attention and takes the
 // gradient by autodiff.  This kernel computes that same gradient, so that a
 // loss built through the forward kernel differentiates through a kernel too
 // (the port picks the path by the tensor's device, with no switch to the
-// plain attention).  It is a new kernel, not a port.
+// plain attention).  It is a new kernel, not a port.  This file holds only
+// the float32 instantiations; the bfloat16 gradient runs on the tensor cores
+// in flash_attention_bwd_bf16.cu.
 //
 // Layout as the forward: q, o, dO, dq are [B, Sq, H, D], k, v, dk, dv are
 // [B, Sk, KV, D], contiguous, D in {32, 64, 128}; GQA without repeats (query
@@ -20,9 +22,8 @@
 //
 // Design, simple and deterministic first (no atomics: two runs give equal
 // bits).  Three kernels, 256 threads a block, tiles of 64 query rows and 64
-// keys held as float32 in shared memory (rows padded to D + 1 floats);
-// inputs are converted to float32 on the load and everything accumulates in
-// float32 on the CUDA cores:
+// keys held in shared memory (rows padded to D + 1 floats); everything
+// accumulates in float32 on the CUDA cores:
 //   1. bwd_stats, one block per (b, h, query tile): recomputes each row's
 //      log-sum-exp over the keys (online, as the forward) and its delta, so
 //      the tuned forward kernels stay as they are;
@@ -40,16 +41,13 @@
 // it causal) on 8 tensors' bytes, far above the card's 295 flops a byte, so
 // operations; on the CUDA cores, with two shared-memory loads for each pair
 // of FMAs, it runs well below even the 67 TFLOP/s float32 rate.  Moving the
-// products onto `wgmma` and taking the log-sum-exp from the forward are the
-// redesign's work.
+// products onto 3xTF32 `wgmma` and taking the log-sum-exp from the forward
+// are the redesign's work, as flash_attention_bwd_bf16.cu did for bfloat16.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int BQ = 64;   // query rows a tile
 constexpr int BK = 64;   // keys a tile
@@ -58,19 +56,14 @@ constexpr int R = 4;     // rows (keys) a thread: ty + 16 i
 constexpr int C = 4;     // score columns a thread: tx + 16 j
 constexpr int PS = BK + 1;  // row pitch of a score tile
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16(x); }
-
 // Rows [r0, r0 + 64) of one head of a [B, S, NH, D] tensor (``src`` at
 // [b, 0, head, 0], ``pitch`` = NH D elements) into a [64][D + 1] float tile,
 // zeros past S.
-template <typename T, int D>
-__device__ void load_tile(float* dst, const T* src, int r0, int S, size_t pitch) {
+template <int D>
+__device__ void load_tile(float* dst, const float* src, int r0, int S, size_t pitch) {
   for (int i = threadIdx.x; i < BQ * D; i += NT) {
     const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] = (r0 + r < S) ? to_f(src[(size_t)(r0 + r) * pitch + c]) : 0.f;
+    dst[r * (D + 1) + c] = (r0 + r < S) ? src[(size_t)(r0 + r) * pitch + c] : 0.f;
   }
 }
 
@@ -137,9 +130,11 @@ __device__ __forceinline__ void scores(const float* Qs, const float* dOs, const 
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) bwd_stats(const T* __restrict__ q, const T* __restrict__ k,
-                                                const T* __restrict__ o, const T* __restrict__ dout,
+template <int D>
+__global__ void __launch_bounds__(NT) bwd_stats(const float* __restrict__ q,
+                                                const float* __restrict__ k,
+                                                const float* __restrict__ o,
+                                                const float* __restrict__ dout,
                                                 float* __restrict__ lse, float* __restrict__ delta,
                                                 int H, int KV, int Sq, int Sk, int causal,
                                                 float scale) {
@@ -151,7 +146,7 @@ __global__ void __launch_bounds__(NT) bwd_stats(const T* __restrict__ q, const T
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const size_t qpitch = (size_t)H * D, kpitch = (size_t)KV * D;
   const size_t qbase = (size_t)b * Sq * H * D + (size_t)h * D;
-  load_tile<T, D>(Qs, q + qbase, q0, Sq, qpitch);
+  load_tile<D>(Qs, q + qbase, q0, Sq, qpitch);
 
   float m[R], l[R];
 #pragma unroll
@@ -160,7 +155,7 @@ __global__ void __launch_bounds__(NT) bwd_stats(const T* __restrict__ q, const T
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
-    load_tile<T, D>(Ks, k + (size_t)b * Sk * KV * D + (size_t)kvh * D, k0, Sk, kpitch);
+    load_tile<D>(Ks, k + (size_t)b * Sk * KV * D + (size_t)kvh * D, k0, Sk, kpitch);
     __syncthreads();
     float s[R][C];
     dots<D>(Qs, Ks, s);
@@ -191,8 +186,8 @@ __global__ void __launch_bounds__(NT) bwd_stats(const T* __restrict__ q, const T
     float dd = 0.f;
     if (r < Sq)
       for (int c = tx; c < D; c += 16)
-        dd = fmaf(to_f(dout[qbase + (size_t)r * qpitch + c]),
-                  to_f(o[qbase + (size_t)r * qpitch + c]), dd);
+        dd = fmaf(dout[qbase + (size_t)r * qpitch + c],
+                  o[qbase + (size_t)r * qpitch + c], dd);
     dd = row_sum(dd);
     if (tx == 0 && r < Sq) {
       lse[row0 + r] = m[i] + logf(l[i]);
@@ -201,12 +196,15 @@ __global__ void __launch_bounds__(NT) bwd_stats(const T* __restrict__ q, const T
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-                                               const T* __restrict__ v, const T* __restrict__ dout,
+template <int D>
+__global__ void __launch_bounds__(NT) bwd_dkdv(const float* __restrict__ q,
+                                               const float* __restrict__ k,
+                                               const float* __restrict__ v,
+                                               const float* __restrict__ dout,
                                                const float* __restrict__ lse,
-                                               const float* __restrict__ delta, T* __restrict__ dk,
-                                               T* __restrict__ dv, int H, int KV, int Sq, int Sk,
+                                               const float* __restrict__ delta,
+                                               float* __restrict__ dk, float* __restrict__ dv,
+                                               int H, int KV, int Sq, int Sk,
                                                int causal, float scale) {
   extern __shared__ float smem[];
   constexpr int TILE = BQ * (D + 1);
@@ -224,8 +222,8 @@ __global__ void __launch_bounds__(NT) bwd_dkdv(const T* __restrict__ q, const T*
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const size_t qpitch = (size_t)H * D, kpitch = (size_t)KV * D;
   const size_t kbase = (size_t)b * Sk * KV * D + (size_t)kvh * D;
-  load_tile<T, D>(Ks, k + kbase, k0, Sk, kpitch);
-  load_tile<T, D>(Vs, v + kbase, k0, Sk, kpitch);
+  load_tile<D>(Ks, k + kbase, k0, Sk, kpitch);
+  load_tile<D>(Vs, v + kbase, k0, Sk, kpitch);
 
   float dK[R][J], dV[R][J];
 #pragma unroll
@@ -239,8 +237,8 @@ __global__ void __launch_bounds__(NT) bwd_dkdv(const T* __restrict__ q, const T*
     const size_t row0 = ((size_t)b * H + h) * Sq;
     for (int q0 = causal ? k0 : 0; q0 < Sq; q0 += BQ) {
       __syncthreads();  // the previous tile's readers are done
-      load_tile<T, D>(Qs, q + qbase, q0, Sq, qpitch);
-      load_tile<T, D>(dOs, dout + qbase, q0, Sq, qpitch);
+      load_tile<D>(Qs, q + qbase, q0, Sq, qpitch);
+      load_tile<D>(dOs, dout + qbase, q0, Sq, qpitch);
       for (int r = threadIdx.x; r < BQ; r += NT) {
         lse_s[r] = q0 + r < Sq ? lse[row0 + q0 + r] : 0.f;
         delta_s[r] = q0 + r < Sq ? delta[row0 + q0 + r] : 0.f;
@@ -273,17 +271,20 @@ __global__ void __launch_bounds__(NT) bwd_dkdv(const T* __restrict__ q, const T*
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const size_t at = kbase + (size_t)key * kpitch + tx + 16 * j;
-      store(dk + at, dK[i][j] * scale);
-      store(dv + at, dV[i][j]);
+      dk[at] = dK[i][j] * scale;
+      dv[at] = dV[i][j];
     }
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-                                             const T* __restrict__ v, const T* __restrict__ dout,
+template <int D>
+__global__ void __launch_bounds__(NT) bwd_dq(const float* __restrict__ q,
+                                             const float* __restrict__ k,
+                                             const float* __restrict__ v,
+                                             const float* __restrict__ dout,
                                              const float* __restrict__ lse,
-                                             const float* __restrict__ delta, T* __restrict__ dq,
+                                             const float* __restrict__ delta,
+                                             float* __restrict__ dq,
                                              int H, int KV, int Sq, int Sk, int causal,
                                              float scale) {
   extern __shared__ float smem[];
@@ -303,8 +304,8 @@ __global__ void __launch_bounds__(NT) bwd_dq(const T* __restrict__ q, const T* _
   const size_t qbase = (size_t)b * Sq * H * D + (size_t)h * D;
   const size_t kbase = (size_t)b * Sk * KV * D + (size_t)kvh * D;
   const size_t row0 = (size_t)bh * Sq;
-  load_tile<T, D>(Qs, q + qbase, q0, Sq, qpitch);
-  load_tile<T, D>(dOs, dout + qbase, q0, Sq, qpitch);
+  load_tile<D>(Qs, q + qbase, q0, Sq, qpitch);
+  load_tile<D>(dOs, dout + qbase, q0, Sq, qpitch);
   for (int r = threadIdx.x; r < BQ; r += NT) {
     lse_s[r] = q0 + r < Sq ? lse[row0 + q0 + r] : 0.f;
     delta_s[r] = q0 + r < Sq ? delta[row0 + q0 + r] : 0.f;
@@ -319,8 +320,8 @@ __global__ void __launch_bounds__(NT) bwd_dq(const T* __restrict__ q, const T* _
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
-    load_tile<T, D>(Ks, k + kbase, k0, Sk, kpitch);
-    load_tile<T, D>(Vs, v + kbase, k0, Sk, kpitch);
+    load_tile<D>(Ks, k + kbase, k0, Sk, kpitch);
+    load_tile<D>(Vs, v + kbase, k0, Sk, kpitch);
     __syncthreads();
     scores<D>(Qs, dOs, Ks, Vs, lse_s, delta_s, nullptr, dSs, q0, k0, Sq, Sk, causal, scale);
     __syncthreads();
@@ -342,77 +343,70 @@ __global__ void __launch_bounds__(NT) bwd_dq(const T* __restrict__ q, const T* _
     const int r = q0 + ty + 16 * i;
     if (r >= Sq) continue;
 #pragma unroll
-    for (int j = 0; j < J; ++j) store(dq + qbase + (size_t)r * qpitch + tx + 16 * j, dQ[i][j] * scale);
+    for (int j = 0; j < J; ++j)
+      dq[qbase + (size_t)r * qpitch + tx + 16 * j] = dQ[i][j] * scale;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const T* q, const T* k, const T* v, const T* o, const T* dout, T* dq, T* dk,
-                   T* dv, float* lse, float* delta, int B, int H, int KV, int Sq, int Sk,
-                   int causal, float scale, cudaStream_t stream) {
+template <int D>
+cudaError_t launch(const float* q, const float* k, const float* v, const float* o,
+                   const float* dout, float* dq, float* dk, float* dv, float* lse, float* delta,
+                   int B, int H, int KV, int Sq, int Sk, int causal, float scale,
+                   cudaStream_t stream) {
   constexpr size_t tile = (size_t)BQ * (D + 1), score_tile = (size_t)BQ * PS;
   constexpr size_t stats_bytes = 2 * tile * 4;
   constexpr size_t dkdv_bytes = (4 * tile + 2 * score_tile + 2 * BQ) * 4;
   constexpr size_t dq_bytes = (4 * tile + score_tile + 2 * BQ) * 4;
   const unsigned q_tiles = (Sq + BQ - 1) / BQ, k_tiles = (Sk + BK - 1) / BK;
   if (q_tiles > 65535u || k_tiles > 65535u || H % KV) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(bwd_stats<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(bwd_stats<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)stats_bytes);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(bwd_dkdv<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(bwd_dkdv<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)dkdv_bytes);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(bwd_dq<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(bwd_dq<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)dq_bytes);
   if (err != cudaSuccess) return err;
-  bwd_stats<T, D><<<dim3(B * H, q_tiles), NT, stats_bytes, stream>>>(
+  bwd_stats<D><<<dim3(B * H, q_tiles), NT, stats_bytes, stream>>>(
       q, k, o, dout, lse, delta, H, KV, Sq, Sk, causal, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_dkdv<T, D><<<dim3(B * KV, k_tiles), NT, dkdv_bytes, stream>>>(
+  bwd_dkdv<D><<<dim3(B * KV, k_tiles), NT, dkdv_bytes, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, H, KV, Sq, Sk, causal, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_dq<T, D><<<dim3(B * H, q_tiles), NT, dq_bytes, stream>>>(
+  bwd_dq<D><<<dim3(B * H, q_tiles), NT, dq_bytes, stream>>>(
       q, k, v, dout, lse, delta, dq, H, KV, Sq, Sk, causal, scale);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
-                     const void* dout, void* dq, void* dk, void* dv, float* lse, float* delta,
-                     int B, int H, int KV, int Sq, int Sk, int D, int causal, float scale,
-                     cudaStream_t s) {
-  const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
-          *vt = static_cast<const T*>(v), *ot = static_cast<const T*>(o),
-          *dot = static_cast<const T*>(dout);
-  T *dqt = static_cast<T*>(dq), *dkt = static_cast<T*>(dk), *dvt = static_cast<T*>(dv);
-  switch (D) {
-    case 32: return launch<T, 32>(qt, kt, vt, ot, dot, dqt, dkt, dvt, lse, delta, B, H, KV, Sq, Sk, causal, scale, s);
-    case 64: return launch<T, 64>(qt, kt, vt, ot, dot, dqt, dkt, dvt, lse, delta, B, H, KV, Sq, Sk, causal, scale, s);
-    case 128: return launch<T, 128>(qt, kt, vt, ot, dot, dqt, dkt, dvt, lse, delta, B, H, KV, Sq, Sk, causal, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes: dq, dk, dv from q, k, v, the forward's
-// output o and its gradient dout, all of one type (dtype 0 float32, 1
-// bfloat16); lse and delta are float32 scratch of B H Sq elements each.
-// Returns a cudaError_t; 0 on success.
+// output o and its gradient dout, all float32; lse and delta are float32
+// scratch of B H Sq elements each.  Returns a cudaError_t; 0 on success.
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, void* dq, void* dk,
                                          void* dv, void* lse, void* delta, int B, int H, int KV,
-                                         int Sq, int Sk, int D, int causal, int dtype,
-                                         float scale, void* stream) {
-  float* l = static_cast<float*>(lse);
-  float* dl = static_cast<float*>(delta);
+                                         int Sq, int Sk, int D, int causal, float scale,
+                                         void* stream) {
+  const float *qt = static_cast<const float*>(q), *kt = static_cast<const float*>(k),
+              *vt = static_cast<const float*>(v), *ot = static_cast<const float*>(o),
+              *dot = static_cast<const float*>(dout);
+  float *dqt = static_cast<float*>(dq), *dkt = static_cast<float*>(dk),
+        *dvt = static_cast<float*>(dv), *l = static_cast<float*>(lse),
+        *dl = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, KV, Sq, Sk, D, causal,
-                           scale, s);
-  if (dtype == 1)
-    return dispatch<bf16>(q, k, v, o, dout, dq, dk, dv, l, dl, B, H, KV, Sq, Sk, D, causal,
-                          scale, s);
-  return cudaErrorInvalidValue;
+  switch (D) {
+    case 32:
+      return launch<32>(qt, kt, vt, ot, dot, dqt, dkt, dvt, l, dl, B, H, KV, Sq, Sk, causal,
+                        scale, s);
+    case 64:
+      return launch<64>(qt, kt, vt, ot, dot, dqt, dkt, dvt, l, dl, B, H, KV, Sq, Sk, causal,
+                        scale, s);
+    case 128:
+      return launch<128>(qt, kt, vt, ot, dot, dqt, dkt, dvt, l, dl, B, H, KV, Sq, Sk, causal,
+                        scale, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

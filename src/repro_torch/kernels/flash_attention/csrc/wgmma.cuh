@@ -1,8 +1,10 @@
-// Helpers shared by the two flash kernels that run on Hopper's tensor cores
-// (flash_attention.cu in float32 as 3xTF32, flash_attention_bf16.cu in
-// bfloat16): 16-byte cp.async and its groups, the wgmma fence / commit /
-// wait, the shared-memory matrix descriptor, and ex2.  The wgmma instructions
-// themselves differ by type and stay in each kernel's source.
+// Helpers shared by the flash kernels that run on Hopper's tensor cores
+// (flash_attention.cu in float32 as 3xTF32; flash_attention_bf16.cu and its
+// backward flash_attention_bwd_bf16.cu in bfloat16): 16-byte cp.async and
+// its groups, the wgmma fence / commit / wait, the shared-memory matrix
+// descriptor, and ex2.  The wgmma instructions themselves differ by type:
+// the float32 kernel's stay in its source, the bfloat16 ones are in
+// wgmma_bf16.cuh.
 #pragma once
 
 #include <stdint.h>

@@ -5,10 +5,13 @@ A tensor on the CPU goes to the plain versions (``ref.attention_ref``
 forward, ``ref.attention_bwd_ref`` backward); a tensor on the card launches
 the CUDA kernels of its type or raises: the forward on the tensor cores
 (float32 as three TF32 products: ``csrc/flash_attention.cu``; bfloat16:
-``csrc/flash_attention_bf16.cu``), the backward in
-``csrc/flash_attention_bwd.cu``.  ``flash_attention.launches`` counts the
-forward kernel's launches and ``flash_attention_backward.launches`` the
-backward's, and nothing else.
+``csrc/flash_attention_bf16.cu``), the backward in float32 on the CUDA
+cores (``csrc/flash_attention_bwd.cu``) and in bfloat16 on the tensor cores
+(``csrc/flash_attention_bwd_bf16.cu``), the latter from the log-sum-exp that
+the bfloat16 forward stores when a gradient is wanted.
+``flash_attention.launches`` counts the forward kernel's launches and
+``flash_attention_backward.launches`` the backward's (one per call, either
+type), and nothing else.
 """
 from __future__ import annotations
 
@@ -18,9 +21,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
 
 HEAD_DIMS = (32, 64, 128)
-_ENTRY = {torch.float32: "repro_flash_attention_f32",
-          torch.bfloat16: "repro_flash_attention_bf16"}
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = (torch.float32, torch.bfloat16)
+#: Where its (b, h, query tile) dQ blocks would not fill the card's SMs, the
+#: bfloat16 backward splits each query tile's key range over this many dQ
+#: blocks an SM (float32 partials, summed in a fixed order), at least 2 key
+#: tiles each.
+DQ_BLOCKS_PER_SM = 2
 
 
 def _check(q, k, v, causal: bool):
@@ -40,7 +46,7 @@ def _check(q, k, v, causal: bool):
         if t.device != q.device or t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}; the kernel needs all "
                              f"of q, k, v on one CUDA device")
-        if t.dtype != q.dtype or t.dtype not in _ENTRY:
+        if t.dtype != q.dtype or t.dtype not in DTYPES:
             raise TypeError(f"{name} is {t.dtype}, q {q.dtype}; the kernel "
                             f"takes float32 or bfloat16, the same for all")
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -51,23 +57,46 @@ def _check(q, k, v, causal: bool):
         raise ValueError(f"shape B*H={b * h}, Sq={sq}, Sk={sk} not supported")
 
 
-def _forward(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+def _forward(q, k, v, causal: bool, scale: float, lse=None) -> torch.Tensor:
+    """The forward; ``lse``, a float32 [B,H,Sq] tensor on the card, is
+    filled by the bfloat16 kernel with each row's log-sum-exp."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, sm_scale=scale)
     (b, sq, h, d), (sk, kv) = q.shape, k.shape[1:3]
     o = torch.empty_like(q)
-    err = getattr(_build.library(), _ENTRY[q.dtype])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        b, h, kv, sq, sk, d, int(causal), scale,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        err = lib.repro_flash_attention_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, h, kv, sq, sk, d, int(causal),
+            scale, stream)
+    else:
+        if lse is not None:
+            raise ValueError("the float32 forward kernel does not store the log-sum-exp")
+        err = lib.repro_flash_attention_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            b, h, kv, sq, sk, d, int(causal), scale, stream)
     _build.check(err, "flash_attention")
     _build.count_launch(flash_attention)
     return o
 
 
-def _backward(q, k, v, o, do, causal: bool, scale: float):
+def dq_splits(b: int, h: int, sq: int, sk: int, sms: int) -> int:
+    """Parts the bfloat16 backward cuts each query tile's key range into:
+    1 where its B H ceil(Sq / 64) dQ blocks fill ``sms`` SMs, else enough
+    for DQ_BLOCKS_PER_SM dQ blocks an SM, at least 2 of the ceil(Sk / 64)
+    key tiles each."""
+    blocks, k_tiles = b * h * -(-sq // 64), -(-sk // 64)
+    if blocks >= sms:
+        return 1
+    per = max(2, -(-k_tiles // -(-DQ_BLOCKS_PER_SM * sms // blocks)))
+    return -(-k_tiles // per)
+
+
+def _backward(q, k, v, o, do, causal: bool, scale: float, lse=None):
     if q.device.type == "cpu":
-        return attention_bwd_ref(q, k, v, o, do, causal=causal, sm_scale=scale)
+        return attention_bwd_ref(q, k, v, o, do, causal=causal, sm_scale=scale, lse=lse)
     (b, sq, h, d), (sk, kv) = q.shape, k.shape[1:3]
     for name, t in (("o", o), ("do", do)):
         if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
@@ -75,13 +104,30 @@ def _backward(q, k, v, o, do, causal: bool, scale: float):
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
                              f"{q.dtype} tensor of q's shape {tuple(q.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse = torch.empty(b * h * sq, dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
-    err = _build.library().repro_flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        b, h, kv, sq, sk, d, int(causal), _DTYPE_CODE[q.dtype], scale,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    lib, stream = _build.library(), torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        if (lse is None or lse.shape != (b, h, sq) or lse.dtype != torch.float32
+                or lse.device != q.device or not lse.is_contiguous()):
+            raise ValueError("the bfloat16 backward kernel needs the forward's "
+                             f"log-sum-exp, a contiguous float32 [{b}, {h}, {sq}] tensor "
+                             "on q's device (flash_attention_with_lse)")
+        splits = dq_splits(b, h, sq, sk,
+                           torch.cuda.get_device_properties(q.device).multi_processor_count)
+        stats = torch.empty(2 * b * h * sq, dtype=torch.float32, device=q.device)
+        part = (torch.empty(splits * q.numel(), dtype=torch.float32, device=q.device)
+                if splits > 1 else None)
+        err = lib.repro_flash_attention_bwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            None if part is None else part.data_ptr(), b, h, kv, sq, sk, d, int(causal),
+            splits, scale, stream)
+    else:  # float32 recomputes the log-sum-exp: its forward does not store it
+        lse = torch.empty(b * h * sq, dtype=torch.float32, device=q.device)
+        delta = torch.empty_like(lse)
+        err = lib.repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            b, h, kv, sq, sk, d, int(causal), scale, stream)
     _build.check(err, "flash_attention_backward")
     _build.count_launch(flash_attention_backward)
     return dq, dk, dv
@@ -93,15 +139,19 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        o = _forward(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, o)
+        lse = None
+        if q.device.type == "cuda" and q.dtype == torch.bfloat16 and any(ctx.needs_input_grad):
+            lse = torch.empty(q.shape[0], q.shape[2], q.shape[1], dtype=torch.float32,
+                              device=q.device)
+        o = _forward(q, k, v, causal, scale, lse)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        return (*_backward(q, k, v, o, do.contiguous(), ctx.causal, ctx.scale),
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*_backward(q, k, v, o, do.contiguous(), ctx.causal, ctx.scale, lse),
                 None, None)
 
 
@@ -116,15 +166,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _FlashAttention.apply(q, k, v, causal, scale)
 
 
-def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             o: torch.Tensor, do: torch.Tensor, *,
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              causal: bool = False, sm_scale=None):
-    """(dq, dk, dv) of ``flash_attention(q, k, v)`` = ``o`` for the output
-    gradient ``do`` [B,Sq,H,D]; dk and dv sum over each kv head's group of
-    query heads.  Deterministic on the card (no atomics)."""
+    """(o, lse): ``flash_attention``'s output, without autograd, and each
+    row's float32 log-sum-exp of the scaled, masked scores, [B,H,Sq], as the
+    bfloat16 backward takes it.  On the card the bfloat16 forward kernel
+    stores it in the same launch (the float32 one cannot); on the CPU both
+    come from ``attention_ref``.  Inputs that need a gradient are refused
+    under grad mode on either device (``flash_attention`` differentiates)."""
+    _build.refuse_grad("flash_attention_with_lse", q, k, v)
     _check(q, k, v, causal)
     scale = float(sm_scale) if sm_scale is not None else q.shape[-1] ** -0.5
-    return _backward(q, k, v, o, do, causal, scale)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, sm_scale=scale, return_lse=True)
+    lse = torch.empty(q.shape[0], q.shape[2], q.shape[1], dtype=torch.float32,
+                      device=q.device)
+    return _forward(q, k, v, causal, scale, lse), lse
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             o: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = False, sm_scale=None, lse=None):
+    """(dq, dk, dv) of ``flash_attention(q, k, v)`` = ``o`` for the output
+    gradient ``do`` [B,Sq,H,D]; dk and dv sum over each kv head's group of
+    query heads.  ``lse`` is the forward's log-sum-exp
+    (`flash_attention_with_lse`): the bfloat16 kernel needs it and raises
+    without it, the float32 kernel recomputes it, the CPU uses it where
+    given.  Deterministic on the card (no atomics)."""
+    _check(q, k, v, causal)
+    scale = float(sm_scale) if sm_scale is not None else q.shape[-1] ** -0.5
+    return _backward(q, k, v, o, do, causal, scale, lse)
 
 
 flash_attention.launches = 0

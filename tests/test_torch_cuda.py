@@ -19,7 +19,8 @@ import torch
 from repro_torch.kernels import _build, ddim_step, flash_attention, flash_attention_backward
 from repro_torch.kernels import decode_attention as K
 from repro_torch.kernels.ddim_step import ddim_coefs, ddim_step_ref
-from repro_torch.kernels.flash_attention import attention_bwd_ref, attention_ref
+from repro_torch.kernels.flash_attention import (
+    attention_bwd_ref, attention_ref, flash_attention_with_lse, ops as flash_ops)
 from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_ref
 from repro_torch.models import layers as L
 from repro_torch.models.layers import rms_norm, row_mean
@@ -71,11 +72,26 @@ DECODE_CASES = [
 def test_every_binding_has_a_c_entry_point():
     sources = {p.name for p in _build.sources()}
     assert sources == {"flash_attention.cu", "flash_attention_bf16.cu",
-                       "flash_attention_bwd.cu", "ddim_step.cu", "decode_attention.cu",
-                       "wkv6.cu", "runtime.cu"}
+                       "flash_attention_bwd.cu", "flash_attention_bwd_bf16.cu",
+                       "ddim_step.cu", "decode_attention.cu", "wkv6.cu", "runtime.cu"}
     text = "".join(p.read_text() for p in _build.sources())
     entries = set(re.findall(r'extern "C" [\w\s*]+?\b(repro_\w+)\(', text))
     assert entries == set(_build.SIGNATURES)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,sms,splits", [
+    (4, 16, 256, 256, 132, 1),     # qwen3-1.7b's training layer: 256 blocks
+    (1, 32, 512, 512, 132, 1),     # zamba2-1.2b's shared block
+    (1, 20, 64, 1500, 132, 12),    # whisper's cross-attention: 20 blocks
+    (2, 4, 64, 1537, 132, 13),     # 25 key tiles, 2 a split
+    (1, 8, 17, 3000, 132, 24),     # 47 key tiles, 2 a split
+    (1, 1, 64, 64, 132, 1),        # one key tile: nothing to split
+])
+def test_bf16_backward_splits_dq_only_where_its_blocks_leave_sms_idle(b, h, sq, sk, sms, splits):
+    assert flash_ops.dq_splits(b, h, sq, sk, sms) == splits
+    k_tiles = -(-sk // 64)
+    per = -(-k_tiles // splits)
+    assert -(-k_tiles // per) == splits and (splits == 1 or per >= 2)
 
 
 def test_build_dir_is_ignored_by_git():
@@ -170,9 +186,11 @@ def test_flash_bf16_kernel_at_tile_edges_on_card(cuda, s, causal):
 
 @pytest.mark.gpu
 def test_flash_bf16_kernel_runs_on_the_tensor_cores(cuda):
-    """Both flash kernels, bfloat16 (``flash_fwd_bf16``) and float32 as
-    3xTF32 (``flash_fwd_f32``), hold warpgroup MMAs (HGMMA) in the SASS of
-    every instantiation (D 32, 64, 128), and no other kernel does."""
+    """The flash kernels on the tensor cores, the forward in bfloat16
+    (``flash_fwd_bf16``) and in float32 as 3xTF32 (``flash_fwd_f32``) and
+    the bfloat16 backward (``flash_bwd_bf16_main``), hold warpgroup MMAs
+    (HGMMA) in the SASS of every instantiation (D 32, 64, 128), and no
+    other kernel does."""
     import subprocess
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -180,7 +198,7 @@ def test_flash_bf16_kernel_runs_on_the_tensor_cores(cuda):
     sass = subprocess.run([f"{CUDA_HOME}/bin/cuobjdump", "-sass", str(_build.build())],
                           capture_output=True, text=True, check=True).stdout
     funcs = sass.split("Function : ")[1:]
-    flash = ("flash_fwd_bf16", "flash_fwd_f32")
+    flash = ("flash_fwd_bf16", "flash_fwd_f32", "flash_bwd_bf16_main")
     for kernel in flash:
         inst = [f for f in funcs if kernel in f.splitlines()[0]]
         assert len(inst) == 3, kernel          # D 32, 64, 128
@@ -698,9 +716,11 @@ def test_vae_conv_does_not_depend_on_free_memory_on_card(cuda):
 
 
 #: The backward kernel's cases: every head size, causal and not, GQA,
-#: Sq != Sk, ragged tiles, grids wider than the card, and the smoke's four
+#: Sq != Sk, ragged tiles, grids wider than the card, the smoke's four
 #: (qwen3-1.7b's training layer, zamba2-1.2b's shared block, whisper's
-#: cross-attention, a band of the Wan DiT).
+#: cross-attention, a band of the Wan DiT), two whose bfloat16 dq splits
+#: the key range (13 and 24 parts, the last key tile ragged), and a long
+#: causal one whose dK/dV sum over 128 query tiles.
 FLASH_BWD_CASES = [
     # b, sq, sk, h, kv, d, causal
     (1, 64, 64, 2, 2, 32, False),
@@ -713,16 +733,24 @@ FLASH_BWD_CASES = [
     (1, 512, 512, 32, 32, 64, True),
     (1, 64, 1500, 20, 20, 64, False),
     (1, 2048, 2048, 40, 40, 128, False),
+    (2, 64, 1537, 4, 4, 128, False),
+    (1, 17, 3000, 8, 2, 64, False),
+    (1, 4096, 4096, 16, 8, 128, True),
 ]
 
 
 def _flash_bwd_inputs(cuda, seed, b, sq, sk, h, kv, d, causal, dtype):
+    """q, k, v, o, do and the forward's log-sum-exp (None in float32, whose
+    forward does not store it and whose backward recomputes it)."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
     q, do = (torch.randn(b, sq, h, d, generator=gen, device=cuda).to(dtype) for _ in range(2))
     k, v = (torch.randn(b, sk, kv, d, generator=gen, device=cuda).to(dtype) for _ in range(2))
-    with torch.no_grad():
-        o = flash_attention(q, k, v, causal=causal)
-    return q, k, v, o, do
+    if dtype == torch.bfloat16:
+        o, lse = flash_attention_with_lse(q, k, v, causal=causal)
+    else:
+        with torch.no_grad():
+            o, lse = flash_attention(q, k, v, causal=causal), None
+    return q, k, v, o, do, lse
 
 
 @pytest.mark.gpu
@@ -731,10 +759,12 @@ def _flash_bwd_inputs(cuda, seed, b, sq, sk, h, kv, d, causal, dtype):
 def test_flash_backward_kernel_matches_plain_on_card(cuda, dtype, b, sq, sk, h, kv, d, causal):
     """dq, dk, dv of the backward kernel against ``attention_bwd_ref`` on the
     same inputs (the forward kernel's o): float32 to 2e-5, bfloat16 within
-    one bfloat16 step, element by element."""
-    q, k, v, o, do = _flash_bwd_inputs(cuda, b * sq + d, b, sq, sk, h, kv, d, causal, dtype)
+    one bfloat16 step, element by element; bfloat16 from the forward's
+    log-sum-exp."""
+    q, k, v, o, do, lse = _flash_bwd_inputs(cuda, b * sq + d, b, sq, sk, h, kv, d, causal,
+                                            dtype)
     launches = flash_attention_backward.launches
-    ours = flash_attention_backward(q, k, v, o, do, causal=causal)
+    ours = flash_attention_backward(q, k, v, o, do, causal=causal, lse=lse)
     torch.cuda.synchronize()
     assert flash_attention_backward.launches == launches + 1
     ref = attention_bwd_ref(q, k, v, o, do, causal=causal)
@@ -744,21 +774,79 @@ def test_flash_backward_kernel_matches_plain_on_card(cuda, dtype, b, sq, sk, h, 
 
 
 @pytest.mark.gpu
-def test_flash_backward_kernel_is_deterministic_on_card(cuda):
-    q, k, v, o, do = _flash_bwd_inputs(cuda, 7, 2, 256, 256, 16, 8, 128, True,
-                                       torch.bfloat16)
-    first = flash_attention_backward(q, k, v, o, do, causal=True)
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", [
+    (2, 256, 256, 16, 8, 128, True),
+    (1, 17, 3000, 8, 2, 64, False),   # dq split in 24 parts
+])
+def test_flash_backward_kernel_is_deterministic_on_card(cuda, b, sq, sk, h, kv, d, causal):
+    q, k, v, o, do, lse = _flash_bwd_inputs(cuda, 7, b, sq, sk, h, kv, d, causal,
+                                            torch.bfloat16)
+    first = flash_attention_backward(q, k, v, o, do, causal=causal, lse=lse)
     for _ in range(3):
-        for a, b in zip(first, flash_attention_backward(q, k, v, o, do, causal=True)):
+        again = flash_attention_backward(q, k, v, o, do, causal=causal, lse=lse)
+        for a, b in zip(first, again):
             assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_bf16_flash_backward_needs_the_forwards_lse_on_card(cuda):
+    q, k, v, o, do, lse = _flash_bwd_inputs(cuda, 5, 1, 64, 64, 2, 2, 64, True,
+                                            torch.bfloat16)
+    launches = flash_attention_backward.launches
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        flash_attention_backward(q, k, v, o, do, causal=True)
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        flash_attention_backward(q, k, v, o, do, causal=True, lse=lse[:, :, :32])
+    assert flash_attention_backward.launches == launches
+
+
+@pytest.mark.gpu
+def test_flash_attention_with_lse_refuses_a_gradient_on_card(cuda):
+    """Under grad mode ``flash_attention_with_lse`` refuses inputs that need
+    a gradient before it launches (its o has no ``grad_fn``); without grad
+    it launches once."""
+    q, k, v = (torch.randn(1, 64, 2, 64, device=cuda).bfloat16().requires_grad_()
+               for _ in range(3))
+    launches = flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        flash_attention_with_lse(q, k, v, causal=True)
+    assert flash_attention.launches == launches
+    with torch.no_grad():
+        o, lse = flash_attention_with_lse(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
+    assert o.grad_fn is None and lse.shape == (1, 2, 64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", FLASH_CASES + [(4, 256, 256, 16, 8, 128, True)])
+def test_bf16_forward_stores_the_lse_without_changing_o_on_card(cuda, b, sq, sk, h, kv, d,
+                                                                causal):
+    """The bfloat16 forward with the log-sum-exp buffer writes the same bits
+    of o as without it (serving passes none), one launch each, and its
+    log-sum-exp matches the plain version's to float32 2e-5."""
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+               .bfloat16() for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+    launches = flash_attention.launches
+    with torch.no_grad():
+        plain_o = flash_attention(q, k, v, causal=causal)
+    o, lse = flash_attention_with_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 2
+    assert torch.equal(o, plain_o)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    _, ref = attention_ref(q, k, v, causal=causal, return_lse=True)
+    torch.testing.assert_close(lse, ref, atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_differentiates_through_the_backward_kernel_on_card(cuda, dtype):
     """autograd through ``flash_attention`` on the card: one forward launch,
-    one backward launch, and exactly the backward kernel's gradients."""
-    q, k, v, o, do = _flash_bwd_inputs(cuda, 11, 2, 100, 100, 8, 2, 64, True, dtype)
+    one backward launch, and exactly the backward kernel's gradients (in
+    bfloat16 from the log-sum-exp the forward stored)."""
+    q, k, v, o, do, lse = _flash_bwd_inputs(cuda, 11, 2, 100, 100, 8, 2, 64, True, dtype)
     qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
     fwd, bwd = flash_attention.launches, flash_attention_backward.launches
     out = flash_attention(qq, kk, vv, causal=True)
@@ -766,7 +854,7 @@ def test_flash_attention_differentiates_through_the_backward_kernel_on_card(cuda
     torch.cuda.synchronize()
     assert (flash_attention.launches, flash_attention_backward.launches) == (fwd + 1, bwd + 1)
     assert torch.equal(out, o)
-    for a, b in zip(grads, flash_attention_backward(q, k, v, o, do, causal=True)):
+    for a, b in zip(grads, flash_attention_backward(q, k, v, o, do, causal=True, lse=lse)):
         assert torch.equal(a, b)
 
 

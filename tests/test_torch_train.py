@@ -44,7 +44,8 @@ from repro_torch.configs import get_config
 from repro_torch.configs.wan_i2v import SMALL
 from repro_torch.convert import tensors_from_numpy, to_port_layout
 from repro_torch.kernels.flash_attention import (
-    attention_bwd_ref, attention_ref, flash_attention)
+    attention_bwd_ref, attention_ref, flash_attention, flash_attention_backward,
+    flash_attention_with_lse)
 from repro_torch.launch import train as launcher
 from repro_torch.models import layers, registry
 from repro_torch.models.aigc import dit, vae
@@ -151,6 +152,73 @@ def test_attention_bwd_ref_matches_jax_grad(case):
     qq, kk, vv = (x.clone().requires_grad_() for x in (tq, tk, tv))
     auto = torch.autograd.grad(attention_ref(qq, kk, vv, causal=causal), (qq, kk, vv), tdo)
     assert_grads([x.numpy() for x in ours], [x.numpy() for x in auto], ["dq", "dk", "dv"])
+
+
+def _attn_inputs(case):
+    b, sq, sk, h, kv, d, causal = ATTN_CASES[case]
+    rng = np.random.default_rng(3)
+    q, do = (rng.standard_normal((b, sq, h, d)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((b, sk, kv, d)).astype(np.float32) for _ in range(2))
+    return q, k, v, do, causal
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_attention_ref_lse_matches_jax_logsumexp(case):
+    """The log-sum-exp ``attention_ref`` returns (what the bfloat16 forward
+    kernel stores) against ``jax.nn.logsumexp`` of the reference attention's
+    scaled, masked scores, formed as ``attention_full`` forms them; the
+    output is unchanged by asking for it."""
+    q, k, v, _, causal = _attn_inputs(case)
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    qg = jnp.asarray(q).reshape(b, sq, kv, h // kv, d) * (d ** -0.5)
+    scores = jnp.einsum("bsngd,btnd->bngst", qg, jnp.asarray(k)).astype(jnp.float32)
+    if causal:
+        mask = jnp.arange(sq)[:, None] >= jnp.arange(sk)[None, :]
+        scores = jnp.where(mask[None, None, None], scores, jlayers.NEG_INF)
+    ref = np.asarray(jax.nn.logsumexp(scores, axis=-1)).reshape(b, h, sq)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    o, lse = attention_ref(tq, tk, tv, causal=causal, return_lse=True)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), ref, rtol=2e-5, atol=2e-5)
+    assert torch.equal(o, attention_ref(tq, tk, tv, causal=causal))
+    o2, lse2 = flash_attention_with_lse(tq, tk, tv, causal=causal)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+
+
+def test_flash_attention_with_lse_refuses_a_gradient():
+    """``flash_attention_with_lse`` works outside autograd: under grad mode an
+    input that needs a gradient is refused (as on the card, where the kernel
+    fills o through ctypes with no ``grad_fn``); without grad it answers."""
+    q, k, v, _, causal = _attn_inputs(sorted(ATTN_CASES)[0])
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        flash_attention_with_lse(tq, tk, tv, causal=causal)
+    with torch.no_grad():
+        o, lse = flash_attention_with_lse(tq, tk, tv, causal=causal)
+    assert o.grad_fn is None and lse.grad_fn is None
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_attention_bwd_ref_from_the_forwards_lse_matches_jax_grad(case):
+    """``attention_bwd_ref`` given the forward's log-sum-exp (P = exp(s -
+    lse), as the bfloat16 backward kernel takes it) against ``jax.vjp`` of
+    the reference's plain attention, and against its own recompute; the
+    wrapper's CPU path with ``lse`` is this function."""
+    q, k, v, do, causal = _attn_inputs(case)
+    _, vjp = jax.vjp(lambda q_, k_, v_: jlayers.attention_full(
+        q_, k_, v_, causal=causal, use_pallas="off"), *map(jnp.asarray, (q, k, v)))
+    ref = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = attention_ref(tq, tk, tv, causal=causal, return_lse=True)
+    ours = attention_bwd_ref(tq, tk, tv, o, tdo, causal=causal, lse=lse)
+    assert_grads([x.numpy() for x in ours], ref, ["dq", "dk", "dv"])
+    recomputed = attention_bwd_ref(tq, tk, tv, o, tdo, causal=causal)
+    for a, r in zip(ours, recomputed):
+        torch.testing.assert_close(a, r, rtol=2e-5, atol=2e-6)
+    through = flash_attention_backward(tq, tk, tv, o, tdo, causal=causal, lse=lse)
+    for a, r in zip(through, ours):
+        assert torch.equal(a, r)
 
 
 # ------------------------------------------------------------ cross entropy
