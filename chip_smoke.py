@@ -17,7 +17,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    from ptxas) and the DDIM step at the Wan I2V ``PORT`` profile (full
    widths), plus a small causal GQA case, a ragged case and the float32
    ``100m`` training preset's causal GQA shape (B 4, S 256), each float32
-   flash case timed beside SDPA; flash-decode (its TMA bulk copies, UBLKCP,
+   flash case timed beside SDPA, and at ``dit_self`` and ``train_100m`` with
+   and without the log-sum-exp store that training asks of it; flash-decode (its TMA bulk copies, UBLKCP,
    from the SASS, its registers and spills from ptxas) over a bfloat16 and
    an int8 cache in both layouts at B 8, KV 8, G 2, D 128, S 32768 with a
    mixed per-row index and a full-cache scalar index, and at the served
@@ -91,17 +92,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    launches, frames equal to ``WanI2VPipeline.generate``, latents equal to
    the pipeline's, and tokens equal to ``ServingEngine.generate``.
 5. Training (``--only train`` runs set-up and this phase alone): the flash
-   backward kernels' builds (``flash_attention_bwd_bf16.cu`` on the tensor
-   cores: each instantiation's HGMMA count, registers and spills, failing at
-   0 HGMMA or a spill; ``flash_attention_bwd.cu``'s 9 float32
-   instantiations on the CUDA cores: their FFMA counts) and the kernels
-   against ``attention_bwd_ref`` at qwen3-1.7b's training shape,
+   backward kernels' builds (``flash_attention_bwd_bf16.cu`` and, as
+   3xTF32, ``flash_attention_bwd.cu``, both on the tensor cores: each
+   instantiation's HGMMA count, registers and spills, failing at 0 HGMMA or
+   a spill) and the kernels, from the log-sum-exp the forward kernel
+   stores, against ``attention_bwd_ref`` at qwen3-1.7b's training shape,
    zamba2-1.2b's shared block, whisper's cross-attention, qwen3-1.7b's heads
-   at 4096 causal tokens (in bfloat16, from the log-sum-exp the forward
-   kernel stores, each with its distance and bias from the float32
-   gradient in bfloat16 steps), a float32 band of the Wan DiT and the
-   float32 ``100m`` preset's shape, each timed beside the plain version and
-   SDPA's backward (``torch.profiler``) with its bound, and the bfloat16 forward at
+   at 4096 causal tokens (in bfloat16, each with its distance and bias from
+   the float32 gradient in bfloat16 steps), a float32 band of the Wan DiT,
+   the float32 ``100m`` preset's shape and the DiT's whole float32
+   self-attention at 2 of its heads, each timed beside the plain version and
+   SDPA's backward (``torch.profiler``) with its bound and a call's device
+   time by kernel, and the bfloat16 forward at
    qwen3-1.7b's training shape timed with and without its log-sum-exp
    store; one loss and gradient of qwen3-1.7b at full width and 2 layers
    through the flash kernels against the same with the attention's forward
@@ -171,6 +173,29 @@ SERVE_FRAME_TOL = 1e-4         # served vs generate: the same ops on one card
 SERVE_LATENT_RTOL = 1e-4       # served vs the pipeline, of the largest latent
 SMALL_LATENT_RTOL = 1e-4       # card vs CPU, relative to the largest latent
 SMALL_FRAME_TOL = 2e-3         # card vs CPU frames (tanh output, |f| <= 1)
+
+
+def flash_f32_cases(port) -> list:
+    """The float32 flash forward's cases: the Wan I2V ``port`` profile's
+    attentions (full widths), a small causal GQA case, a ragged case and
+    the launcher's float32 ``100m`` preset at the smoke's B 4, S 256:
+    (name, (B, Sq, Sk, H, KV, D), causal, repetitions)."""
+    t_dim, t_heads = port.text_d_model // port.text_heads, port.text_heads
+    d_dim, d_heads = port.dit_d_model // port.dit_heads, port.dit_heads
+    n, t_len = port.video_tokens, port.text_len
+    return [
+        ("text_self", (1, t_len, t_len, t_heads, t_heads, t_dim), False, 10),
+        ("dit_self", (1, n, n, d_heads, d_heads, d_dim), False, 3),
+        ("dit_cross", (1, n, t_len, d_heads, d_heads, d_dim), False, 5),
+        ("causal_gqa", (2, 300, 300, 8, 2, 64), True, 10),
+        ("ragged", (1, 1000, 777, 4, 4, 128), False, 10),
+        ("train_100m", (4, 256, 256, 8, 4, 64), True, 10),
+    ]
+
+
+#: The float32 forward cases timed with and without the log-sum-exp store
+#: that training asks of it (`lse_store_cost`).
+F32_LSE_STORE_CASES = ("dit_self", "train_100m")
 
 
 def fail(msg: str) -> None:
@@ -365,22 +390,10 @@ def main(argv) -> int:
                          default=str))
         return 0
 
-    t_dim, t_heads = PORT.text_d_model // PORT.text_heads, PORT.text_heads
-    d_dim, d_heads = PORT.dit_d_model // PORT.dit_heads, PORT.dit_heads
-    n, t_len = PORT.video_tokens, PORT.text_len
-    flash_cases = [
-        # name, (B, Sq, Sk, H, KV, D), causal, repetitions
-        ("text_self", (1, t_len, t_len, t_heads, t_heads, t_dim), False, 10),
-        ("dit_self", (1, n, n, d_heads, d_heads, d_dim), False, 3),
-        ("dit_cross", (1, n, t_len, d_heads, d_heads, d_dim), False, 5),
-        ("causal_gqa", (2, 300, 300, 8, 2, 64), True, 10),
-        ("ragged", (1, 1000, 777, 4, 4, 128), False, 10),
-        # the launcher's float32 100m preset at the smoke's B 4, S 256
-        ("train_100m", (4, 256, 256, 8, 4, 64), True, 10),
-    ]
+    n = PORT.video_tokens
     flash_hgmma = flash_build_report(lib_path, "flash_fwd_f32")
     flash_rows = []
-    for name, (b, sq, sk, h, kv, d), causal, reps in flash_cases:
+    for name, (b, sq, sk, h, kv, d), causal, reps in flash_f32_cases(PORT):
         q, k, v = randn(b, sq, h, d), randn(b, sk, kv, d), randn(b, sk, kv, d)
         out = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -424,6 +437,12 @@ def main(argv) -> int:
               f"fma_bound_ms={fma_bound_ms:.4f}")
         check(use <= 1.0, f"flash {name}: max_err {err}, {use} of the f32 limit "
                           f"|a-b| <= {F32_RTOL} |b| + {F32_ATOL}")
+        if name in F32_LSE_STORE_CASES:
+            row["lse_store"] = c = lse_store_cost(torch, q, k, v, causal)
+            print(f"flash fwd {name} f32 causal={causal}: without the log-sum-exp store "
+                  f"ms={c['ms_without']:.4f}, with it ms={c['ms_with']:.4f} "
+                  f"({c['cost']:+.1%}; {c['timed_by']}); o equal bit for bit, lse "
+                  f"{c['lse_limit_use']:.3f} of its limit 2e-5 (1 + |b|)")
         del q, k, v, sets
 
     pd = PORT.patch ** 2 * PORT.vae_latent_ch
@@ -668,10 +687,10 @@ def main(argv) -> int:
     # takes by autodiff of its plain attention, which it trains with
     bf16_rows = [r for r in train["rows"] if r["dtype"] == "bfloat16"]
     f32_rows = [r for r in train["rows"] if r["dtype"] == "float32"]
-    for name, src, rows, at, run in (
-            ("flash_attention_backward_bf16", "flash_attention_bwd_bf16.cu", bf16_rows,
+    for name, src, dt, rows, at, run in (
+            ("flash_attention_backward_bf16", "flash_attention_bwd_bf16.cu", "bf16", bf16_rows,
              "qwen3_train_4x256", train["run"]),
-            ("flash_attention_backward", "flash_attention_bwd.cu", f32_rows,
+            ("flash_attention_backward", "flash_attention_bwd.cu", "f32", f32_rows,
              "qwen3_100m_4x256", train["run_f32"])):
         main = next(r for r in rows if r["shape"] == at)
         kernels.append(dict(
@@ -682,7 +701,7 @@ def main(argv) -> int:
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"], at=at,
-            fma_bound_ms=main["fma_bound_ms"], build=train["build"], shapes=rows,
+            fma_bound_ms=main["fma_bound_ms"], build=train["build"][dt], shapes=rows,
             train=run, **({"grad_check": train["grad_check"]}
                           if run is train["run"] else {})))
     print(f"total {time.perf_counter() - t_start:.1f}s on {card}")
@@ -1740,7 +1759,9 @@ def whisper_generate_phase(torch, np, dev) -> dict:
 #: float32 self-attention (40 heads of 128, 2048 of its 18,900 tokens),
 #: standing in for ``diffusion_loss``'s gradient; the launcher's float32
 #: ``100m`` preset at the smoke's B 4, S 256 (8 heads of 64 over 4), the
-#: float32 kernel's shape in `train_run` (`TRAIN_F32_ARGS`).
+#: float32 kernel's shape in `train_run` (`TRAIN_F32_ARGS`); the DiT's whole
+#: self-attention, all 18,900 tokens, at 2 of its 40 heads (the plain
+#: version chunks its query rows, so it fits).
 TRAIN_BWD_CASES = [
     ("qwen3_train_4x256", (4, 256, 256, 16, 8, 128), True, "bfloat16", 10),
     ("zamba2_train_512", (1, 512, 512, 32, 32, 64), True, "bfloat16", 10),
@@ -1748,6 +1769,7 @@ TRAIN_BWD_CASES = [
     ("qwen3_long_4096", (1, 4096, 4096, 16, 8, 128), True, "bfloat16", 3),
     ("dit_band_2048", (1, 2048, 2048, 40, 40, 128), False, "float32", 3),
     ("qwen3_100m_4x256", (4, 256, 256, 8, 4, 64), True, "float32", 10),
+    ("dit_self_18900_2h", (1, 18900, 18900, 2, 2, 128), False, "float32", 3),
 ]
 #: The full-width gradient check: qwen3-1.7b at 2 of its 28 layers, one
 #: loss and gradient with the flash kernels against the same with the
@@ -1778,44 +1800,36 @@ TRAIN_ARGS = ["--arch", "qwen3-1.7b", "--preset", "full", "--steps", "8",
 
 
 def flash_bwd_build_report(lib_path) -> dict:
-    """The backward kernels' builds.  bfloat16 (``flash_attention_bwd_bf16.cu``):
-    the 3 instantiations of its kernel on the tensor cores (dK, dV and dQ
-    blocks in one launch, at three head sizes), each with its warpgroup MMAs
-    (HGMMA) in the SASS, its registers and spills; fails at 0 HGMMA or at a
-    spill, also of its pre-pass and combine.  float32 (``flash_attention_bwd.cu``): its 9
-    instantiations (three kernels, three head sizes) with their float32
-    FMAs (FFMA): it runs on the CUDA cores."""
+    """The backward kernels' builds, bfloat16 (``flash_attention_bwd_bf16.cu``)
+    and float32 (``flash_attention_bwd.cu``, 3xTF32): the 3 instantiations
+    of each one's main kernel on the tensor cores (dK, dV and dQ blocks in
+    one launch, at three head sizes), each with its warpgroup MMAs (HGMMA)
+    in the SASS, its registers and spills; fails at 0 HGMMA in a main
+    kernel or at a spill, also of its pre-pass and combine."""
     import re
 
-    f32, bf16 = {}, {}
-    for name, r in sass_report(lib_path, "bwd_", "FFMA").items():
-        m = re.search(r"\d(bwd_(?:stats|dkdv|dq))ILi(\d+)E", name)
-        if m and "bf16" not in m.group(1):
-            f32[f"{m.group(1)}<float, {m.group(2)}>"] = r
-    for name, r in sass_report(lib_path, "flash_bwd_bf16", "HGMMA").items():
-        m = re.search(r"\d(flash_bwd_bf16_[a-z]+)(?:ILi(\d+)E)?", name)
-        bf16[m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")] = r
-    for label, r in sorted(f32.items()):
-        print(f"flash bwd f32 build: {label}: FFMA {r['count']}, registers "
-              f"{r.get('registers')}, spill stores/loads {r.get('spill')} bytes")
-    check(len(f32) == 9, f"flash bwd f32: {len(f32)} instantiations, expected 9")
-    wgmma = 0
-    for label, r in sorted(bf16.items()):
-        on_tc = "_main<" in label
-        wgmma += on_tc
-        print(f"flash bwd bf16 build: {label}: HGMMA {r['count']}, registers "
-              f"{r.get('registers')}, spill stores/loads {r.get('spill')} bytes; "
-              f"ptxas on wgmma: {r.get('wgmma_notes', 'nothing')}")
-        check(not on_tc or r["count"] > 0, f"flash bwd bf16: no HGMMA in {label}")
-        check(r.get("spill", (0, 0)) == (0, 0), f"flash bwd bf16: {label} spills")
-    check(wgmma == 3, f"flash bwd bf16: {wgmma} instantiations on the tensor cores, "
-                      f"expected 3")
-    hgmma = sum(r["count"] for r in bf16.values())
-    print(f"flash bwd bf16 build: {hgmma} HGMMA instructions in {wgmma} instantiations")
-    return {"f32_ffma": sum(r["count"] for r in f32.values()),
-            "f32_spills": sum(sum(r.get("spill", (0, 0))) for r in f32.values()),
-            "bf16_hgmma": hgmma,
-            "bf16_registers": {k: r.get("registers") for k, r in bf16.items()}}
+    out = {}
+    for dt in ("bf16", "f32"):
+        found = {}
+        for name, r in sass_report(lib_path, f"flash_bwd_{dt}", "HGMMA").items():
+            m = re.search(rf"\d(flash_bwd_{dt}_[a-z]+)(?:ILi(\d+)E)?", name)
+            found[m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")] = r
+        wgmma = 0
+        for label, r in sorted(found.items()):
+            on_tc = "_main<" in label
+            wgmma += on_tc
+            print(f"flash bwd {dt} build: {label}: HGMMA {r['count']}, registers "
+                  f"{r.get('registers')}, spill stores/loads {r.get('spill')} bytes; "
+                  f"ptxas on wgmma: {r.get('wgmma_notes', 'nothing')}")
+            check(not on_tc or r["count"] > 0, f"flash bwd {dt}: no HGMMA in {label}")
+            check(r.get("spill", (0, 0)) == (0, 0), f"flash bwd {dt}: {label} spills")
+        check(wgmma == 3, f"flash bwd {dt}: {wgmma} instantiations on the tensor cores, "
+                          f"expected 3")
+        hgmma = sum(r["count"] for r in found.values())
+        print(f"flash bwd {dt} build: {hgmma} HGMMA instructions in {wgmma} instantiations")
+        out[dt] = {"hgmma": hgmma,
+                   "registers": {k: r.get("registers") for k, r in found.items()}}
+    return out
 
 
 def sdpa_backward_ms(torch, F, q, k, v, do, causal: bool, reps: int) -> float:
@@ -1895,24 +1909,36 @@ def bf16_steps(torch, ours, exact) -> dict:
 
 
 def lse_store_cost(torch, q, k, v, causal: bool) -> dict:
-    """The bfloat16 forward at these inputs with and without its log-sum-exp
-    store: the same bits of o, and device ms of each, in turns (without,
-    with, with, without)."""
+    """The forward (either type) at these inputs with and without its
+    log-sum-exp store: the same bits of o, the stored lse's largest share
+    of the limit 2e-5 (1 + |b|) against ``attention_ref``'s, and the time of
+    each, in turns (without, with, with, without): device ms
+    (`device_ms`) where a call takes under DEVICE_TIME_BELOW_MS, else the
+    median of 3 single calls between events."""
     from repro_torch.kernels import flash_attention
-    from repro_torch.kernels.flash_attention import flash_attention_with_lse
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention_with_lse
 
     with torch.no_grad():
         o = flash_attention(q, k, v, causal=causal)
-    o_lse, _ = flash_attention_with_lse(q, k, v, causal=causal)
+    o_lse, lse = flash_attention_with_lse(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    check(torch.equal(o, o_lse), "flash bf16: o differs with the log-sum-exp store")
+    check(torch.equal(o, o_lse), "flash: o differs with the log-sum-exp store")
+    del o, o_lse
+    _, ref = attention_ref(q, k, v, causal=causal, return_lse=True)
+    _, use = limit_errs(lse, ref, 2e-5, 2e-5)
+    check(use <= 1.0, f"flash: the stored log-sum-exp is {use} of its limit")
+    del lse, ref
     sets = rotation((q, k, v))
     off = [lambda c=c: flash_attention(*c, causal=causal) for c in sets]
     on = [lambda c=c: flash_attention_with_lse(*c, causal=causal) for c in sets]
     with torch.no_grad():
-        t = [device_ms(torch, f) for f in (off, on, on, off)]
+        fast = statistics.median(cuda_times(torch, off[0], 3)) < DEVICE_TIME_BELOW_MS
+        time_it = ((lambda f: device_ms(torch, f)) if fast
+                   else (lambda f: statistics.median(cuda_times(torch, f[0], 3))))
+        t = [time_it(f) for f in (off, on, on, off)]
     ms_off, ms_on = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-    return dict(ms_without=ms_off, ms_with=ms_on, cost=ms_on / ms_off - 1, runs_ms=t)
+    return dict(ms_without=ms_off, ms_with=ms_on, cost=ms_on / ms_off - 1, runs_ms=t,
+                timed_by="device_ms" if fast else "single calls", lse_limit_use=use)
 
 
 def flash_bwd_kernel_phase(torch, F, dev, randn) -> list:
@@ -1923,10 +1949,11 @@ def flash_bwd_kernel_phase(torch, F, dev, randn) -> list:
     plain version's and SDPA's backward, and their bound: 10 Sq Sk D flops a
     head (half of it causal) at the bfloat16 tensor-core rate, or for
     float32 as three TF32 products (the FMA bound beside it), against the
-    bytes of q, k, v, o, dO, dq, dk and dv read or written once.  At
-    qwen3-1.7b's training shape, the forward's time with and without the
-    log-sum-exp store (`lse_store_cost`)."""
-    from repro_torch.kernels import flash_attention, flash_attention_backward
+    bytes of q, k, v, o, dO, dq, dk and dv read or written once; a call's
+    device ms by kernel (pre-pass, main, combine).  At qwen3-1.7b's training
+    shape, the bfloat16 forward's time with and without the log-sum-exp
+    store (`lse_store_cost`)."""
+    from repro_torch.kernels import flash_attention_backward
     from repro_torch.kernels.flash_attention import attention_bwd_ref, flash_attention_with_lse
 
     rows = []
@@ -1934,11 +1961,7 @@ def flash_bwd_kernel_phase(torch, F, dev, randn) -> list:
         dtype = getattr(torch, dt)
         q, do = (randn(b, sq, h, d).to(dtype) for _ in range(2))
         k, v = (randn(b, sk, kv, d).to(dtype) for _ in range(2))
-        if dt == "bfloat16":
-            o, lse = flash_attention_with_lse(q, k, v, causal=causal)
-        else:
-            with torch.no_grad():
-                o, lse = flash_attention(q, k, v, causal=causal), None
+        o, lse = flash_attention_with_lse(q, k, v, causal=causal)
         ours = flash_attention_backward(q, k, v, o, do, causal=causal, lse=lse)
         torch.cuda.synchronize()
         ref = attention_bwd_ref(q, k, v, o, do, causal=causal)
@@ -1949,10 +1972,9 @@ def flash_bwd_kernel_phase(torch, F, dev, randn) -> list:
             *(x.float() for x in (q, k, v, o, do)), causal=causal))
             if dt == "bfloat16" else None)
         del ours, ref
-        sets = rotation((q, k, v, o, do) + ((lse,) if lse is not None else ()))
+        sets = rotation((q, k, v, o, do, lse))
         ms, plain_ms, call_ms, plain_call_ms = kernel_and_plain_ms(
-            torch, [lambda c=c: flash_attention_backward(*c[:5], causal=causal,
-                                                         lse=c[5] if len(c) > 5 else None)
+            torch, [lambda c=c: flash_attention_backward(*c[:5], causal=causal, lse=c[5])
                     for c in sets],
             [lambda c=c: attention_bwd_ref(*c[:5], causal=causal) for c in sets], reps)
         library_ms = sdpa_backward_ms(torch, F, q, k, v, do, causal, reps)
@@ -1983,17 +2005,18 @@ def flash_bwd_kernel_phase(torch, F, dev, randn) -> list:
             print(f"flash bwd {name} from the float32 gradient, in bfloat16 steps: "
                   + ", ".join(f"{t} at most {m:.3f}, mean along its sign {b:+.4f}"
                               for t, (m, b) in steps.items()))
-            row["kernels_ms"] = split = kernel_split_ms(
-                torch, lambda: flash_attention_backward(q, k, v, o, do, causal=causal, lse=lse),
-                reps, "flash_bwd_bf16_")
-            print(f"flash bwd {name} by kernel (torch.profiler, device ms a call): "
-                  + ", ".join(f"{kk} {vv:.4f}" for kk, vv in split.items())
-                  + f"; sum {sum(split.values()):.4f}")
+        prefix = "flash_bwd_bf16_" if dt == "bfloat16" else "flash_bwd_f32_"
+        row["kernels_ms"] = split = kernel_split_ms(
+            torch, lambda: flash_attention_backward(q, k, v, o, do, causal=causal, lse=lse),
+            reps, prefix)
+        print(f"flash bwd {name} by kernel (torch.profiler, device ms a call): "
+              + ", ".join(f"{kk} {vv:.4f}" for kk, vv in split.items())
+              + f"; sum {sum(split.values()):.4f}")
         if name == "qwen3_train_4x256":
             row["forward_lse_store"] = c = lse_store_cost(torch, q, k, v, causal)
             print(f"flash fwd {name} bf16 causal={causal}: without the log-sum-exp store "
                   f"ms={c['ms_without']:.4f}, with it ms={c['ms_with']:.4f} "
-                  f"({c['cost']:+.1%}); o equal bit for bit")
+                  f"({c['cost']:+.1%}; {c['timed_by']}); o equal bit for bit")
         del q, k, v, o, do, lse, sets
     return rows
 

@@ -31,9 +31,9 @@ CFLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 #: C signatures of the entry points, (argtypes, restype).
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {
-    "repro_flash_attention_f32": ([_P, _P, _P, _P] + [_I] * 7 + [_F, _P], _I),
+    "repro_flash_attention_f32": ([_P] * 5 + [_I] * 7 + [_F, _P], _I),
     "repro_flash_attention_bf16": ([_P] * 5 + [_I] * 7 + [_F, _P], _I),
-    "repro_flash_attention_bwd": ([_P] * 10 + [_I] * 7 + [_F, _P], _I),
+    "repro_flash_attention_bwd": ([_P] * 11 + [_I] * 8 + [_F, _P], _I),
     "repro_flash_attention_bwd_bf16": ([_P] * 11 + [_I] * 8 + [_F, _P], _I),
     "repro_decode_attention": ([_P] * 7 + [_I] * 5 + [_L] * 3 + [_I, _F, _P], _I),
     "repro_decode_attention_int8": ([_P] * 9 + [_I] * 5 + [_L] * 3 + [_I, _F, _P], _I),

@@ -11,7 +11,12 @@
 // Layout: q and o are [B, Sq, H, D], k and v are [B, Sk, KV, D], contiguous
 // float32, D in {32, 64, 128}; the kernel reads that layout directly and the
 // wrapper pads nothing.  Rows past Sq are loaded as zeros and never stored;
-// keys past Sk are loaded as zeros and masked to -inf.
+// keys past Sk are loaded as zeros and masked to -inf.  Given a float32
+// [B, H, Sq] lse buffer (training), the kernel also stores each row's
+// log-sum-exp of the scaled, masked scores in natural-log units, (m log2 e +
+// log2 l) ln 2, which flash_attention_bwd.cu reads instead of recomputing
+// it; with a null pointer (serving) it does the same work and writes the same
+// bits of o.
 //
 // What bounds it on an H100: operations.  Attention does 4 D flops for each
 // (query, key) pair of a head on 4 D values per row, far above the ~20 flops
@@ -74,7 +79,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "wgmma.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
@@ -84,150 +89,10 @@ constexpr int NT = 128;    // threads per block: one warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
 static_assert(BQ == BK, "the Q, K and V^T tiles share one size: [64, D], [D, 64]");
 
-// The lo part of the split: x less what the tensor core reads of it.
-__device__ __forceinline__ float tf32_lo(float x) {
-  return x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);
-}
-
-__device__ __forceinline__ float4 tf32_lo(float4 x) {
-  return make_float4(tf32_lo(x.x), tf32_lo(x.y), tf32_lo(x.z), tf32_lo(x.w));
-}
-
-// Byte offset of 16-byte unit u (4 floats) of row r in a tile of R rows,
-// K-major: chunk u / 8 of 32 floats, then the 128-byte swizzle.
-template <int R>
-__device__ __forceinline__ uint32_t at(int r, int u) {
-  return (u >> 3) * (R * 128) + r * 128 + (((u & 7) ^ (r & 7)) << 4);
-}
-
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  return smem_desc(addr, 16, 1024, 1);  // 8-row atoms of 128-byte rows, 128B swizzle
-}
-
-__device__ __forceinline__ float4 lds4(uint32_t addr) {
-  float4 x;
-  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
-               : "r"(addr));
-  return x;
-}
-
-__device__ __forceinline__ void sts4(uint32_t addr, float4 x) {
-  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(x.x),
-               "f"(x.y), "f"(x.z), "f"(x.w)
-               : "memory");
-}
-
-// cp.async of 4 bytes; with ok false the destination is zero-filled.
-__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-// ---- wgmma: D[64 x N] (+)= A[64 x 8] B[8 x N], TF32 in, float32 out.
-// _ss: A and B K-major in shared memory.  _rs: A from registers (a0 row r
-// column t, a1 row r + 8 column t, a2 row r column t + 4, a3 row r + 8
-// column t + 4, for r = 16 warp + lane / 4 and t = lane % 4), B K-major.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                            int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
-                                            uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                            uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                            uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-// The A fragment of P V's step kk (keys 8 kk .. 8 kk + 7) from P in the S
-// accumulator's layout: a0, a1 take keys 2t of rows r, r + 8 (accumulator
-// slots 4 kk, 4 kk + 2), a2, a3 keys 2t + 1 (slots 4 kk + 1, 4 kk + 3).
-template <int N>
-__device__ __forceinline__ void a_frag(const float (&p)[N], int kk, uint32_t (&a)[4]) {
-  a[0] = __float_as_uint(p[4 * kk]);
-  a[1] = __float_as_uint(p[4 * kk + 2]);
-  a[2] = __float_as_uint(p[4 * kk + 1]);
-  a[3] = __float_as_uint(p[4 * kk + 3]);
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4],
-                                         uint64_t db, int accumulate) {
-  if constexpr (D == 32) wgmma_rs_n32(d, a, db, accumulate);
-  else if constexpr (D == 64) wgmma_rs_n64(d, a, db, accumulate);
-  else wgmma_rs_n128(d, a, db, accumulate);
-}
-
 template <int D>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o,
+              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
               int H, int KV, int Sq, int Sk, int causal, float scale) {
   constexpr uint32_t TILE = BQ * D * 4;  // bytes of each tile: Q, K [64, D]; V^T [D, 64]
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -349,7 +214,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         uint32_t a[4];
         if (pr == 0) a_frag(plo, kk, a);
         else a_frag(s, kk, a);
-        wgmma_pv<D>(pv, a,
+        wgmma_rs<D>(pv, a,
                     desc((pr == 1 ? v_lo : v_hi) + (kk / 4) * (D * 128) + (kk % 4) * 32),
                     pr > 0 || kk > 0);
       }
@@ -438,6 +303,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int rr = 0; rr < 2; ++rr) {
     l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
     l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+    if (lse != nullptr && col == 0 && row[rr] < Sq)
+      lse[(size_t)bh * Sq + row[rr]] = (ml[rr] + log2f(l[rr])) * 0.6931471805599453f;
     l[rr] = 1.f / fmaxf(l[rr], 1e-30f);
   }
 #pragma unroll
@@ -450,32 +317,36 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o, int B, int H,
-                   int KV, int Sq, int Sk, int causal, float scale, cudaStream_t stream) {
+cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* lse,
+                   int B, int H, int KV, int Sq, int Sk, int causal, float scale,
+                   cudaStream_t stream) {
   constexpr size_t bytes = (size_t)6 * BQ * D * 4 + 1024;  // six tiles + alignment
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fwd_f32<D><<<grid, NT, bytes, stream>>>(q, k, v, o, H, KV, Sq, Sk, causal, scale);
+  flash_fwd_f32<D><<<grid, NT, bytes, stream>>>(q, k, v, o, lse, H, KV, Sq, Sk, causal,
+                                                scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes.  Returns a cudaError_t; 0 on success.
+// C entry point, bound with ctypes; lse is a float32 [B, H, Sq] buffer or
+// null.  Returns a cudaError_t; 0 on success.
 extern "C" int repro_flash_attention_f32(const void* q, const void* k, const void* v,
-                                         void* o, int B, int H, int KV, int Sq, int Sk,
-                                         int D, int causal, float scale, void* stream) {
+                                         void* o, void* lse, int B, int H, int KV, int Sq,
+                                         int Sk, int D, int causal, float scale, void* stream) {
   const float* qt = static_cast<const float*>(q);
   const float* kt = static_cast<const float*>(k);
   const float* vt = static_cast<const float*>(v);
   float* ot = static_cast<float*>(o);
+  float* lt = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch<32>(qt, kt, vt, ot, B, H, KV, Sq, Sk, causal, scale, s);
-    case 64: return launch<64>(qt, kt, vt, ot, B, H, KV, Sq, Sk, causal, scale, s);
-    case 128: return launch<128>(qt, kt, vt, ot, B, H, KV, Sq, Sk, causal, scale, s);
+    case 32: return launch<32>(qt, kt, vt, ot, lt, B, H, KV, Sq, Sk, causal, scale, s);
+    case 64: return launch<64>(qt, kt, vt, ot, lt, B, H, KV, Sq, Sk, causal, scale, s);
+    case 128: return launch<128>(qt, kt, vt, ot, lt, B, H, KV, Sq, Sk, causal, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -3,12 +3,12 @@ bfloat16, differentiable.
 
 A tensor on the CPU goes to the plain versions (``ref.attention_ref``
 forward, ``ref.attention_bwd_ref`` backward); a tensor on the card launches
-the CUDA kernels of its type or raises: the forward on the tensor cores
-(float32 as three TF32 products: ``csrc/flash_attention.cu``; bfloat16:
-``csrc/flash_attention_bf16.cu``), the backward in float32 on the CUDA
-cores (``csrc/flash_attention_bwd.cu``) and in bfloat16 on the tensor cores
-(``csrc/flash_attention_bwd_bf16.cu``), the latter from the log-sum-exp that
-the bfloat16 forward stores when a gradient is wanted.
+the CUDA kernels of its type or raises, all on the tensor cores: the
+forward (float32 as three TF32 products: ``csrc/flash_attention.cu``;
+bfloat16: ``csrc/flash_attention_bf16.cu``) and the backward (float32, again
+3xTF32: ``csrc/flash_attention_bwd.cu``; bfloat16:
+``csrc/flash_attention_bwd_bf16.cu``), the backward from the log-sum-exp
+that the forward of either type stores when a gradient is wanted.
 ``flash_attention.launches`` counts the forward kernel's launches and
 ``flash_attention_backward.launches`` the backward's (one per call, either
 type), and nothing else.
@@ -23,9 +23,9 @@ from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 #: Where its (b, h, query tile) dQ blocks would not fill the card's SMs, the
-#: bfloat16 backward splits each query tile's key range over this many dQ
-#: blocks an SM (float32 partials, summed in a fixed order), at least 2 key
-#: tiles each.
+#: backward (either type) splits each query tile's key range over this many
+#: dQ blocks an SM (float32 partials, summed in a fixed order), at least 2
+#: tiles of 64 keys each.
 DQ_BLOCKS_PER_SM = 2
 
 
@@ -59,34 +59,28 @@ def _check(q, k, v, causal: bool):
 
 def _forward(q, k, v, causal: bool, scale: float, lse=None) -> torch.Tensor:
     """The forward; ``lse``, a float32 [B,H,Sq] tensor on the card, is
-    filled by the bfloat16 kernel with each row's log-sum-exp."""
+    filled by the kernel (either type) with each row's log-sum-exp."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, sm_scale=scale)
     (b, sq, h, d), (sk, kv) = q.shape, k.shape[1:3]
     o = torch.empty_like(q)
     lib = _build.library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    if q.dtype == torch.bfloat16:
-        err = lib.repro_flash_attention_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            None if lse is None else lse.data_ptr(), b, h, kv, sq, sk, d, int(causal),
-            scale, stream)
-    else:
-        if lse is not None:
-            raise ValueError("the float32 forward kernel does not store the log-sum-exp")
-        err = lib.repro_flash_attention_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            b, h, kv, sq, sk, d, int(causal), scale, stream)
+    entry = (lib.repro_flash_attention_bf16 if q.dtype == torch.bfloat16
+             else lib.repro_flash_attention_f32)
+    err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                None if lse is None else lse.data_ptr(), b, h, kv, sq, sk, d, int(causal),
+                scale, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     _build.count_launch(flash_attention)
     return o
 
 
 def dq_splits(b: int, h: int, sq: int, sk: int, sms: int) -> int:
-    """Parts the bfloat16 backward cuts each query tile's key range into:
-    1 where its B H ceil(Sq / 64) dQ blocks fill ``sms`` SMs, else enough
-    for DQ_BLOCKS_PER_SM dQ blocks an SM, at least 2 of the ceil(Sk / 64)
-    key tiles each."""
+    """Parts the backward (either type) cuts each query tile's key range
+    into: 1 where its B H ceil(Sq / 64) dQ blocks fill ``sms`` SMs, else
+    enough for DQ_BLOCKS_PER_SM dQ blocks an SM, at least 2 of the
+    ceil(Sk / 64) tiles of 64 keys each (the float32 kernel at D 128 steps
+    through them 32 keys at a time)."""
     blocks, k_tiles = b * h * -(-sq // 64), -(-sk // 64)
     if blocks >= sms:
         return 1
@@ -103,31 +97,24 @@ def _backward(q, k, v, o, do, causal: bool, scale: float, lse=None):
                 or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
                              f"{q.dtype} tensor of q's shape {tuple(q.shape)}")
+    if (lse is None or lse.shape != (b, h, sq) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError("the backward kernel needs the forward's log-sum-exp, a "
+                         f"contiguous float32 [{b}, {h}, {sq}] tensor on q's device "
+                         "(flash_attention_with_lse)")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lib, stream = _build.library(), torch.cuda.current_stream(q.device).cuda_stream
-    if q.dtype == torch.bfloat16:
-        if (lse is None or lse.shape != (b, h, sq) or lse.dtype != torch.float32
-                or lse.device != q.device or not lse.is_contiguous()):
-            raise ValueError("the bfloat16 backward kernel needs the forward's "
-                             f"log-sum-exp, a contiguous float32 [{b}, {h}, {sq}] tensor "
-                             "on q's device (flash_attention_with_lse)")
-        splits = dq_splits(b, h, sq, sk,
-                           torch.cuda.get_device_properties(q.device).multi_processor_count)
-        stats = torch.empty(2 * b * h * sq, dtype=torch.float32, device=q.device)
-        part = (torch.empty(splits * q.numel(), dtype=torch.float32, device=q.device)
-                if splits > 1 else None)
-        err = lib.repro_flash_attention_bwd_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-            None if part is None else part.data_ptr(), b, h, kv, sq, sk, d, int(causal),
-            splits, scale, stream)
-    else:  # float32 recomputes the log-sum-exp: its forward does not store it
-        lse = torch.empty(b * h * sq, dtype=torch.float32, device=q.device)
-        delta = torch.empty_like(lse)
-        err = lib.repro_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            b, h, kv, sq, sk, d, int(causal), scale, stream)
+    splits = dq_splits(b, h, sq, sk,
+                       torch.cuda.get_device_properties(q.device).multi_processor_count)
+    stats = torch.empty(2 * b * h * sq, dtype=torch.float32, device=q.device)
+    part = (torch.empty(splits * q.numel(), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
+    lib = _build.library()
+    entry = (lib.repro_flash_attention_bwd_bf16 if q.dtype == torch.bfloat16
+             else lib.repro_flash_attention_bwd)
+    err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+                None if part is None else part.data_ptr(), b, h, kv, sq, sk, d, int(causal),
+                splits, scale, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_backward")
     _build.count_launch(flash_attention_backward)
     return dq, dk, dv
@@ -140,7 +127,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
         lse = None
-        if q.device.type == "cuda" and q.dtype == torch.bfloat16 and any(ctx.needs_input_grad):
+        if q.device.type == "cuda" and any(ctx.needs_input_grad):
             lse = torch.empty(q.shape[0], q.shape[2], q.shape[1], dtype=torch.float32,
                               device=q.device)
         o = _forward(q, k, v, causal, scale, lse)
@@ -170,10 +157,10 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
                              causal: bool = False, sm_scale=None):
     """(o, lse): ``flash_attention``'s output, without autograd, and each
     row's float32 log-sum-exp of the scaled, masked scores, [B,H,Sq], as the
-    bfloat16 backward takes it.  On the card the bfloat16 forward kernel
-    stores it in the same launch (the float32 one cannot); on the CPU both
-    come from ``attention_ref``.  Inputs that need a gradient are refused
-    under grad mode on either device (``flash_attention`` differentiates)."""
+    backward takes it.  On the card the forward kernel (either type) stores
+    it in the same launch; on the CPU both come from ``attention_ref``.
+    Inputs that need a gradient are refused under grad mode on either device
+    (``flash_attention`` differentiates)."""
     _build.refuse_grad("flash_attention_with_lse", q, k, v)
     _check(q, k, v, causal)
     scale = float(sm_scale) if sm_scale is not None else q.shape[-1] ** -0.5
@@ -190,9 +177,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of ``flash_attention(q, k, v)`` = ``o`` for the output
     gradient ``do`` [B,Sq,H,D]; dk and dv sum over each kv head's group of
     query heads.  ``lse`` is the forward's log-sum-exp
-    (`flash_attention_with_lse`): the bfloat16 kernel needs it and raises
-    without it, the float32 kernel recomputes it, the CPU uses it where
-    given.  Deterministic on the card (no atomics)."""
+    (`flash_attention_with_lse`): the kernel (either type) needs it and
+    raises without it, the CPU uses it where given.  Deterministic on the
+    card (no atomics)."""
     _check(q, k, v, causal)
     scale = float(sm_scale) if sm_scale is not None else q.shape[-1] ** -0.5
     return _backward(q, k, v, o, do, causal, scale, lse)

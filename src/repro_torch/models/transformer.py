@@ -84,7 +84,7 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: a local/global pattern {cfg.local_global_pattern} "
             f"with window {cfg.sliding_window}: the JAX package's period "
             f"layout (and so the port's) holds one global layer per period "
-            f"and a window > 0 (ROADMAP Queue 1, item 1)")
+            f"and a window > 0 (configs/base.py, local_global_pattern)")
 
 
 # ------------------------------------------------------------------ pattern

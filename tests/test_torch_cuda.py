@@ -188,9 +188,9 @@ def test_flash_bf16_kernel_at_tile_edges_on_card(cuda, s, causal):
 def test_flash_bf16_kernel_runs_on_the_tensor_cores(cuda):
     """The flash kernels on the tensor cores, the forward in bfloat16
     (``flash_fwd_bf16``) and in float32 as 3xTF32 (``flash_fwd_f32``) and
-    the bfloat16 backward (``flash_bwd_bf16_main``), hold warpgroup MMAs
-    (HGMMA) in the SASS of every instantiation (D 32, 64, 128), and no
-    other kernel does."""
+    the backward in bfloat16 (``flash_bwd_bf16_main``) and in float32 as
+    3xTF32 (``flash_bwd_f32_main``), hold warpgroup MMAs (HGMMA) in the SASS
+    of every instantiation (D 32, 64, 128), and no other kernel does."""
     import subprocess
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -198,13 +198,42 @@ def test_flash_bf16_kernel_runs_on_the_tensor_cores(cuda):
     sass = subprocess.run([f"{CUDA_HOME}/bin/cuobjdump", "-sass", str(_build.build())],
                           capture_output=True, text=True, check=True).stdout
     funcs = sass.split("Function : ")[1:]
-    flash = ("flash_fwd_bf16", "flash_fwd_f32", "flash_bwd_bf16_main")
+    flash = ("flash_fwd_bf16", "flash_fwd_f32", "flash_bwd_bf16_main", "flash_bwd_f32_main")
     for kernel in flash:
         inst = [f for f in funcs if kernel in f.splitlines()[0]]
         assert len(inst) == 3, kernel          # D 32, 64, 128
         assert all("HGMMA" in f for f in inst), kernel
     assert not any("HGMMA" in f for f in funcs
                    if not any(kernel in f.splitlines()[0] for kernel in flash))
+
+
+@pytest.mark.gpu
+def test_f32_flash_backward_runs_on_the_tensor_cores_without_spilling(cuda):
+    """The float32 backward's three instantiations (D 32, 64, 128) of its
+    main kernel hold warpgroup MMAs (HGMMA) in their SASS, and ptxas reports
+    no spill for any of its kernels: the products are on the tensor cores,
+    and D 128 takes its tile products in halves to stay in 255 registers."""
+    import subprocess
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    lib = _build.build()
+    sass = subprocess.run([f"{CUDA_HOME}/bin/cuobjdump", "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    main = [f for f in sass.split("Function : ")[1:]
+            if "flash_bwd_f32_main" in f.splitlines()[0]]
+    assert len(main) == 3
+    assert all("HGMMA" in f for f in main)
+    entry, spills = None, {}
+    for line in (_build.BUILD_DIR / "ptxas.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1) if "flash_bwd_f32" in m.group(1) else None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if entry and m:
+            spills[entry] = (int(m.group(1)), int(m.group(2)))
+    assert len(spills) == 7          # main and prep at each D, one combine
+    assert set(spills.values()) == {(0, 0)}, spills
 
 
 def _check_f32_flash(q, k, v, causal):
@@ -740,16 +769,11 @@ FLASH_BWD_CASES = [
 
 
 def _flash_bwd_inputs(cuda, seed, b, sq, sk, h, kv, d, causal, dtype):
-    """q, k, v, o, do and the forward's log-sum-exp (None in float32, whose
-    forward does not store it and whose backward recomputes it)."""
+    """q, k, v, o, do and the log-sum-exp that the forward kernel stores."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
     q, do = (torch.randn(b, sq, h, d, generator=gen, device=cuda).to(dtype) for _ in range(2))
     k, v = (torch.randn(b, sk, kv, d, generator=gen, device=cuda).to(dtype) for _ in range(2))
-    if dtype == torch.bfloat16:
-        o, lse = flash_attention_with_lse(q, k, v, causal=causal)
-    else:
-        with torch.no_grad():
-            o, lse = flash_attention(q, k, v, causal=causal), None
+    o, lse = flash_attention_with_lse(q, k, v, causal=causal)
     return q, k, v, o, do, lse
 
 
@@ -759,8 +783,8 @@ def _flash_bwd_inputs(cuda, seed, b, sq, sk, h, kv, d, causal, dtype):
 def test_flash_backward_kernel_matches_plain_on_card(cuda, dtype, b, sq, sk, h, kv, d, causal):
     """dq, dk, dv of the backward kernel against ``attention_bwd_ref`` on the
     same inputs (the forward kernel's o): float32 to 2e-5, bfloat16 within
-    one bfloat16 step, element by element; bfloat16 from the forward's
-    log-sum-exp."""
+    one bfloat16 step, element by element; both from the forward's
+    log-sum-exp, the plain version recomputing the softmax."""
     q, k, v, o, do, lse = _flash_bwd_inputs(cuda, b * sq + d, b, sq, sk, h, kv, d, causal,
                                             dtype)
     launches = flash_attention_backward.launches
@@ -774,18 +798,50 @@ def test_flash_backward_kernel_matches_plain_on_card(cuda, dtype, b, sq, sk, h, 
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", [
     (2, 256, 256, 16, 8, 128, True),
     (1, 17, 3000, 8, 2, 64, False),   # dq split in 24 parts
 ])
-def test_flash_backward_kernel_is_deterministic_on_card(cuda, b, sq, sk, h, kv, d, causal):
-    q, k, v, o, do, lse = _flash_bwd_inputs(cuda, 7, b, sq, sk, h, kv, d, causal,
-                                            torch.bfloat16)
+def test_flash_backward_kernel_is_deterministic_on_card(cuda, dtype, b, sq, sk, h, kv, d,
+                                                        causal):
+    q, k, v, o, do, lse = _flash_bwd_inputs(cuda, 7, b, sq, sk, h, kv, d, causal, dtype)
     first = flash_attention_backward(q, k, v, o, do, causal=causal, lse=lse)
     for _ in range(3):
         again = flash_attention_backward(q, k, v, o, do, causal=causal, lse=lse)
         for a, b in zip(first, again):
             assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_flash_backward_with_every_low_bit_set_on_card(cuda, causal):
+    """q, k, v, o and dO with all of their low 13 mantissa bits set: the
+    backward's lo = x - (x with those bits cleared) adds up with hi = x only
+    if the tensor core drops those bits of hi, as the forward's test holds
+    it; P and dS are split in registers the same way."""
+    q, k, v, o, do, _ = _flash_bwd_inputs(cuda, 13, 1, 300, 300, 8, 4, 128, causal,
+                                          torch.float32)
+    q, k, v, do = (x.view(torch.int32).bitwise_or(0x1FFF).view(torch.float32)
+                   for x in (q, k, v, do))
+    o, lse = flash_attention_with_lse(q, k, v, causal=causal)
+    ours = flash_attention_backward(q, k, v, o, do, causal=causal, lse=lse)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dq", "dk", "dv"), ours,
+                          attention_bwd_ref(q, k, v, o, do, causal=causal)):
+        torch.testing.assert_close(a, r, **TOLS[torch.float32], msg=name)
+
+
+@pytest.mark.gpu
+def test_f32_flash_backward_needs_the_forwards_lse_on_card(cuda):
+    q, k, v, o, do, lse = _flash_bwd_inputs(cuda, 5, 1, 64, 64, 2, 2, 64, True,
+                                            torch.float32)
+    launches = flash_attention_backward.launches
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        flash_attention_backward(q, k, v, o, do, causal=True)
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        flash_attention_backward(q, k, v, o, do, causal=True, lse=lse[:, :, :32])
+    assert flash_attention_backward.launches == launches
 
 
 @pytest.mark.gpu
@@ -841,11 +897,34 @@ def test_bf16_forward_stores_the_lse_without_changing_o_on_card(cuda, b, sq, sk,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", FLASH_CASES + [(4, 256, 256, 8, 4, 64, True)])
+def test_f32_forward_stores_the_lse_without_changing_o_on_card(cuda, b, sq, sk, h, kv, d,
+                                                               causal):
+    """The float32 forward with the log-sum-exp buffer writes the same bits
+    of o as without it (serving passes none), one launch each, and its
+    log-sum-exp matches the plain version's to float32 2e-5; the last case
+    is the launcher's float32 ``100m`` preset."""
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+               for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+    launches = flash_attention.launches
+    with torch.no_grad():
+        plain_o = flash_attention(q, k, v, causal=causal)
+    o, lse = flash_attention_with_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 2
+    assert torch.equal(o, plain_o)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    _, ref = attention_ref(q, k, v, causal=causal, return_lse=True)
+    torch.testing.assert_close(lse, ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_differentiates_through_the_backward_kernel_on_card(cuda, dtype):
     """autograd through ``flash_attention`` on the card: one forward launch,
-    one backward launch, and exactly the backward kernel's gradients (in
-    bfloat16 from the log-sum-exp the forward stored)."""
+    one backward launch, and exactly the backward kernel's gradients (from
+    the log-sum-exp the forward stored)."""
     q, k, v, o, do, lse = _flash_bwd_inputs(cuda, 11, 2, 100, 100, 8, 2, 64, True, dtype)
     qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
     fwd, bwd = flash_attention.launches, flash_attention_backward.launches

@@ -263,6 +263,141 @@ def test_f32_kernel_numerics_meet_the_limit_only_with_3xtf32_on_both_products(ba
         assert share > 1.0, share
 
 
+def _trunc32(x):
+    """float64 to float32 rounded toward zero."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _wgmma(a, b, split: str, acc=None):
+    """acc + a @ b as the float32 backward's `wgmma` takes it: operands read
+    as TF32 (truncated); "split" issues lo hi', hi lo', hi hi' in turn and
+    "one" hi hi' alone, each over the contraction in steps of 8, each
+    step's exact sum added into the float32 accumulator with truncation
+    toward zero, as the tensor core adds it; ``acc`` None is a zeroed
+    accumulator."""
+    ah, bh = _tf32(a).double(), _tf32(b).double()
+    pairs = [(ah, bh)]
+    if split == "split":
+        pairs = [(_tf32(a - _tf32(a)).double(), bh), (ah, _tf32(b - _tf32(b)).double()), (ah, bh)]
+    acc = torch.zeros(a.shape[0], b.shape[1]) if acc is None else acc
+    for x, y in pairs:
+        for k0 in range(0, a.shape[1], 8):
+            acc = _trunc32(acc.double() + x[:, k0:k0 + 8] @ y[k0:k0 + 8])
+    return acc
+
+
+def _emulate_f32_backward(q, k, v, o, do, lse, causal: bool, split: str, tiles: bool):
+    """The float32 backward kernel's arithmetic (``flash_attention_bwd.cu``),
+    in torch on the CPU: q, o, do [Sq, H, D], k, v [Sk, KV, D], lse [H, Sq].
+    S = Q K^T and dP = dO V^T on the q side, S^T = K Q^T and dP^T = V dO^T
+    on the kv side (operands in the other order), each one accumulator;
+    P = 2^(S scale log2 e - lse log2 e), masked, dS = P (dP - delta) in
+    float32; dQ summed over tiles of keys, dK and dV over the group's query
+    heads and their tiles of rows: 64 a tile, but 32 for dQ and dK at D 128.
+    ``tiles``: each tile's product in a zeroed accumulator and added in
+    float32, as the kernel does, or every tile left in one accumulator.
+    ``split``: every product 3xTF32 ("split") or one TF32 product ("one")."""
+    sq, h, d = q.shape
+    sk, kv = k.shape[:2]
+    g, bn = h // kv, 32 if d == 128 else 64
+    scale = d ** -0.5
+    sl2 = torch.tensor(scale * LOG2E, dtype=torch.float32).double()
+    keep = torch.arange(sk)[None, :] <= torch.arange(sq)[:, None] if causal else None
+
+    def probs(s, lse2, keep):
+        p = torch.exp2((s.double() * sl2 - lse2.double()).float())
+        return p if keep is None else p.masked_fill(~keep, 0.)
+
+    def tiled(a, b, acc, rows=bn):
+        """acc + sum over tiles of ``rows`` along the contraction of a @ b."""
+        for c0 in range(0, a.shape[1], rows):
+            a_t, b_t = a[:, c0:c0 + rows], b[c0:c0 + rows]
+            acc = acc + _wgmma(a_t, b_t, split) if tiles else _wgmma(a_t, b_t, split, acc)
+        return acc
+    dq = torch.empty(sq, h, d)
+    dk, dv = torch.zeros(sk, kv, d), torch.zeros(sk, kv, d)
+    for hi in range(h):
+        qh, doh, kh, vh = q[:, hi], do[:, hi], k[:, hi // g], v[:, hi // g]
+        lse2 = lse[hi] * LOG2E
+        delta = (doh * o[:, hi]).sum(-1)
+        p = probs(_wgmma(qh, kh.T, split), lse2[:, None], keep)
+        ds = p * (_wgmma(doh, vh.T, split) - delta[:, None])
+        dq[:, hi] = tiled(ds, kh, torch.zeros(sq, d)) * scale
+        pt = probs(_wgmma(kh, qh.T, split), lse2[None, :], None if keep is None else keep.T)
+        dst = pt * (_wgmma(vh, doh.T, split) - delta[None, :])
+        dv[:, hi // g] = tiled(pt, doh, dv[:, hi // g], 64)
+        dk[:, hi // g] = tiled(dst, qh, dk[:, hi // g])
+    return dq, dk * scale, dv
+
+
+def _grads64(q, k, v, do, causal: bool):
+    """dq, dk, dv of softmax(q k^T / sqrt(D)) v for the output gradient do,
+    by autograd in float64: q, do [Sq, H, D], k, v [Sk, KV, D]."""
+    g = q.shape[1] // k.shape[1]
+    q, k, v = (x.double().requires_grad_() for x in (q, k, v))
+    s = torch.einsum("qhd,khd->hqk", q, k.repeat_interleave(g, 1)) * q.shape[-1] ** -0.5
+    if causal:
+        s = s.masked_fill(torch.ones(s.shape[1:], dtype=torch.bool).triu(1), -torch.inf)
+    o = torch.einsum("hqk,khd->qhd", s.softmax(-1), v.repeat_interleave(g, 1))
+    return torch.autograd.grad(o, (q, k, v), do.double())
+
+
+#: band (rows, keys, query heads, kv heads, causal, dO's scale) and the
+#: backward's arithmetic (products, tiles).  The kernel's: 3xTF32 on every
+#: product, each tile's sum outside the accumulator, at a band of 64 DiT
+#: rows over 2048 keys, a causal GQA band (all 256 rows of two query heads
+#: over one kv head) and a band whose last 64-key tile is ragged (2000
+#: keys); then at the DiT band one TF32 product, and every tile left in one
+#: accumulator.  dO ~ N(0, 1) x 64 puts the DiT and ragged bands' dq, dk and
+#: dv (|.| up to ~10) under the limit's relative part, where a bias toward
+#: zero shows; at N(0, 1) the absolute part (2e-5) holds them and hides it.
+#: The causal band keeps dO ~ N(0, 1), as the card tests draw it: its first
+#: rows see a few keys, dS = P (dP - delta) cancels there, and at dO x 64
+#: float32 rounding alone reaches the limit.  At dO x 64 ``attention_bwd_ref``
+#: lies 0.25-0.3 of the limit from the float64 gradient by its own float32
+#: sums, an amount that moves with the CPU's summation order, so the
+#: emulation is held to the float64 gradient.
+F32_BWD_NUMERICS = [
+    ("dit_band", "split", True),
+    ("causal_gqa", "split", True),
+    ("ragged", "split", True),
+    ("dit_band", "one", True),
+    ("dit_band", "split", False),
+]
+F32_BWD_BANDS = {"dit_band": (64, 2048, 1, 1, False, 64.0),
+                 "causal_gqa": (256, 256, 2, 1, True, 1.0),
+                 "ragged": (64, 2000, 1, 1, False, 64.0)}
+
+
+@pytest.mark.parametrize("band,split,tiles", F32_BWD_NUMERICS)
+def test_f32_backward_numerics_meet_the_limit_only_with_3xtf32_and_tiled_sums(band, split,
+                                                                               tiles):
+    """Why the float32 backward takes every product as 3xTF32 and adds each
+    tile's sum outside the tensor core's accumulator: at D 128, with q, k,
+    v ~ N(0, 1) and dO as `F32_BWD_BANDS` scales it, the emulated kernel
+    keeps dq, dk and dv within the float32 limit of the float64 gradient
+    (each element within ``TOL``, as the card tests hold the kernel to
+    ``attention_bwd_ref``), also with causal and ragged masks; one TF32
+    product misses it over 100-fold, the sums of all 64 key tiles left in
+    one accumulator (768 truncated additions into dq) over twofold."""
+    rows, keys, h, kv, causal, do_scale = F32_BWD_BANDS[band]
+    rng = np.random.default_rng(26)
+    q = torch.from_numpy(rng.standard_normal((1, rows, h, 128)).astype(np.float32))
+    do = torch.from_numpy((rng.standard_normal((1, rows, h, 128)) * do_scale)
+                          .astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((1, keys, kv, 128)).astype(np.float32))
+            for _ in range(2))
+    o, lse = attention_ref(q, k, v, causal=causal, return_lse=True)
+    out = _emulate_f32_backward(q[0], k[0], v[0], o[0], do[0], lse[0], causal, split, tiles)
+    share = max(float(((a - b).abs() / (TOL["atol"] + TOL["rtol"] * b.abs())).max())
+                for a, b in zip(out, _grads64(q[0], k[0], v[0], do[0], causal)))
+    if split == "split" and tiles:
+        assert share <= 1.0, share
+    else:
+        assert share > (100.0 if split == "one" else 2.0), share
+
+
 #: The WKV6 kernel's (``rwkv6_wkv/csrc/wkv6.cu``) checks on the card, as
 #: ``tests/test_torch_cuda.py`` holds it: y element by element within
 #: |a - b| <= rtol |b| + 1e-5 max|b| (rtol float32 2e-5, bfloat16 one step
