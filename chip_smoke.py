@@ -115,7 +115,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    tokens/s and peak memory; two steps under ``torch.profiler``: the device
    time by kind of kernel and the device's busy share; last, the
    launcher's float32 ``100m`` preset (12 layers, heads of 64) for 3 steps,
-   the float32 backward's path, its counters read the same way.
+   the float32 backward's path, its counters read the same way.  Then
+   rwkv6: the WKV6 backward kernel's build (``wkv6_bwd.cu``: registers and
+   spills of each instantiation, failing at a spill) and the kernel,
+   through autograd of ``wkv6``, against ``wkv6_bwd_ref`` at rwkv6-7b's
+   training shape, the float32 ``100m`` shape and the WKV6 forward's ragged,
+   long, model-decay and reduced-head cases, two runs equal bit for bit,
+   each timed beside the plain version with its bound; after qwen3's, one
+   loss and gradient of rwkv6-7b at full width and 2 layers through the
+   WKV6 kernels against the same with the plain loop (`plain_wkv6`);
+   rwkv6-7b at full width and 16 of its 32 layers through
+   ``make_train_step`` (6 AdamW steps of 4 x 256 tokens of the bigram
+   chain), and the launcher's float32 ``100m`` rwkv6 for 3 steps, each
+   with its counters set to 0 just before and read just after: ce finite
+   and falling, 2 forward and 1 backward WKV6 launches a layer and step.
 6. A ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -704,6 +717,20 @@ def main(argv) -> int:
             fma_bound_ms=main["fma_bound_ms"], build=train["build"][dt], shapes=rows,
             train=run, **({"grad_check": train["grad_check"]}
                           if run is train["run"] else {})))
+    # no TPU kernel behind it either: the JAX package trains rwkv6 by
+    # autodiff of its plain checkpointed scan (its Pallas WKV6 is forward-only)
+    wb_rows = train["wkv6_rows"]
+    main = next(r for r in wb_rows if r["shape"] == "rwkv6_train_4x256")
+    kernels.append(dict(
+        name="wkv6_backward", route="cuda",
+        source="src/repro_torch/kernels/rwkv6_wkv/csrc/wkv6_bwd.cu",
+        replaces="src/repro/models/rwkv6.py:76", tpu_kernel=None,
+        launches=train["rwkv6_run"]["wkv6_bwd_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in wb_rows),
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None, at="rwkv6_train_4x256",
+        build=train["wkv6_build"], shapes=wb_rows, train=train["rwkv6_run"],
+        train_f32=train["rwkv6_run_f32"], grad_check=train["rwkv6_grad_check"]))
     print(f"total {time.perf_counter() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2021,6 +2048,150 @@ def flash_bwd_kernel_phase(torch, F, dev, randn) -> list:
     return rows
 
 
+#: The WKV6 backward's cases (``wkv6_bwd_kernel_phase``): rwkv6-7b's
+#: training shape (64 heads of 64, B 4 x 256, bfloat16), the launcher's
+#: float32 ``100m`` preset (8 heads of 64), and the forward phase's ragged,
+#: long, model-decay and reduced-head cases: (name, B, T, H, K, dtype,
+#: nonzero initial state and final-state gradient, model decays, reps).
+WKV_BWD_CASES = [
+    ("rwkv6_train_4x256", 4, 256, 64, 64, "bfloat16", False, False, 5),
+    ("rwkv6_100m_4x256", 4, 256, 8, 64, "float32", True, False, 5),
+    ("ragged_97", 1, 97, 64, 64, "bfloat16", True, False, 5),
+    ("long_4096", 8, 4096, 64, 64, "bfloat16", True, False, 3),
+    ("decay_model_333", 1, 333, 64, 64, "bfloat16", True, True, 5),
+    ("small_f32", 2, 33, 8, 32, "float32", True, False, 10),
+]
+#: The WKV6 backward against ``wkv6_bwd_ref``, element by element on each
+#: of dr, dk, dv, dw, du and dstate: both sum in float32 in another order,
+#: and the sums over v (dr, dk, dw) and over k (dv) cancel, so an element
+#: near zero differs by the float32 rounding of its terms, not of itself;
+#: the absolute part is scaled to the output's largest element.  float32
+#: (and dstate, float32 at either input type): |a - b| <= 2e-5 (|b| +
+#: max|b|); bfloat16 one bfloat16 step, |a - b| <= 2^-7 |b| + 1e-5 max|b|,
+#: since both round the same float32 gradient once.  Each case also prints
+#: the share of the bfloat16 limit with a fixed 1e-5 in place of 1e-5 max|b|.
+WKV_BWD_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2 ** -7, 1e-5)}
+#: rwkv6-7b at full width trained through ``make_train_step``: depth cut to
+#: RWKV_TRAIN_LAYERS of 32 (~218 M parameters a layer and 0.54 B of
+#: embeddings: bfloat16 weights and gradients and float32 moments come to
+#: ~48 GB at 16 layers, ~91 GB whole), RWKV_TRAIN_STEPS AdamW steps at lr
+#: 1e-3 of B 4 x S 256 tokens of the bigram chain over 1,024 ids.
+RWKV_TRAIN_LAYERS = 16
+RWKV_TRAIN_STEPS = 6
+#: Steps after those, under ``torch.profiler`` (`profile_steps`), for
+#: where a step's device time goes; their launches are not counted.
+PROFILED_STEPS = 2
+#: The launcher's float32 path for rwkv6: the ``100m`` preset (12 layers of
+#: width 512, 8 heads of 64), as the JAX launcher's own preset trains it.
+RWKV_TRAIN_F32_ARGS = ["--arch", "rwkv6-7b", "--preset", "100m", "--steps", "3",
+                       "--batch", "4", "--seq", "256", "--log-every", "1", "--lr", "1e-3",
+                       "--data-vocab", "1024"]
+
+
+def wkv6_bwd_build_report(lib_path) -> dict:
+    """The WKV6 backward's build (``wkv6_bwd.cu``, on the CUDA cores): each
+    instantiation of its main kernel (input type, K) and of the combine
+    kernel, with its FFMA count in the SASS, its registers and spills; fails
+    at a spill."""
+    import re
+
+    out = {}
+    for name, r in sorted(sass_report(lib_path, "wkv6_bwd", "FFMA").items()):
+        kind = "main" if "wkv6_bwd_main" in name else "combine"
+        dt = "bfloat16" if "nv_bfloat16" in name else "float32"
+        m = re.search(r"Li(\d+)E", name)
+        label = f"wkv6_bwd_{kind}<{dt}{', K=' + m.group(1) if m else ''}>"
+        out[label] = dict(registers=r.get("registers"), ffma=r["count"])
+        print(f"wkv6 bwd build: {label}: FFMA {r['count']}, registers {r.get('registers')}, "
+              f"spill stores/loads {r.get('spill')} bytes")
+        check(r.get("spill", (0, 0)) == (0, 0), f"wkv6 bwd: {label} spills")
+    check(len(out) == 6, f"wkv6 bwd: {len(out)} instantiations, expected 6")
+    return out
+
+
+def wkv6_bwd_kernel_phase(torch, dev, randn) -> list:
+    """The WKV6 backward against ``wkv6_bwd_ref`` (`WKV_BWD_CASES`, limits
+    `WKV_BWD_TOL`): the gradients autograd takes through ``wkv6`` (one
+    forward and one backward launch) with every input needing one and dy
+    random, equal bit for bit to a second, direct call; its time beside the
+    plain version's.  The bound: the
+    essential work, 6 K V multiply-adds per (b, t, h) (the state
+    recomputed, dr, the dS update, dk, dv, dw) at the float32 rate on the
+    CUDA cores, against r, k, v, w and dy read and dr, dk, dv and dw written
+    once.  No PyTorch call computes this gradient: library none."""
+    from repro_torch.kernels import wkv6, wkv6_backward
+    from repro_torch.kernels.rwkv6_wkv import wkv6_bwd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(27)
+    rows = []
+    for name, b, t, h, kk, dt, nonzero, model, reps in WKV_BWD_CASES:
+        dtype = getattr(torch, dt)
+        r, k, v, dy = randn(b, t, h, kk), randn(b, t, h, kk) * 0.3, randn(b, t, h, kk), \
+            randn(b, t, h, kk)
+        w = (wkv6_model_decays(torch, gen, (b, t, h, kk), dev) if model
+             else torch.sigmoid(randn(b, t, h, kk)) * 0.5 + 0.45)
+        u = randn(h, kk) * 0.1
+        r, k, v, w, u, dy = (x.to(dtype) for x in (r, k, v, w, u, dy))
+        s0 = (randn(b, h, kk, kk) * 0.5 if nonzero
+              else torch.zeros(b, h, kk, kk, device=dev))
+        ds = randn(b, h, kk, kk) if nonzero else None
+        xs = (r, k, v, w, u, s0, dy, ds)
+        # the gradient as training takes it: autograd through wkv6, every
+        # input needing one (a None final-state gradient where ds is None)
+        leaves = [x.detach().requires_grad_() for x in xs[:6]]
+        launches = (wkv6.launches, wkv6_backward.launches)
+        y, s = wkv6(*leaves)
+        ours = torch.autograd.grad((y, s) if nonzero else (y,), leaves,
+                                   (dy, ds) if nonzero else (dy,))
+        again = wkv6_backward(*xs)
+        torch.cuda.synchronize()
+        check((wkv6.launches, wkv6_backward.launches) == (launches[0] + 1, launches[1] + 2),
+              f"wkv6 bwd {name}: launches")
+        equal = all(torch.equal(a, c) for a, c in zip(ours, again))
+        del again, y, s, leaves
+        ref = wkv6_bwd_ref(*xs)
+        errs, uses, fixed = {}, {}, {}
+        for gname, a, e in zip(("dr", "dk", "dv", "dw", "du", "dstate"), ours, ref):
+            rtol, share = WKV_BWD_TOL["float32" if gname == "dstate" else dt]
+            a, e = a.float(), e.float()
+            d = (a - e).abs()
+            errs[gname] = float(d.max())
+            uses[gname] = float((d / (rtol * e.abs() + share * e.abs().max())
+                                 .clamp_min(1e-30)).max())
+            fixed[gname] = float((d / (rtol * e.abs() + share).clamp_min(1e-30)).max())
+            check(bool(torch.isfinite(a).all()), f"wkv6 bwd {name}: {gname} not finite")
+        zeros, ones = int((w == 0).sum()), int((w == 1).sum())
+        del ours, ref
+        sets = rotation(xs[:7]) if ds is None else rotation(xs)
+        ms, plain_ms, call_ms, plain_call_ms = kernel_and_plain_ms(
+            torch, [lambda c=c: wkv6_backward(*c) for c in sets],
+            [lambda c=c: wkv6_bwd_ref(*c) for c in sets], reps)
+        elem = r.element_size()
+        nbytes = 9 * b * t * h * kk * elem + 2 * u.numel() * elem + \
+            (3 if nonzero else 2) * b * h * kk * kk * 4
+        bound_ms, bound_by = bound(nbytes, 12.0 * b * t * h * kk * kk)
+        worst = max(uses, key=uses.get)
+        row = dict(shape=name, b=b, t=t, h=h, k=kk, dtype=dt, nonzero_state=nonzero,
+                   model_decays=model, w_zeros=zeros, w_ones=ones,
+                   max_abs_err=max(errs.values()), max_abs_errs=errs, limit_use=uses,
+                   fixed_atol_limit_use=fixed, equal_bits=equal, ms=ms, call_ms=call_ms,
+                   plain_ms=plain_ms, plain_call_ms=plain_call_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, bound_share=bound_ms / ms, library_ms=None)
+        rows.append(row)
+        print(f"wkv6 bwd {name:17s} B={b} T={t} H={h} K={kk} {dt}"
+              f"{' nonzero state and dstate_out' if nonzero else ''}"
+              f"{f' model decays ({zeros} zeros, {ones} ones)' if model else ''}: "
+              + ", ".join(f"{g} {uses[g]:.3f}" for g in uses)
+              + f" of the limit (worst {worst}, max_err {errs[worst]:.3g}; with a fixed "
+              f"atol 1e-5: {max(fixed.values()):.3f}); two runs equal bit for bit: {equal}; "
+              f"ms={ms:.4f} call_ms={call_ms:.4f} plain_ms={plain_ms:.1f} library: none "
+              f"bound_ms={bound_ms:.4f} ({bound_by}; {bound_ms / ms:.1%} of it)")
+        check(uses[worst] <= 1.0, f"wkv6 bwd {name}: {worst} {uses[worst]:.3g} of its limit")
+        check(equal, f"wkv6 bwd {name}: two runs differ")
+        del r, k, v, w, u, s0, dy, ds, xs, sets
+    return rows
+
+
 def plain_attention(torch):
     """Context: the flash wrapper's forward and backward on the card run
     their plain versions (``ops._forward`` and ``ops._backward`` patched
@@ -2041,6 +2212,123 @@ def plain_attention(torch):
         finally:
             ops._forward, ops._backward = real
     return patched()
+
+
+def plain_wkv6(torch, backward_only: bool = False):
+    """Context: rwkv6's recurrence on the card runs its plain loop
+    (``models.rwkv6.wkv6`` patched to ``wkv6_ref``, which autograd
+    differentiates), or with ``backward_only`` the forward kernel with the
+    plain reverse recurrence as its gradient (the wrapper's ``ops._backward``
+    patched to ``wkv6_bwd_ref``); the package has no switch for either.  For
+    the gradient check."""
+    import contextlib
+
+    from repro_torch.kernels.rwkv6_wkv import ops, wkv6_bwd_ref, wkv6_ref
+    from repro_torch.models import rwkv6
+
+    @contextlib.contextmanager
+    def patched():
+        real = rwkv6.wkv6, ops._backward
+        if backward_only:
+            ops._backward = lambda *a: wkv6_bwd_ref(*a)
+        else:
+            rwkv6.wkv6 = wkv6_ref
+        try:
+            yield
+        finally:
+            rwkv6.wkv6, ops._backward = real
+    return patched()
+
+
+def rwkv6_grad_check(torch, dev) -> dict:
+    """rwkv6-7b at full width and `GRAD_CHECK_LAYERS` layers: one loss and
+    gradient of ``registry.loss_fn`` through the WKV6 kernels (forward and
+    backward), each leaf held to `GRAD_CHECK_SHARE` of its largest element
+    and the loss to `GRAD_CHECK_LOSS_RTOL` against
+    - in bfloat16, the same forward kernel with the plain reverse recurrence
+      as its gradient (`plain_wkv6` ``backward_only``: no backward launch);
+    - in float32, the plain loop differentiated by autograd (`plain_wkv6`:
+      no WKV6 launch at all).
+    In bfloat16 the plain loop's gradients are printed too, not held: the
+    forward kernel's y lies within one bfloat16 step of the plain loop's
+    (its own check, phase 2), and at these random weights the model turns
+    that step into a few per cent of a gradient leaf, with either
+    backward."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import to_port_layout
+    from repro_torch.device import generator
+    from repro_torch.kernels import wkv6, wkv6_backward
+    from repro_torch.models import registry
+    from repro_torch.models.param import spec_leaves, tree_leaves
+    from repro_torch.training.data import data_iterator
+    from repro_torch.training.train_step import init_params
+
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=GRAD_CHECK_LAYERS,
+                                  dtype=dt)
+        params = init_params(cfg, generator(0, dev), dev)
+        names = ["/".join(p) for p, _ in spec_leaves(registry.abstract_params(cfg))]
+        batch = next(data_iterator(cfg.vocab_size, 4, 256, seed=0))
+        batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev) for k, v in batch.items()}
+
+        def loss_and_grads():
+            counts = (wkv6.launches, wkv6_backward.launches)
+            loss, _ = registry.loss_fn(to_port_layout(params), batch, cfg)
+            grads = torch.autograd.grad(loss, tree_leaves(params))
+            torch.cuda.synchronize()
+            launched = (wkv6.launches - counts[0], wkv6_backward.launches - counts[1])
+            return float(loss.detach()), grads, launched
+
+        def shares(grads, ref):
+            return {n: float((a.float() - b.float()).abs().max())
+                    / max(float(b.float().abs().max()), 1e-30)
+                    for n, a, b in zip(names, grads, ref)}
+
+        loss_k, grads_k, launched = loss_and_grads()
+        check(launched == (2 * GRAD_CHECK_LAYERS, GRAD_CHECK_LAYERS),
+              f"rwkv6 grad check {dt}: the kernel run launched {launched}")
+        for name, a in zip(names, grads_k):
+            check(bool(torch.isfinite(a).all()), f"rwkv6 grad check {dt}: {name} not finite")
+        runs = {}
+        for label, ctx, want in (
+                ("the plain reverse recurrence", plain_wkv6(torch, backward_only=True),
+                 (2 * GRAD_CHECK_LAYERS, 0)),
+                ("the plain loop", plain_wkv6(torch), (0, 0))):
+            if dt == "float32" and label != "the plain loop":
+                continue
+            with ctx:
+                loss_p, grads_p, launched_p = loss_and_grads()
+            check(launched_p == want, f"rwkv6 grad check {dt}: {label} launched {launched_p}")
+            runs[label] = (loss_p, shares(grads_k, grads_p))
+            del grads_p
+        held = "the plain reverse recurrence" if dt == "bfloat16" else "the plain loop"
+        row = {}
+        for label, (loss_p, sh) in runs.items():
+            worst = max(sh, key=sh.get)
+            loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+            row[label] = dict(loss_kernels=loss_k, loss_plain=loss_p, loss_rel=loss_rel,
+                              worst_leaf=worst, worst_share=sh[worst],
+                              median_share=statistics.median(sh.values()), held=label == held)
+            print(f"rwkv6 grad check: rwkv6-7b full width, {GRAD_CHECK_LAYERS} layers, B 4 S "
+                  f"256 {dt}, kernels against {label}{'' if label == held else ' (not held)'}"
+                  f": loss {loss_k:.6f} / {loss_p:.6f} (rel {loss_rel:.3g}, tol "
+                  f"{GRAD_CHECK_LOSS_RTOL}); {len(sh)} gradient leaves, largest max|a-b|/max|b| "
+                  f"{sh[worst]:.4g} at {worst} (tol {GRAD_CHECK_SHARE}), median "
+                  f"{row[label]['median_share']:.4g}; launches forward {launched[0]} backward "
+                  f"{launched[1]}")
+            if label == held:
+                for name in sorted(sh):
+                    print(f"  rwkv6 grad check {dt} {name}: {sh[name]:.4g}")
+                check(loss_rel <= GRAD_CHECK_LOSS_RTOL, f"rwkv6 grad check {dt}: losses differ")
+                check(sh[worst] <= GRAD_CHECK_SHARE, f"rwkv6 grad check {dt}: {worst} differs")
+        out[dt] = row
+        del params, grads_k
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def train_grad_check(torch, np, dev) -> dict:
@@ -2105,57 +2393,159 @@ def train_run(torch, dev, argv=TRAIN_ARGS) -> dict:
     """A model through ``launch.train`` (its ``train``, as ``main`` runs it;
     qwen3-1.7b at full width and depth unless ``argv`` says otherwise): the
     launch counters set to 0 just before and read just after; ce finite and
-    falling, both flash kernels launched (2 forward per
-    layer and step: the forward and its recompute under checkpointing; 1
-    backward)."""
-    from repro_torch.kernels import flash_attention, flash_attention_backward
+    falling, the model's kernels launched (2 forward per layer and step: the
+    forward and its recompute under checkpointing; 1 backward): flash
+    attention's, or for rwkv6 WKV6's and no flash kernel."""
+    from repro_torch.kernels import (flash_attention, flash_attention_backward, wkv6,
+                                     wkv6_backward)
     from repro_torch.launch import train as launcher
 
     args = launcher.parser().parse_args(argv)
     torch.cuda.empty_cache()
-    flash_attention.launches = 0
-    flash_attention_backward.launches = 0
+    counters = (flash_attention, flash_attention_backward, wkv6, wkv6_backward)
+    for c in counters:
+        c.launches = 0
     out = launcher.train(args)
-    fwd, bwd = flash_attention.launches, flash_attention_backward.launches
+    fwd, bwd, wf, wb = (c.launches for c in counters)
     cfg, ces = out["cfg"], out["ce"]
     steady = sorted(out["step_s"][1:])
     step_ms = 1e3 * steady[len(steady) // 2]
     tokens = args.batch * args.seq
-    res = dict(preset=args.preset, dtype=cfg.dtype, ce_first=ces[0], ce_last=ces[-1],
-               steps=args.steps, batch=args.batch,
+    res = dict(arch=args.arch, preset=args.preset, dtype=cfg.dtype, layers=cfg.num_layers,
+               ce_first=ces[0], ce_last=ces[-1], steps=args.steps, batch=args.batch,
                seq=args.seq, step_ms=step_ms, first_step_ms=1e3 * out["step_s"][0],
                tokens_per_s=tokens / (step_ms / 1e3),
                launcher_tokens_per_s=out["tokens_per_s"],
                peak_gib=out["peak_bytes"] / 2 ** 30, flash_launches=fwd,
-               flash_bwd_launches=bwd)
+               flash_bwd_launches=bwd, wkv6_launches=wf, wkv6_bwd_launches=wb)
+    recurrent = cfg.family == "ssm"
+    kf, kb, name = (wf, wb, "wkv6") if recurrent else (fwd, bwd, "flash")
     print(f"train {args.arch} {args.preset} ({cfg.num_layers} layers, {cfg.dtype}): ce "
           f"{ces[0]:.4f} -> {ces[-1]:.4f} in {args.steps} steps of {args.batch}x{args.seq}; "
           f"step {step_ms:.1f} ms (median after the first, {res['first_step_ms']:.0f} ms), "
           f"{res['tokens_per_s']:.0f} tokens/s, peak {res['peak_gib']:.2f} GiB; launches "
-          f"flash {fwd} ({fwd / args.steps:.0f} a step) backward {bwd} "
-          f"({bwd / args.steps:.0f} a step)")
+          f"{name} {kf} ({kf / args.steps:.0f} a step) backward {kb} "
+          f"({kb / args.steps:.0f} a step)" + (f", flash {fwd + bwd}" if recurrent else ""))
     check(all(math.isfinite(c) for c in ces), "train: non-finite ce")
     check(ces[-1] < ces[0], f"train: ce did not fall ({ces[0]} -> {ces[-1]})")
-    check(fwd == 2 * cfg.num_layers * args.steps and bwd == cfg.num_layers * args.steps,
-          f"train: launches flash {fwd}, backward {bwd}")
+    want = (2 * cfg.num_layers * args.steps, cfg.num_layers * args.steps)
+    other = (fwd, bwd) if recurrent else (wf, wb)
+    check((kf, kb) == want and other == (0, 0),
+          f"train: launches flash {fwd}, backward {bwd}; wkv6 {wf}, backward {wb}")
     return res
 
 
-#: kernel name -> kind, for the training step's device-time breakdown
-STEP_KINDS = (("bwd_", "flash backward"), ("flash_fwd", "flash forward"),
+def rwkv6_train_steps(torch, dev, layers: int = RWKV_TRAIN_LAYERS,
+                      steps: int = RWKV_TRAIN_STEPS) -> dict:
+    """rwkv6-7b at full width and ``layers`` of its 32 layers in bfloat16,
+    ``steps`` AdamW steps through ``make_train_step`` (as `train_profile`
+    drives it) of B 4 x S 256 tokens of the bigram chain over 1,024 ids, the
+    WKV6 counters set to 0 just before and read just after: ce finite and
+    falling, 2 forward and 1 backward WKV6 launches a layer and step, no
+    flash kernel; step time (median after the first), tokens/s, peak
+    memory; then `PROFILED_STEPS` more steps under `profile_steps`."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import generator
+    from repro_torch.kernels import (flash_attention, flash_attention_backward, wkv6,
+                                     wkv6_backward)
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.training import adamw_init, make_train_step
+    from repro_torch.training.data import data_iterator
+    from repro_torch.training.train_step import init_params
+
+    cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=layers)
+    torch.cuda.empty_cache()
+    params = init_params(cfg, generator(0, dev), dev)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, lr=1e-3)
+    data = data_iterator(1024, 4, 256, seed=0)
+    batches = [{k: torch.as_tensor(v, dtype=torch.long, device=dev)
+                for k, v in next(data).items()} for _ in range(steps + PROFILED_STEPS)]
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (wkv6, wkv6_backward, flash_attention, flash_attention_backward)
+    for c in counters:
+        c.launches = 0
+    ces, step_s = [], []
+    for b in batches[:steps]:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        ces.append(float(m["ce"]))
+        step_s.append(time.perf_counter() - t0)
+    wf, wb, fl, flb = (c.launches for c in counters)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = sorted(step_s[1:])
+    step_ms = 1e3 * steady[len(steady) // 2]
+    tokens = 4 * 256
+    print(f"train rwkv6-7b full width ({layers} of 32 layers, {n_params / 1e9:.2f} B "
+          f"params, bfloat16) through make_train_step: ce {ces[0]:.4f} -> {ces[-1]:.4f} "
+          f"in {steps} steps of 4x256; step {step_ms:.1f} ms (median after the first, "
+          f"{1e3 * step_s[0]:.0f} ms), {tokens / (step_ms / 1e3):.0f} tokens/s, peak "
+          f"{peak:.2f} GiB; launches wkv6 {wf} ({wf / steps:.0f} a step) backward {wb} "
+          f"({wb / steps:.0f} a step), flash {fl + flb}")
+    check(all(math.isfinite(c) for c in ces), "train rwkv6: non-finite ce")
+    check(ces[-1] < ces[0], f"train rwkv6: ce did not fall ({ces[0]} -> {ces[-1]})")
+    check((wf, wb, fl, flb) == (2 * layers * steps, layers * steps, 0, 0),
+          f"train rwkv6: launches wkv6 {wf}, backward {wb}, flash {fl}, {flb}")
+    state = [params, opt]
+
+    def run_step(i):
+        state[:] = step(*state, batches[steps + i])[:2]
+    prof = profile_steps(torch, run_step, PROFILED_STEPS,
+                         f"train profile rwkv6-7b ({layers} layers)")
+    del params, opt, state
+    return dict(arch="rwkv6-7b", layers=layers, dtype="bfloat16", params=n_params,
+                ce_first=ces[0], ce_last=ces[-1], ces=ces, steps=steps, batch=4, seq=256,
+                step_ms=step_ms, first_step_ms=1e3 * step_s[0],
+                tokens_per_s=tokens / (step_ms / 1e3), peak_gib=peak,
+                wkv6_launches=wf, wkv6_bwd_launches=wb, profile=prof)
+
+
+#: kernel name -> kind, for the training step's device-time breakdown (the
+#: first key a name holds decides)
+STEP_KINDS = (("wkv6_bwd", "wkv6 backward"), ("wkv6_chunked", "wkv6 forward"),
+              ("bwd_", "flash backward"), ("flash_fwd", "flash forward"),
               ("gemm", "matrix products"), ("xmma", "matrix products"),
               ("cutlass", "matrix products"), ("nvjet", "matrix products"),
               ("reduce", "reductions"), ("elementwise", "elementwise"),
               ("vectorized", "elementwise"))
 
 
-def train_profile(torch, dev, steps: int = 2) -> dict:
-    """Where a qwen3-1.7b training step's device time goes, under
-    ``torch.profiler``: one warm-up step, then ``steps`` profiled; the
-    kernels' summed device time by kind (`STEP_KINDS`, by name) and the
-    device's busy share of the wall."""
+def profile_steps(torch, run_step, steps: int, label: str) -> dict:
+    """``steps`` calls of ``run_step(i)`` under ``torch.profiler``: the
+    kernels' summed device time a step by kind (`STEP_KINDS`, by name), the
+    device's busy share of the wall, the kernels a step."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            run_step(i)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    kinds, launches = {}, 0
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA":
+            continue
+        kind = next((k for key, k in STEP_KINDS if key in e.key), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3 / steps
+        launches += e.count
+    busy = sum(kinds.values())
+    check(busy > 0, f"{label}: the profiler saw no device time")
+    print(f"{label}: a step {wall_ms:.1f} ms wall under the profiler, device busy "
+          f"{busy:.1f} ms ({busy / wall_ms:.1%}), {launches / steps:.0f} kernels a step: "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(kinds.items(), key=lambda x: -x[1])))
+    return dict(wall_ms=wall_ms, busy_ms=busy, kernels_per_step=launches / steps,
+                by_kind_ms=kinds)
+
+
+def train_profile(torch, dev, steps: int = 2) -> dict:
+    """Where a qwen3-1.7b training step's device time goes: one warm-up
+    step, then ``steps`` under `profile_steps`."""
     from repro_torch.launch import train as launcher
     from repro_torch.device import generator
     from repro_torch.training import adamw_init, make_train_step
@@ -2171,50 +2561,37 @@ def train_profile(torch, dev, steps: int = 2) -> dict:
                          seed=args.seed)
     batches = [{k: torch.as_tensor(v, dtype=torch.long, device=dev)
                 for k, v in next(data).items()} for _ in range(steps + 1)]
-    params, opt, _ = step(params, opt, batches[0])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for b in batches[1:]:
-            params, opt, _ = step(params, opt, b)
-        torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-    kinds, launches = {}, 0
-    for e in prof.key_averages():
-        if e.device_type.name != "CUDA":
-            continue
-        kind = next((k for key, k in STEP_KINDS if key in e.key), "other")
-        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3 / steps
-        launches += e.count
-    busy = sum(kinds.values())
-    check(busy > 0, "train profile: the profiler saw no device time")
-    print(f"train profile: a step {wall_ms:.1f} ms wall under the profiler, device busy "
-          f"{busy:.1f} ms ({busy / wall_ms:.1%}), {launches / steps:.0f} kernels a step: "
-          + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(kinds.items(), key=lambda x: -x[1])))
-    del params, opt
-    return dict(wall_ms=wall_ms, busy_ms=busy, kernels_per_step=launches / steps,
-                by_kind_ms=kinds)
+    state = list(step(params, opt, batches[0])[:2])
+
+    def run_step(i):
+        state[:] = step(*state, batches[i + 1])[:2]
+    out = profile_steps(torch, run_step, steps, "train profile")
+    del params, opt, state
+    return out
 
 
 def train_phase(torch, F, np, dev, randn, lib_path) -> dict:
-    """The training phase (``--only train``): the backward kernel's build
-    and cases, the full-width gradient check, the full run."""
+    """The training phase (``--only train``): the backward kernels' builds
+    and cases (flash attention's, then WKV6's), the full-width gradient
+    checks, the full runs."""
     build = flash_bwd_build_report(lib_path)
     rows = flash_bwd_kernel_phase(torch, F, dev, randn)
-    grad = train_grad_check(torch, np, dev)
+    wkv_build = wkv6_bwd_build_report(lib_path)
+    wkv_rows = wkv6_bwd_kernel_phase(torch, dev, randn)
     gc.collect()
     torch.cuda.empty_cache()
-    run = train_run(torch, dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    prof = train_profile(torch, dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    run_f32 = train_run(torch, dev, TRAIN_F32_ARGS)
-    gc.collect()
-    torch.cuda.empty_cache()
-    return dict(build=build, rows=rows, grad_check=grad, run=run, profile=prof,
-                run_f32=run_f32)
+    out = dict(build=build, rows=rows, wkv6_build=wkv_build, wkv6_rows=wkv_rows)
+    for key, fn in (("grad_check", lambda: train_grad_check(torch, np, dev)),
+                    ("run", lambda: train_run(torch, dev)),
+                    ("profile", lambda: train_profile(torch, dev)),
+                    ("run_f32", lambda: train_run(torch, dev, TRAIN_F32_ARGS)),
+                    ("rwkv6_grad_check", lambda: rwkv6_grad_check(torch, dev)),
+                    ("rwkv6_run", lambda: rwkv6_train_steps(torch, dev)),
+                    ("rwkv6_run_f32", lambda: train_run(torch, dev, RWKV_TRAIN_F32_ARGS))):
+        out[key] = fn()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def _tap(fn, workflow, store, request_seeds):

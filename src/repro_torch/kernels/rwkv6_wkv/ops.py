@@ -1,29 +1,32 @@
-"""Public WKV6 wrapper: [B,T,H,K] inputs, any T >= 1, float32 or bfloat16.
+"""Public WKV6 wrapper: [B,T,H,K] inputs, any T >= 1, float32 or bfloat16,
+differentiable.
 
 A tensor on the CPU goes to the plain version (``ref.wkv6_ref``, which
-autograd differentiates); a tensor on the card launches the CUDA kernel
-(``csrc/wkv6.cu``) or raises, and raises too under grad mode when an input
-needs a gradient, since the kernel has no backward yet.
-``wkv6.launches`` counts the kernel launches and nothing else.
+autograd differentiates); a tensor on the card launches the CUDA kernels or
+raises: the forward (``csrc/wkv6.cu``) and, where an input needs a gradient,
+the backward (``csrc/wkv6_bwd.cu``) as its gradient.
+``wkv6.launches`` counts the forward kernel's launches and
+``wkv6_backward.launches`` the backward's (one per call), and nothing else.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.rwkv6_wkv.ref import wkv6_ref
+from repro_torch.kernels.rwkv6_wkv.ref import wkv6_bwd_ref, wkv6_ref
 
 HEAD_SIZES = (32, 64)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: Rows of the state a backward block takes, and the time steps between the
+#: states its forward pass keeps (``KT`` and ``C`` in csrc/wkv6_bwd.cu).
+BWD_ROW_TILE = 16
+BWD_CHUNK = 16
 
 
-def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-         u: torch.Tensor, state: torch.Tensor
-         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """r/k/v/w: [B,T,H,K]; u: [H,K]; state: [B,H,K,K] float32 (row k,
-    column v).  Returns (y [B,T,H,K] in r.dtype, final state float32)."""
+def _check(r, k, v, w, u, state):
+    """Shapes, and on the card what the kernels take."""
     b, t, h, kk = r.shape
     for name, x in (("k", k), ("v", v), ("w", w)):
         if x.shape != r.shape:
@@ -34,9 +37,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     if t == 0:
         raise ValueError("wkv6 needs at least one time step")
     if r.device.type == "cpu":
-        return wkv6_ref(r, k, v, w, u, state)
-    _build.refuse_grad("wkv6", r, k, v, w, u, state)
-
+        return
     for name, x in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u), ("state", state)):
         if x.device != r.device or x.device.type != "cuda":
             raise ValueError(f"{name} is on {x.device}; the kernel needs every "
@@ -50,6 +51,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     if kk not in HEAD_SIZES:
         raise ValueError(f"head size {kk} not in {HEAD_SIZES}")
 
+
+def _forward(r, k, v, w, u, state):
+    b, t, h, kk = r.shape
     y = torch.empty_like(r)
     s_out = torch.empty_like(state)
     err = _build.library().repro_wkv6(
@@ -61,4 +65,81 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     return y, s_out
 
 
+def _backward(r, k, v, w, u, state, dy, dstate_out):
+    if r.device.type == "cpu":
+        return wkv6_bwd_ref(r, k, v, w, u, state, dy, dstate_out)
+    b, t, h, kk = r.shape
+    if (dy.shape != r.shape or dy.dtype != r.dtype or dy.device != r.device
+            or not dy.is_contiguous() or dy.data_ptr() % 16):
+        raise ValueError(f"dy must be a contiguous, 16-byte aligned {r.dtype} tensor "
+                         f"of r's shape {tuple(r.shape)}")
+    if dstate_out is not None and (
+            dstate_out.shape != state.shape or dstate_out.dtype != torch.float32
+            or dstate_out.device != r.device or not dstate_out.is_contiguous()
+            or dstate_out.data_ptr() % 16):
+        raise ValueError(f"dstate_out must be a contiguous, 16-byte aligned float32 "
+                         f"tensor of the state's shape {tuple(state.shape)}")
+    dr, dk, dv, dw = (torch.empty_like(x) for x in (r, k, v, w))
+    du, dstate = torch.empty_like(u), torch.empty_like(state)
+    f32 = dict(dtype=torch.float32, device=r.device)
+    ckpt = torch.empty(b * h * -(-t // BWD_CHUNK) * kk * kk, **f32)
+    dv_part = torch.empty(kk // BWD_ROW_TILE * r.numel(), **f32)
+    du_part = torch.empty(b * h * kk, **f32)
+    err = _build.library().repro_wkv6_bwd(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        state.data_ptr(), dy.data_ptr(),
+        None if dstate_out is None else dstate_out.data_ptr(),
+        dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+        dstate.data_ptr(), ckpt.data_ptr(), dv_part.data_ptr(), du_part.data_ptr(),
+        b, t, h, kk, _DTYPE_CODE[r.dtype], torch.cuda.current_stream(r.device).cuda_stream)
+    _build.check(err, "wkv6_backward")
+    _build.count_launch(wkv6_backward)
+    return dr, dk, dv, dw, du, dstate
+
+
+class _WKV6(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient (on the
+    card only: the CPU differentiates ``wkv6_ref``).  A gradient that does
+    not reach y or the final state comes as None and is taken as zero."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return _forward(r, k, v, w, u, state)
+
+    @staticmethod
+    def backward(ctx, dy, dstate_out):
+        r, k, v, w, u, state = ctx.saved_tensors
+        dy = torch.zeros_like(r) if dy is None else dy.contiguous()
+        grads = _backward(r, k, v, w, u, state, dy,
+                          None if dstate_out is None else dstate_out.contiguous())
+        return (*grads[:5], grads[5] if ctx.needs_input_grad[5] else None)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, state: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r/k/v/w: [B,T,H,K]; u: [H,K]; state: [B,H,K,K] float32 (row k,
+    column v).  Returns (y [B,T,H,K] in r.dtype, final state float32).  A
+    gradient flows to every input through ``wkv6_backward``."""
+    _check(r, k, v, w, u, state)
+    if r.device.type == "cpu":
+        return wkv6_ref(r, k, v, w, u, state)
+    return _WKV6.apply(r, k, v, w, u, state)
+
+
+def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                  u: torch.Tensor, state: torch.Tensor, dy: torch.Tensor,
+                  dstate_out: Optional[torch.Tensor] = None):
+    """(dr, dk, dv, dw, du, dstate) of ``wkv6(r, k, v, w, u, state)`` for the
+    output gradient ``dy`` (r's type and shape) and the final state's
+    gradient ``dstate_out`` (float32, zero when None): the gradients in
+    their inputs' types, dstate in float32.  On the CPU ``wkv6_bwd_ref``.
+    Deterministic on the card (no atomics)."""
+    _check(r, k, v, w, u, state)
+    return _backward(r, k, v, w, u, state, dy, dstate_out)
+
+
 wkv6.launches = 0
+wkv6_backward.launches = 0

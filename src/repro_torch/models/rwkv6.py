@@ -32,7 +32,9 @@ as the JAX package keeps it out of the kernel.
 ``loss_fn`` is the training path: every layer from a zero state, under
 ``torch.utils.checkpoint``, and the chunked cross entropy.  On the CPU the
 recurrence is the plain version, which autograd differentiates; on the card
-the WKV6 kernel has no backward yet and refuses inputs that need a gradient.
+the WKV6 forward kernel with the WKV6 backward kernel as its gradient
+(``kernels.wkv6_backward``): a layer launches the forward twice a step (its
+forward and the recompute under checkpointing) and the backward once.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions; the flash backward kernel, the wrappers that refuse a gradient
-they cannot give, and a deterministic training step.  These tests need a CUDA device and ``nvcc`` and skip elsewhere;
+versions; the flash and WKV6 backward kernels, the wrappers that refuse a
+gradient they cannot give, and deterministic training steps.  These tests need a CUDA device and ``nvcc`` and skip elsewhere;
 this file imports no JAX, so it runs on a machine with the card:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -21,7 +21,7 @@ from repro_torch.kernels import decode_attention as K
 from repro_torch.kernels.ddim_step import ddim_coefs, ddim_step_ref
 from repro_torch.kernels.flash_attention import (
     attention_bwd_ref, attention_ref, flash_attention_with_lse, ops as flash_ops)
-from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_ref
+from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_backward, wkv6_bwd_ref, wkv6_ref
 from repro_torch.models import layers as L
 from repro_torch.models.layers import rms_norm, row_mean
 from repro_torch.models.aigc.dit import schedule
@@ -73,7 +73,8 @@ def test_every_binding_has_a_c_entry_point():
     sources = {p.name for p in _build.sources()}
     assert sources == {"flash_attention.cu", "flash_attention_bf16.cu",
                        "flash_attention_bwd.cu", "flash_attention_bwd_bf16.cu",
-                       "ddim_step.cu", "decode_attention.cu", "wkv6.cu", "runtime.cu"}
+                       "ddim_step.cu", "decode_attention.cu", "wkv6.cu", "wkv6_bwd.cu",
+                       "runtime.cu"}
     text = "".join(p.read_text() for p in _build.sources())
     entries = set(re.findall(r'extern "C" [\w\s*]+?\b(repro_\w+)\(', text))
     assert entries == set(_build.SIGNATURES)
@@ -564,6 +565,111 @@ def test_wkv6_kernel_holds_model_decays_on_card(cuda, kk, h, dtype, t):
     assert_wkv_close(y, s, *wkv6_ref(*xs), dtype)
 
 
+#: The WKV6 backward against ``wkv6_bwd_ref``, each output element by
+#: element: both sum in float32 in another order, and the sums over v (dr,
+#: dk, dw) and over k (dv) cancel, so an element near zero differs by the
+#: float32 rounding of its terms, not of itself; the absolute part is scaled
+#: to the output's largest element.  float32 (and dstate, float32 at either
+#: input type): |a - b| <= 2e-5 (|b| + max|b|); bfloat16 one bfloat16 step,
+#: |a - b| <= 2^-7 |b| + 1e-5 max|b|, since both round the same float32
+#: gradient once.
+WKV_BWD_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2 ** -7, 1e-5)}
+#: The reduced rwkv6's gradients, card against CPU, of each leaf's largest:
+#: the forward kernel's chunked 3xTF32 sums and the backward's float32 sums
+#: against the plain loops', through 2 layers and the cross entropy.
+RWKV_GRAD_SHARE = 1e-4
+
+
+def assert_wkv_grads_close(ours, ref, dtype):
+    for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "dstate"), ours, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        rtol, share = WKV_BWD_TOL[torch.float32 if name == "dstate" else dtype]
+        a, b = a.float(), b.float()
+        limit = rtol * b.abs() + share * b.abs().max()
+        worst = float(((a - b).abs() / limit.clamp_min(1e-30)).max())  # 0 where both are
+        assert bool(torch.isfinite(a).all()) and worst <= 1.0, \
+            f"{name} differs: {worst:.3g} of the limit"
+
+
+def wkv_bwd_inputs(gen, b, t, h, kk, dtype, nonzero, device):
+    """`wkv_inputs`, each needing a gradient, with a random dy and, where
+    ``nonzero``, a nonzero initial state and final-state gradient."""
+    xs = wkv_inputs(gen, b, t, h, kk, dtype, nonzero, device)
+    dy = torch.randn(b, t, h, kk, generator=gen, device=device).to(dtype)
+    ds = torch.randn(b, h, kk, kk, generator=gen, device=device) if nonzero else None
+    return xs, dy, ds
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nonzero", [False, True])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("t", [1, 15, 16, 97, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kk,h", [(32, 8), (64, 4)])
+def test_wkv6_backward_matches_plain_on_card(cuda, kk, h, dtype, t, b, nonzero):
+    """T of one step, under one chunk of 16, one whole chunk, ragged ends."""
+    gen = torch.Generator(device=cuda).manual_seed(t * 11 + b)
+    xs, dy, ds = wkv_bwd_inputs(gen, b, t, h, kk, dtype, nonzero, cuda)
+    launches = wkv6_backward.launches
+    ours = wkv6_backward(*xs, dy, ds)
+    torch.cuda.synchronize()
+    assert wkv6_backward.launches == launches + 1
+    assert_wkv_grads_close(ours, wkv6_bwd_ref(*xs, dy, ds), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [97, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kk,h", [(32, 8), (64, 64)])
+def test_wkv6_backward_holds_model_decays_on_card(cuda, kk, h, dtype, t):
+    """The model's decays, exact zeros and ones among them: a backward that
+    recovered S_{t-1} from S_t by dividing by w_t turns non-finite here."""
+    gen = torch.Generator(device=cuda).manual_seed(t * 3 + kk)
+    xs, dy, ds = wkv_bwd_inputs(gen, 1, t, h, kk, dtype, True, cuda)
+    xs[3] = model_decays(gen, (1, t, h, kk), cuda).to(dtype)
+    assert_wkv_grads_close(wkv6_backward(*xs, dy, ds), wkv6_bwd_ref(*xs, dy, ds), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_backward_gives_equal_bits_twice_on_card(cuda, dtype):
+    """rwkv6-7b's heads at B 2, T 200: two calls, every output equal bit for
+    bit (dv's row tiles and du's batch rows summed in a fixed order)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    xs, dy, ds = wkv_bwd_inputs(gen, 2, 200, 64, 64, dtype, True, cuda)
+    first = wkv6_backward(*xs, dy, ds)
+    second = wkv6_backward(*xs, dy, ds)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state_grad", [False, True])
+@pytest.mark.parametrize("use_state", [False, True])
+def test_wkv6_differentiates_through_the_backward_kernel_on_card(cuda, state_grad, use_state):
+    """autograd through ``wkv6`` on the card: one forward and one backward
+    launch and exactly ``wkv6_backward``'s gradients; a final state the loss
+    does not use has a zero gradient; the initial state gets one only where
+    it asks for it."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    xs, dy, ds = wkv_bwd_inputs(gen, 2, 50, 4, 64, torch.bfloat16, True, cuda)
+    leaves = [x.clone().requires_grad_(i < 5 or state_grad) for i, x in enumerate(xs)]
+    fwd, bwd = wkv6.launches, wkv6_backward.launches
+    y, s = wkv6(*leaves)
+    loss = (y.float() * dy.float()).sum() + ((s * ds).sum() if use_state else 0)
+    grads = torch.autograd.grad(loss, [x for x in leaves if x.requires_grad])
+    torch.cuda.synchronize()
+    assert (wkv6.launches, wkv6_backward.launches) == (fwd + 1, bwd + 1)
+    want = wkv6_backward(*xs, dy, ds if use_state else None)
+    assert len(grads) == (6 if state_grad else 5)
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b)
+    with torch.no_grad():
+        wkv6(*leaves)
+    assert wkv6_backward.launches == bwd + 2
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [2048, 4096])
 def test_norms_of_a_row_do_not_depend_on_the_batch_on_card(cuda, d):
@@ -937,13 +1043,6 @@ def test_flash_attention_differentiates_through_the_backward_kernel_on_card(cuda
         assert torch.equal(a, b)
 
 
-def _wkv_call(cuda, rg):
-    x = torch.randn(1, 8, 2, 32, device=cuda, requires_grad=rg)
-    w = torch.rand(1, 8, 2, 32, device=cuda)
-    return lambda: wkv6(x, x, x, w, torch.zeros(2, 32, device=cuda),
-                        torch.zeros(1, 2, 32, 32, device=cuda))
-
-
 def _decode_call(cuda, rg):
     q = torch.randn(2, 2, 2, 64, device=cuda, requires_grad=rg)
     kc = torch.randn(2, 2, 32, 64, device=cuda)
@@ -963,7 +1062,7 @@ def _ddim_call(cuda, rg):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("make", [_wkv_call, _decode_call, _decode_int8_call, _ddim_call])
+@pytest.mark.parametrize("make", [_decode_call, _decode_int8_call, _ddim_call])
 def test_kernels_without_a_backward_refuse_a_gradient_on_card(cuda, make):
     """Under grad mode an input that needs a gradient makes the wrapper
     raise, naming the missing backward, rather than return a result that
@@ -978,20 +1077,41 @@ def test_kernels_without_a_backward_refuse_a_gradient_on_card(cuda, make):
 
 
 @pytest.mark.gpu
-def test_rwkv6_training_on_the_card_raises_at_the_wkv6_guard(cuda):
+def test_rwkv6_loss_gradients_on_the_card_match_the_cpu(cuda):
+    """Reduced rwkv6 (2 layers of 8 heads of 32) in float32: one loss and
+    gradient of ``registry.loss_fn`` on the card, through the WKV6 forward
+    and backward kernels (2 forward and 1 backward launches a layer: each
+    layer's forward is recomputed under checkpointing), against the same on
+    the CPU (autograd of the plain loop) from the same weights and batch:
+    the loss to 1e-5 and every leaf to RWKV_GRAD_SHARE of its largest."""
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.convert import to_port_layout
     from repro_torch.models import registry
-    from repro_torch.training.train_step import init_params, make_train_step
-    from repro_torch.training import adamw_init
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.training.train_step import init_params, trainable
 
-    cfg = dataclasses.replace(get_config("rwkv6-7b").reduced(), dtype="bfloat16")
-    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
-    tok = torch.randint(0, cfg.vocab_size, (2, 16), device=cuda)
-    with pytest.raises(RuntimeError, match="wkv6 has no backward kernel"):
-        make_train_step(cfg)(params, adamw_init(params), {"tokens": tok, "labels": tok})
-    assert registry.module_for(cfg).__name__.endswith("rwkv6")
+    cfg = dataclasses.replace(get_config("rwkv6-7b").reduced(), dtype="float32")
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = trainable(tree_map(lambda p: p.detach().to(cuda), cpu))
+    tok = torch.randint(0, cfg.vocab_size, (2, 2, 70), generator=torch.Generator().manual_seed(1))
+
+    def loss_and_grads(params, dev):
+        batch = {"tokens": tok[0].to(dev), "labels": tok[1].to(dev)}
+        loss, _ = registry.loss_fn(to_port_layout(params), batch, cfg)
+        return loss, torch.autograd.grad(loss, tree_leaves(params))
+
+    fwd, bwd = wkv6.launches, wkv6_backward.launches
+    loss_card, grads_card = loss_and_grads(card, cuda)
+    torch.cuda.synchronize()
+    assert (wkv6.launches - fwd, wkv6_backward.launches - bwd) == (2 * cfg.num_layers,
+                                                                   cfg.num_layers)
+    loss_cpu, grads_cpu = loss_and_grads(cpu, "cpu")
+    torch.testing.assert_close(loss_card.cpu(), loss_cpu, atol=0, rtol=1e-5)
+    for a, b in zip(grads_card, grads_cpu):
+        assert bool(torch.isfinite(a).all())
+        assert float((a.cpu() - b).abs().max()) <= RWKV_GRAD_SHARE * float(b.abs().max())
 
 
 @pytest.mark.gpu
