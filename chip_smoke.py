@@ -122,8 +122,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    training shape, the float32 ``100m`` shape and the WKV6 forward's ragged,
    long, model-decay and reduced-head cases, two runs equal bit for bit,
    each timed beside the plain version with its bound; after qwen3's, one
-   loss and gradient of rwkv6-7b at full width and 2 layers through the
-   WKV6 kernels against the same with the plain loop (`plain_wkv6`);
+   loss and gradient of rwkv6-7b at full width and 2 layers with each of
+   the WKV6 forward and backward the kernel or its plain version
+   (`plain_wkv6`), the backward kernel under the plain forward held to the
+   plain loop (`RWKV_GRAD_PAIRS`);
    rwkv6-7b at full width and 16 of its 32 layers through
    ``make_train_step`` (6 AdamW steps of 4 x 256 tokens of the bigram
    chain), and the launcher's float32 ``100m`` rwkv6 for 3 steps, each
@@ -729,7 +731,7 @@ def main(argv) -> int:
         max_abs_err=max(r["max_abs_err"] for r in wb_rows),
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=None, at="rwkv6_train_4x256",
-        build=train["wkv6_build"], shapes=wb_rows, train=train["rwkv6_run"],
+        fma_bound_ms=main["fma_bound_ms"], build=train["wkv6_build"], shapes=wb_rows, train=train["rwkv6_run"],
         train_f32=train["rwkv6_run_f32"], grad_check=train["rwkv6_grad_check"]))
     print(f"total {time.perf_counter() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": kernels}))
@@ -2062,15 +2064,12 @@ WKV_BWD_CASES = [
     ("small_f32", 2, 33, 8, 32, "float32", True, False, 10),
 ]
 #: The WKV6 backward against ``wkv6_bwd_ref``, element by element on each
-#: of dr, dk, dv, dw, du and dstate: both sum in float32 in another order,
-#: and the sums over v (dr, dk, dw) and over k (dv) cancel, so an element
-#: near zero differs by the float32 rounding of its terms, not of itself;
-#: the absolute part is scaled to the output's largest element.  float32
-#: (and dstate, float32 at either input type): |a - b| <= 2e-5 (|b| +
-#: max|b|); bfloat16 one bfloat16 step, |a - b| <= 2^-7 |b| + 1e-5 max|b|,
-#: since both round the same float32 gradient once.  Each case also prints
-#: the share of the bfloat16 limit with a fixed 1e-5 in place of 1e-5 max|b|.
-WKV_BWD_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2 ** -7, 1e-5)}
+#: of dr, dk, dv, dw, du and dstate, as |a - b| <= rtol |b| + atol + share
+#: max|b| with (rtol, atol, share): float32 (and dstate, float32 at either
+#: input type) within 2e-5 of the output's largest element, (0, 0, 2e-5),
+#: since both sum in float32 in another order; bfloat16 one bfloat16 step,
+#: (2^-7, 1e-5, 0), since both round the same float32 gradient once.
+WKV_BWD_TOL = {"float32": (0.0, 0.0, 2e-5), "bfloat16": (2 ** -7, 1e-5, 0.0)}
 #: rwkv6-7b at full width trained through ``make_train_step``: depth cut to
 #: RWKV_TRAIN_LAYERS of 32 (~218 M parameters a layer and 0.54 B of
 #: embeddings: bfloat16 weights and gradients and float32 moments come to
@@ -2116,9 +2115,13 @@ def wkv6_bwd_kernel_phase(torch, dev, randn) -> list:
     random, equal bit for bit to a second, direct call; its time beside the
     plain version's.  The bound: the
     essential work, 6 K V multiply-adds per (b, t, h) (the state
-    recomputed, dr, the dS update, dk, dv, dw) at the float32 rate on the
-    CUDA cores, against r, k, v, w and dy read and dr, dk, dv and dw written
-    once.  No PyTorch call computes this gradient: library none."""
+    recomputed, dr, the dS update, dk, dv, dw) in float32 on the tensor
+    cores (3xTF32: three TF32 products each, as the WKV6 forward and the
+    float32 flash backward are bounded), against r, k, v, w and dy read, dr,
+    dk, dv and dw written and the float32 states once; the same work at the
+    float32 rate of the CUDA cores, where this kernel computes it, gives
+    ``fma_bound_ms``.  No PyTorch call computes this gradient: library
+    none."""
     from repro_torch.kernels import wkv6, wkv6_backward
     from repro_torch.kernels.rwkv6_wkv import wkv6_bwd_ref
 
@@ -2150,15 +2153,14 @@ def wkv6_bwd_kernel_phase(torch, dev, randn) -> list:
         equal = all(torch.equal(a, c) for a, c in zip(ours, again))
         del again, y, s, leaves
         ref = wkv6_bwd_ref(*xs)
-        errs, uses, fixed = {}, {}, {}
+        errs, uses = {}, {}
         for gname, a, e in zip(("dr", "dk", "dv", "dw", "du", "dstate"), ours, ref):
-            rtol, share = WKV_BWD_TOL["float32" if gname == "dstate" else dt]
+            rtol, atol, share = WKV_BWD_TOL["float32" if gname == "dstate" else dt]
             a, e = a.float(), e.float()
             d = (a - e).abs()
             errs[gname] = float(d.max())
-            uses[gname] = float((d / (rtol * e.abs() + share * e.abs().max())
+            uses[gname] = float((d / (rtol * e.abs() + atol + share * e.abs().max())
                                  .clamp_min(1e-30)).max())
-            fixed[gname] = float((d / (rtol * e.abs() + share).clamp_min(1e-30)).max())
             check(bool(torch.isfinite(a).all()), f"wkv6 bwd {name}: {gname} not finite")
         zeros, ones = int((w == 0).sum()), int((w == 1).sum())
         del ours, ref
@@ -2169,23 +2171,25 @@ def wkv6_bwd_kernel_phase(torch, dev, randn) -> list:
         elem = r.element_size()
         nbytes = 9 * b * t * h * kk * elem + 2 * u.numel() * elem + \
             (3 if nonzero else 2) * b * h * kk * kk * 4
-        bound_ms, bound_by = bound(nbytes, 12.0 * b * t * h * kk * kk)
+        flops = 12.0 * b * t * h * kk * kk
+        bound_ms, bound_by = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+        fma_bound_ms = bound(nbytes, flops)[0]
         worst = max(uses, key=uses.get)
         row = dict(shape=name, b=b, t=t, h=h, k=kk, dtype=dt, nonzero_state=nonzero,
                    model_decays=model, w_zeros=zeros, w_ones=ones,
                    max_abs_err=max(errs.values()), max_abs_errs=errs, limit_use=uses,
-                   fixed_atol_limit_use=fixed, equal_bits=equal, ms=ms, call_ms=call_ms,
-                   plain_ms=plain_ms, plain_call_ms=plain_call_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, bound_share=bound_ms / ms, library_ms=None)
+                   equal_bits=equal, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                   plain_call_ms=plain_call_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   bound_share=bound_ms / ms, fma_bound_ms=fma_bound_ms, library_ms=None)
         rows.append(row)
         print(f"wkv6 bwd {name:17s} B={b} T={t} H={h} K={kk} {dt}"
               f"{' nonzero state and dstate_out' if nonzero else ''}"
               f"{f' model decays ({zeros} zeros, {ones} ones)' if model else ''}: "
               + ", ".join(f"{g} {uses[g]:.3f}" for g in uses)
-              + f" of the limit (worst {worst}, max_err {errs[worst]:.3g}; with a fixed "
-              f"atol 1e-5: {max(fixed.values()):.3f}); two runs equal bit for bit: {equal}; "
-              f"ms={ms:.4f} call_ms={call_ms:.4f} plain_ms={plain_ms:.1f} library: none "
-              f"bound_ms={bound_ms:.4f} ({bound_by}; {bound_ms / ms:.1%} of it)")
+              + f" of the limit (worst {worst}, max_err {errs[worst]:.3g}); two runs equal "
+              f"bit for bit: {equal}; ms={ms:.4f} call_ms={call_ms:.4f} plain_ms={plain_ms:.1f}"
+              f" library: none bound_ms={bound_ms:.4f} ({bound_by}; {bound_ms / ms:.1%} of "
+              f"it) fma_bound_ms={fma_bound_ms:.4f}")
         check(uses[worst] <= 1.0, f"wkv6 bwd {name}: {worst} {uses[worst]:.3g} of its limit")
         check(equal, f"wkv6 bwd {name}: two runs differ")
         del r, k, v, w, u, s0, dy, ds, xs, sets
@@ -2214,13 +2218,13 @@ def plain_attention(torch):
     return patched()
 
 
-def plain_wkv6(torch, backward_only: bool = False):
-    """Context: rwkv6's recurrence on the card runs its plain loop
-    (``models.rwkv6.wkv6`` patched to ``wkv6_ref``, which autograd
-    differentiates), or with ``backward_only`` the forward kernel with the
-    plain reverse recurrence as its gradient (the wrapper's ``ops._backward``
-    patched to ``wkv6_bwd_ref``); the package has no switch for either.  For
-    the gradient check."""
+def plain_wkv6(torch, forward: bool = True, backward: bool = True):
+    """Context: rwkv6's recurrence on the card runs its plain versions, both
+    (``models.rwkv6.wkv6`` patched to ``wkv6_ref``, the plain loop, which
+    autograd differentiates) or one of them inside the wrapper (its
+    ``ops._forward`` patched to ``wkv6_ref`` or its ``ops._backward`` to
+    ``wkv6_bwd_ref``, the other staying the kernel); the package has no
+    switch for any.  For the gradient check."""
     import contextlib
 
     from repro_torch.kernels.rwkv6_wkv import ops, wkv6_bwd_ref, wkv6_ref
@@ -2228,32 +2232,51 @@ def plain_wkv6(torch, backward_only: bool = False):
 
     @contextlib.contextmanager
     def patched():
-        real = rwkv6.wkv6, ops._backward
-        if backward_only:
-            ops._backward = lambda *a: wkv6_bwd_ref(*a)
-        else:
+        real = rwkv6.wkv6, ops._forward, ops._backward
+        if forward and backward:
             rwkv6.wkv6 = wkv6_ref
+        elif forward:
+            ops._forward = lambda *a: wkv6_ref(*a)
+        elif backward:
+            ops._backward = lambda *a: wkv6_bwd_ref(*a)
         try:
             yield
         finally:
-            rwkv6.wkv6, ops._backward = real
+            rwkv6.wkv6, ops._forward, ops._backward = real
     return patched()
+
+
+#: rwkv6's gradient check: (name, forward, backward), each side the kernel
+#: or its plain version (`plain_wkv6`); the launches each run makes per
+#: layer; and the pairs compared, (run, against, held in bfloat16, held in
+#: float32).  Held, each leaf to `GRAD_CHECK_SHARE` of its largest element
+#: and the loss to `GRAD_CHECK_LOSS_RTOL`:
+#: - the backward kernel under the plain forward against the plain loop,
+#:   nothing of the program on the reference side;
+#: - both kernels against the forward kernel with the plain reverse
+#:   recurrence, the backward kernel alone on the same forward;
+#: - in float32, both kernels against the plain loop.
+#: In bfloat16 the forward kernel's y may lie one bfloat16 step from the
+#: plain loop's (its own limit, phase 2), and both kernels against the plain
+#: loop, and the forward kernel with the plain backward against it, are
+#: printed, not held: together the four runs split a difference between
+#: the forward's share and the backward's.
+RWKV_GRAD_RUNS = (("kernels", "kernel", "kernel", (2, 1)),
+                  ("plain_fwd_kernel_bwd", "plain", "kernel", (0, 1)),
+                  ("kernel_fwd_plain_bwd", "kernel", "plain", (2, 0)),
+                  ("plain_loop", "plain", "plain", (0, 0)))
+RWKV_GRAD_PAIRS = (("plain_fwd_kernel_bwd", "plain_loop", True, False),
+                   ("kernels", "kernel_fwd_plain_bwd", True, False),
+                   ("kernels", "plain_loop", False, True),
+                   ("kernel_fwd_plain_bwd", "plain_loop", False, False))
 
 
 def rwkv6_grad_check(torch, dev) -> dict:
     """rwkv6-7b at full width and `GRAD_CHECK_LAYERS` layers: one loss and
-    gradient of ``registry.loss_fn`` through the WKV6 kernels (forward and
-    backward), each leaf held to `GRAD_CHECK_SHARE` of its largest element
-    and the loss to `GRAD_CHECK_LOSS_RTOL` against
-    - in bfloat16, the same forward kernel with the plain reverse recurrence
-      as its gradient (`plain_wkv6` ``backward_only``: no backward launch);
-    - in float32, the plain loop differentiated by autograd (`plain_wkv6`:
-      no WKV6 launch at all).
-    In bfloat16 the plain loop's gradients are printed too, not held: the
-    forward kernel's y lies within one bfloat16 step of the plain loop's
-    (its own check, phase 2), and at these random weights the model turns
-    that step into a few per cent of a gradient leaf, with either
-    backward."""
+    gradient of ``registry.loss_fn`` for each of `RWKV_GRAD_RUNS` (in
+    float32 only both kernels and the plain loop), on the same weights and
+    batch, each run's WKV6 launches checked, and the pairs of
+    `RWKV_GRAD_PAIRS` compared leaf by leaf."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2273,59 +2296,54 @@ def rwkv6_grad_check(torch, dev) -> dict:
         names = ["/".join(p) for p, _ in spec_leaves(registry.abstract_params(cfg))]
         batch = next(data_iterator(cfg.vocab_size, 4, 256, seed=0))
         batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev) for k, v in batch.items()}
-
-        def loss_and_grads():
-            counts = (wkv6.launches, wkv6_backward.launches)
-            loss, _ = registry.loss_fn(to_port_layout(params), batch, cfg)
-            grads = torch.autograd.grad(loss, tree_leaves(params))
-            torch.cuda.synchronize()
-            launched = (wkv6.launches - counts[0], wkv6_backward.launches - counts[1])
-            return float(loss.detach()), grads, launched
-
-        def shares(grads, ref):
-            return {n: float((a.float() - b.float()).abs().max())
-                    / max(float(b.float().abs().max()), 1e-30)
-                    for n, a, b in zip(names, grads, ref)}
-
-        loss_k, grads_k, launched = loss_and_grads()
-        check(launched == (2 * GRAD_CHECK_LAYERS, GRAD_CHECK_LAYERS),
-              f"rwkv6 grad check {dt}: the kernel run launched {launched}")
-        for name, a in zip(names, grads_k):
-            check(bool(torch.isfinite(a).all()), f"rwkv6 grad check {dt}: {name} not finite")
         runs = {}
-        for label, ctx, want in (
-                ("the plain reverse recurrence", plain_wkv6(torch, backward_only=True),
-                 (2 * GRAD_CHECK_LAYERS, 0)),
-                ("the plain loop", plain_wkv6(torch), (0, 0))):
-            if dt == "float32" and label != "the plain loop":
+        for label, fwd, bwd, per_layer in RWKV_GRAD_RUNS:
+            if dt == "float32" and label not in ("kernels", "plain_loop"):
                 continue
-            with ctx:
-                loss_p, grads_p, launched_p = loss_and_grads()
-            check(launched_p == want, f"rwkv6 grad check {dt}: {label} launched {launched_p}")
-            runs[label] = (loss_p, shares(grads_k, grads_p))
-            del grads_p
-        held = "the plain reverse recurrence" if dt == "bfloat16" else "the plain loop"
+            counts = (wkv6.launches, wkv6_backward.launches)
+            with plain_wkv6(torch, forward=fwd == "plain", backward=bwd == "plain"):
+                loss, _ = registry.loss_fn(to_port_layout(params), batch, cfg)
+                grads = torch.autograd.grad(loss, tree_leaves(params))
+                torch.cuda.synchronize()
+            launched = (wkv6.launches - counts[0], wkv6_backward.launches - counts[1])
+            want = tuple(n * GRAD_CHECK_LAYERS for n in per_layer)
+            check(launched == want, f"rwkv6 grad check {dt}: {label} launched {launched}")
+            for name, g in zip(names, grads):
+                check(bool(torch.isfinite(g).all()),
+                      f"rwkv6 grad check {dt}: {label} {name} not finite")
+            runs[label] = (float(loss.detach()), grads, launched)
+            del loss
         row = {}
-        for label, (loss_p, sh) in runs.items():
+        for label, against, held_bf16, held_f32 in RWKV_GRAD_PAIRS:
+            if label not in runs or against not in runs:
+                continue
+            held = held_bf16 if dt == "bfloat16" else held_f32
+            (loss_k, grads_k, launched), (loss_p, grads_p, _) = runs[label], runs[against]
+            sh = {n: float((a.float() - b.float()).abs().max())
+                  / max(float(b.float().abs().max()), 1e-30)
+                  for n, a, b in zip(names, grads_k, grads_p)}
             worst = max(sh, key=sh.get)
             loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-            row[label] = dict(loss_kernels=loss_k, loss_plain=loss_p, loss_rel=loss_rel,
-                              worst_leaf=worst, worst_share=sh[worst],
-                              median_share=statistics.median(sh.values()), held=label == held)
+            row[f"{label}_vs_{against}"] = dict(
+                loss=loss_k, loss_against=loss_p, loss_rel=loss_rel, worst_leaf=worst,
+                worst_share=sh[worst], median_share=statistics.median(sh.values()),
+                launches=launched, held=held)
             print(f"rwkv6 grad check: rwkv6-7b full width, {GRAD_CHECK_LAYERS} layers, B 4 S "
-                  f"256 {dt}, kernels against {label}{'' if label == held else ' (not held)'}"
-                  f": loss {loss_k:.6f} / {loss_p:.6f} (rel {loss_rel:.3g}, tol "
+                  f"256 {dt}, {label} against {against}{'' if held else ' (not held)'}: loss "
+                  f"{loss_k:.6f} / {loss_p:.6f} (rel {loss_rel:.3g}, tol "
                   f"{GRAD_CHECK_LOSS_RTOL}); {len(sh)} gradient leaves, largest max|a-b|/max|b| "
                   f"{sh[worst]:.4g} at {worst} (tol {GRAD_CHECK_SHARE}), median "
-                  f"{row[label]['median_share']:.4g}; launches forward {launched[0]} backward "
-                  f"{launched[1]}")
-            if label == held:
+                  f"{row[f'{label}_vs_{against}']['median_share']:.4g}; launches forward "
+                  f"{launched[0]} backward {launched[1]}")
+            if held:
                 for name in sorted(sh):
-                    print(f"  rwkv6 grad check {dt} {name}: {sh[name]:.4g}")
-                check(loss_rel <= GRAD_CHECK_LOSS_RTOL, f"rwkv6 grad check {dt}: losses differ")
-                check(sh[worst] <= GRAD_CHECK_SHARE, f"rwkv6 grad check {dt}: {worst} differs")
+                    print(f"  rwkv6 grad check {dt} {label} {name}: {sh[name]:.4g}")
+                check(loss_rel <= GRAD_CHECK_LOSS_RTOL,
+                      f"rwkv6 grad check {dt}: {label} and {against}: losses differ")
+                check(sh[worst] <= GRAD_CHECK_SHARE,
+                      f"rwkv6 grad check {dt}: {label} and {against}: {worst} differs")
         out[dt] = row
-        del params, grads_k
+        del params, runs
         gc.collect()
         torch.cuda.empty_cache()
     return out

@@ -22,6 +22,7 @@ from repro_torch.kernels.ddim_step import ddim_coefs, ddim_step_ref
 from repro_torch.kernels.flash_attention import (
     attention_bwd_ref, attention_ref, flash_attention_with_lse, ops as flash_ops)
 from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_backward, wkv6_bwd_ref, wkv6_ref
+from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.models import layers as L
 from repro_torch.models.layers import rms_norm, row_mean
 from repro_torch.models.aigc.dit import schedule
@@ -78,6 +79,15 @@ def test_every_binding_has_a_c_entry_point():
     text = "".join(p.read_text() for p in _build.sources())
     entries = set(re.findall(r'extern "C" [\w\s*]+?\b(repro_\w+)\(', text))
     assert entries == set(_build.SIGNATURES)
+
+
+def test_wkv6_backward_workspaces_are_sized_by_the_kernels_tiles():
+    """ops.py sizes the backward's state checkpoints and dv parts by the
+    kernel's row tile and chunk; the two must not drift apart."""
+    text = (_build.PKG / "rwkv6_wkv" / "csrc" / "wkv6_bwd.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (KT|C) = (\d+);", text))
+    assert int(consts["KT"]) == wkv_ops.BWD_ROW_TILE
+    assert int(consts["C"]) == wkv_ops.BWD_CHUNK
 
 
 @pytest.mark.parametrize("b,h,sq,sk,sms,splits", [
@@ -566,14 +576,12 @@ def test_wkv6_kernel_holds_model_decays_on_card(cuda, kk, h, dtype, t):
 
 
 #: The WKV6 backward against ``wkv6_bwd_ref``, each output element by
-#: element: both sum in float32 in another order, and the sums over v (dr,
-#: dk, dw) and over k (dv) cancel, so an element near zero differs by the
-#: float32 rounding of its terms, not of itself; the absolute part is scaled
-#: to the output's largest element.  float32 (and dstate, float32 at either
-#: input type): |a - b| <= 2e-5 (|b| + max|b|); bfloat16 one bfloat16 step,
-#: |a - b| <= 2^-7 |b| + 1e-5 max|b|, since both round the same float32
-#: gradient once.
-WKV_BWD_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2 ** -7, 1e-5)}
+#: element, as |a - b| <= rtol |b| + atol + share max|b| with (rtol, atol,
+#: share): float32 (and dstate, float32 at either input type) within 2e-5
+#: of the output's largest element, (0, 0, 2e-5), since both sum in float32
+#: in another order; bfloat16 one bfloat16 step, (2^-7, 1e-5, 0), since both
+#: round the same float32 gradient once.
+WKV_BWD_TOL = {torch.float32: (0.0, 0.0, 2e-5), torch.bfloat16: (2 ** -7, 1e-5, 0.0)}
 #: The reduced rwkv6's gradients, card against CPU, of each leaf's largest:
 #: the forward kernel's chunked 3xTF32 sums and the backward's float32 sums
 #: against the plain loops', through 2 layers and the cross entropy.
@@ -583,9 +591,9 @@ RWKV_GRAD_SHARE = 1e-4
 def assert_wkv_grads_close(ours, ref, dtype):
     for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "dstate"), ours, ref):
         assert a.dtype == b.dtype and a.shape == b.shape, name
-        rtol, share = WKV_BWD_TOL[torch.float32 if name == "dstate" else dtype]
+        rtol, atol, share = WKV_BWD_TOL[torch.float32 if name == "dstate" else dtype]
         a, b = a.float(), b.float()
-        limit = rtol * b.abs() + share * b.abs().max()
+        limit = rtol * b.abs() + atol + share * b.abs().max()
         worst = float(((a - b).abs() / limit.clamp_min(1e-30)).max())  # 0 where both are
         assert bool(torch.isfinite(a).all()) and worst <= 1.0, \
             f"{name} differs: {worst:.3g} of the limit"

@@ -58,13 +58,13 @@ def autograd_grads(r, k, v, w, u, s0, dy, ds):
     return torch.autograd.grad((y * dy).sum() + (s * ds).sum(), leaves)
 
 
-def assert_within(ours, want, rtol, share):
-    """Element by element: |a - b| <= rtol |b| + share max|b| for each of
-    the six gradients (a, b as float64)."""
+def assert_within(ours, want, rtol, atol, share):
+    """Element by element: |a - b| <= rtol |b| + atol + share max|b| for
+    each of the six gradients (a, b as float64)."""
     for name, a, b in zip(NAMES, ours, want):
         a, b = a.double(), b.double()
         assert bool(torch.isfinite(a).all()), name
-        limit = rtol * b.abs() + share * b.abs().max()
+        limit = rtol * b.abs() + atol + share * b.abs().max()
         worst = float(((a - b).abs() / limit.clamp_min(1e-300)).max())
         assert worst <= 1.0, f"{name}: {worst:.3g} of the limit"
 
@@ -92,14 +92,14 @@ def test_bwd_ref_matches_float64_autograd_of_the_forward(b, t, h, kk, decays, no
     want = autograd_grads(*xs)
     ours = wkv6_bwd_ref(*xs)
     assert [g.dtype for g in ours] == [torch.float64] * 6
-    assert_within(ours, want, 0.0, 1e-12)
+    assert_within(ours, want, 0.0, 0.0, 1e-12)
 
 
-#: The kernel's tolerances (tests/test_torch_cuda.py, WKV_BWD_TOL): float32
-#: (and dstate at either input type) 2e-5 (|b| + max|b|); bfloat16 one
-#: bfloat16 step, 2^-7 |b| + 1e-5 max|b|.  Here against the float64 gradient
-#: of the same (exactly widened) inputs.
-IN_TYPE_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2 ** -7, 1e-5)}
+#: The kernel's tolerances (tests/test_torch_cuda.py, WKV_BWD_TOL), as
+#: (rtol, atol, share): float32 (and dstate at either input type) 2e-5 of
+#: the largest element; bfloat16 one bfloat16 step, 2^-7 |b| + 1e-5.  Here
+#: against the float64 gradient of the same (exactly widened) inputs.
+IN_TYPE_TOL = {torch.float32: (0.0, 0.0, 2e-5), torch.bfloat16: (2 ** -7, 1e-5, 0.0)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -114,8 +114,7 @@ def test_bwd_ref_in_the_input_type_meets_the_kernel_limits(b, t, h, kk, decays, 
     ours = wkv6_bwd_ref(*typed)
     assert [g.dtype for g in ours] == [dtype] * 5 + [torch.float32]
     want = autograd_grads(*(x.double() for x in typed))
-    rtol, share = IN_TYPE_TOL[dtype]
-    assert_within(ours[:5], want[:5], rtol, share)
+    assert_within(ours[:5], want[:5], *IN_TYPE_TOL[dtype])
     assert_within(ours[5:], want[5:], *IN_TYPE_TOL[torch.float32])
 
 
@@ -140,7 +139,7 @@ def test_bwd_ref_matches_jax_grad_of_the_plain_scan(b, t, h, kk, decays):
     _, vjp = jax.vjp(scan, *(jnp.asarray(x) for x in (r, k, v, w, u, s0)))
     want = [torch.from_numpy(np.array(g)) for g in vjp((jnp.asarray(dy), jnp.asarray(ds)))]
     ours = wkv6_bwd_ref(*(torch.from_numpy(x) for x in xs))
-    assert_within(ours, want, 0.0, 2e-5)
+    assert_within(ours, want, 0.0, 0.0, 2e-5)
 
 
 @pytest.mark.parametrize("use_state", [False, True])
@@ -164,7 +163,7 @@ def test_autograd_function_gives_the_plain_gradients(monkeypatch, state_grad, us
     for a, b in zip(grads, direct):
         assert torch.equal(a, b)
     plain = autograd_grads(*xs[:6], dy, ds)
-    assert_within(grads, plain, 0.0, 1e-5)
+    assert_within(grads, plain, 0.0, 0.0, 1e-5)
 
 
 def test_cpu_wkv6_differentiates_the_plain_loop_and_counts_no_launch():
