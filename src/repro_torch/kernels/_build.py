@@ -40,7 +40,8 @@ SIGNATURES = {
     "repro_decode_attention_chunk": ([_I, _I], _I),
     "repro_ddim_step_f32": ([_P, _P, _P, ctypes.c_int64, _F, _F, _P], _I),
     "repro_wkv6": ([_P] * 8 + [_I] * 5 + [_P], _I),
-    "repro_wkv6_bwd": ([_P] * 17 + [_I] * 5 + [_P], _I),
+    "repro_wkv6_bwd": ([_P] * 16 + [_I] * 5 + [_P], _I),
+    "repro_wkv6_bwd_occupancy": ([_I, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -19,10 +19,9 @@ from repro_torch.kernels.rwkv6_wkv.ref import wkv6_bwd_ref, wkv6_ref
 
 HEAD_SIZES = (32, 64)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: Rows of the state a backward block takes, and the time steps between the
-#: states its forward pass keeps (``KT`` and ``C`` in csrc/wkv6_bwd.cu).
-BWD_ROW_TILE = 16
-BWD_CHUNK = 16
+#: Time steps per chunk of the backward kernel (``C`` in csrc/wkv6_bwd.cu):
+#: its state pass keeps each chunk's start but the first.
+BWD_CHUNK = 64
 
 
 def _check(r, k, v, w, u, state):
@@ -82,15 +81,14 @@ def _backward(r, k, v, w, u, state, dy, dstate_out):
     dr, dk, dv, dw = (torch.empty_like(x) for x in (r, k, v, w))
     du, dstate = torch.empty_like(u), torch.empty_like(state)
     f32 = dict(dtype=torch.float32, device=r.device)
-    ckpt = torch.empty(b * h * -(-t // BWD_CHUNK) * kk * kk, **f32)
-    dv_part = torch.empty(kk // BWD_ROW_TILE * r.numel(), **f32)
+    ckpt = torch.empty(b * h * (-(-t // BWD_CHUNK) - 1) * kk * kk, **f32)
     du_part = torch.empty(b * h * kk, **f32)
     err = _build.library().repro_wkv6_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         state.data_ptr(), dy.data_ptr(),
         None if dstate_out is None else dstate_out.data_ptr(),
         dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
-        dstate.data_ptr(), ckpt.data_ptr(), dv_part.data_ptr(), du_part.data_ptr(),
+        dstate.data_ptr(), ckpt.data_ptr(), du_part.data_ptr(),
         b, t, h, kk, _DTYPE_CODE[r.dtype], torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(err, "wkv6_backward")
     _build.count_launch(wkv6_backward)

@@ -82,11 +82,10 @@ def test_every_binding_has_a_c_entry_point():
 
 
 def test_wkv6_backward_workspaces_are_sized_by_the_kernels_tiles():
-    """ops.py sizes the backward's state checkpoints and dv parts by the
-    kernel's row tile and chunk; the two must not drift apart."""
+    """ops.py sizes the backward's workspace of chunk states by the
+    kernel's chunk; the two must not drift apart."""
     text = (_build.PKG / "rwkv6_wkv" / "csrc" / "wkv6_bwd.cu").read_text()
-    consts = dict(re.findall(r"constexpr int (KT|C) = (\d+);", text))
-    assert int(consts["KT"]) == wkv_ops.BWD_ROW_TILE
+    consts = dict(re.findall(r"constexpr int (C) = (\d+);", text))
     assert int(consts["C"]) == wkv_ops.BWD_CHUNK
 
 
