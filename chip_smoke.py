@@ -135,6 +135,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    chain), and the launcher's float32 ``100m`` rwkv6 for 3 steps, each
    with its counters set to 0 just before and read just after: ce finite
    and falling, 2 forward and 1 backward WKV6 launches a layer and step.
+   Then the families that had not trained on the card before: one loss
+   and gradient of Wan's ``diffusion_loss`` at ``PORT`` (2 DiT layers at
+   every width, float32) through the flash kernels against the same under
+   the plain attention (the loss within 1e-5 relative, each leaf within
+   1e-4 of its largest element), with the flash backward's share of its
+   device time; ``vae_loss`` at ``PORT``'s widths on the card against the
+   port on the CPU (2 frames, the same limits); whisper-large-v3 (2 encoder
+   and 2 decoder layers, random frames) and zamba2-1.2b (6 Mamba2 layers
+   and the shared block once) at full width in bfloat16, at qwen3's
+   limits.  Each of these on the init rule's weights and on the same draws
+   at std 1 / sqrt(fan-in), with a yardstick (the plain attention's output
+   moved one float32 step): on the rule's weights held only where the
+   yardstick stays inside the limits (at ``PORT`` a score is ~2,500 and
+   the gradient is set by rounding), on the others always.  Then both
+   families at full width and depth through ``launch.train`` (4 steps), ce
+   finite and falling.  Every training run and gradient check
+   holds its flash launches to `train_attention_calls`; the backward cases
+   include Wan's text cross-attention (float32, 18,900 over 512) and
+   whisper's encoder self-attention (bfloat16, 1500 frames).
 6. A ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -150,6 +169,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -643,7 +663,11 @@ def main(argv) -> int:
         gc.collect()
         torch.cuda.empty_cache()
     train = train_phase(torch, F, np, dev, randn, lib_path)
-    by_arch["train qwen3-1.7b"] = {"flash_attention": train["run"]["flash_launches"]}
+    bf16_runs = {"qwen3-1.7b": train["run"]}
+    bf16_runs.update({arch: train[f"{label}_run"]
+                      for label, (arch, _) in FAMILY_GRAD_CHECKS.items()})
+    for arch, run in bf16_runs.items():
+        by_arch[f"train {arch}"] = {"flash_attention": run["flash_launches"]}
     llm = {k: sum(c.get(k, 0) for c in by_arch.values())
            for k in ("flash_attention", "decode_attention_grouped",
                      "decode_attention_int8_grouped")}
@@ -710,23 +734,26 @@ def main(argv) -> int:
     # takes by autodiff of its plain attention, which it trains with
     bf16_rows = [r for r in train["rows"] if r["dtype"] == "bfloat16"]
     f32_rows = [r for r in train["rows"] if r["dtype"] == "float32"]
-    for name, src, dt, rows, at, run in (
+    for name, src, dt, rows, at, runs in (
             ("flash_attention_backward_bf16", "flash_attention_bwd_bf16.cu", "bf16", bf16_rows,
-             "qwen3_train_4x256", train["run"]),
+             "qwen3_train_4x256", bf16_runs),
             ("flash_attention_backward", "flash_attention_bwd.cu", "f32", f32_rows,
-             "qwen3_100m_4x256", train["run_f32"])):
+             "qwen3_100m_4x256", {"qwen3-1.7b 100m": train["run_f32"]})):
         main = next(r for r in rows if r["shape"] == at)
+        checks = ({"qwen3": train["grad_check"],
+                   **{k: train[f"{k}_grad_check"] for k in FAMILY_GRAD_CHECKS}}
+                  if dt == "bf16" else {"wan": train["wan_grad_check"]})
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/flash_attention/csrc/{src}",
             replaces="src/repro/models/layers.py:136", tpu_kernel=None,
-            launches=run["flash_bwd_launches"],
+            launches=sum(r["flash_bwd_launches"] for r in runs.values()),
+            launches_by_model={a: r["flash_bwd_launches"] for a, r in runs.items()},
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"], at=at,
             fma_bound_ms=main["fma_bound_ms"], build=train["build"][dt], shapes=rows,
-            train=run, **({"grad_check": train["grad_check"]}
-                          if run is train["run"] else {})))
+            train=runs, grad_checks=checks))
     # no TPU kernel behind it either: the JAX package trains rwkv6 by
     # autodiff of its plain checkpointed scan (its Pallas WKV6 is forward-only)
     wb_rows = train["wkv6_rows"]
@@ -1798,7 +1825,11 @@ def whisper_generate_phase(torch, np, dev) -> dict:
 #: ``100m`` preset at the smoke's B 4, S 256 (8 heads of 64 over 4), the
 #: float32 kernel's shape in `train_run` (`TRAIN_F32_ARGS`); the DiT's whole
 #: self-attention, all 18,900 tokens, at 2 of its 40 heads (the plain
-#: version chunks its query rows, so it fits).
+#: version chunks its query rows, so it fits); the DiT's text
+#: cross-attention, all 18,900 tokens and 40 heads over the 512 text keys
+#: (``diffusion_loss``'s, float32 with Sq != Sk); whisper-large-v3's encoder
+#: self-attention at the training batch of 4 (1500 frames: a ragged last
+#: tile of 28 rows and keys).
 TRAIN_BWD_CASES = [
     ("qwen3_train_4x256", (4, 256, 256, 16, 8, 128), True, "bfloat16", 10),
     ("zamba2_train_512", (1, 512, 512, 32, 32, 64), True, "bfloat16", 10),
@@ -1807,6 +1838,8 @@ TRAIN_BWD_CASES = [
     ("dit_band_2048", (1, 2048, 2048, 40, 40, 128), False, "float32", 3),
     ("qwen3_100m_4x256", (4, 256, 256, 8, 4, 64), True, "float32", 10),
     ("dit_self_18900_2h", (1, 18900, 18900, 2, 2, 128), False, "float32", 3),
+    ("dit_cross_18900x512", (1, 18900, 512, 40, 40, 128), False, "float32", 3),
+    ("whisper_enc_1500", (4, 1500, 1500, 20, 20, 64), False, "bfloat16", 5),
 ]
 #: The full-width gradient check: qwen3-1.7b at 2 of its 28 layers, one
 #: loss and gradient with the flash kernels against the same with the
@@ -1834,6 +1867,42 @@ TRAIN_F32_ARGS = ["--arch", "qwen3-1.7b", "--preset", "100m", "--steps", "3",
 TRAIN_ARGS = ["--arch", "qwen3-1.7b", "--preset", "full", "--steps", "8",
               "--batch", "4", "--seq", "256", "--log-every", "1", "--lr", "1e-3",
               "--data-vocab", "1024"]
+#: The families that had not trained on the card before: whisper-large-v3
+#: (32 encoder and 32 decoder layers; the launcher feeds zero frames, as the
+#: JAX launcher does) and zamba2-1.2b (38 Mamba2 layers, the shared block at
+#: 6 places), each at full width and depth through ``launch.train``, 4 AdamW
+#: steps of the bigram chain as `TRAIN_ARGS`.
+FAMILY_TRAIN_ARGS = {
+    arch: ["--arch", arch, "--preset", "full", "--steps", "4", "--batch", "4", "--seq",
+           "256", "--log-every", "1", "--lr", "1e-3", "--data-vocab", "1024"]
+    for arch in ("whisper-large-v3", "zamba2-1.2b")}
+#: The gradient checks of those two families at full width (B 4 x S 256,
+#: bfloat16, at qwen3's limits, on two sets of weights as
+#: `wan_grad_check`): name -> (arch, depth overrides).
+#: whisper at 2 encoder and 2 decoder layers over 1500 random frames (zero
+#: frames, the launcher's, leave the encoder's attention and the
+#: cross-attention without a signal); zamba2 at one period of its
+#: ``hybrid_attn_every`` = 6 Mamba2 layers, so the shared block runs once.
+FAMILY_GRAD_CHECKS = {
+    "whisper": ("whisper-large-v3", dict(num_layers=2, encoder_layers=2)),
+    "zamba2": ("zamba2-1.2b", dict(num_layers=6)),
+}
+#: Wan's training objective at ``PORT`` (2 DiT layers, every width), float32:
+#: ``diffusion_loss`` through the float32 flash kernels against the same
+#: under `plain_attention`, the loss within WAN_LOSS_RTOL relative and each
+#: leaf within WAN_GRAD_SHARE of its largest element.  The kernels hold
+#: their outputs to 2e-5 and every product outside them runs in full
+#: float32 (TF32 off), so 1e-4 leaves room for the sums over 18,900 rows.
+#: That holds on weights whose activations stay O(1) (`fan_in_weights`);
+#: on the init rule's, a one-step move of the plain attention's output
+#: already moves the leaves by their whole size (`grad_check`'s yardstick).
+#: The same limits hold ``vae_loss`` on the card against the port on the
+#: CPU (VAE_FRAMES 480 x 480 frames: a cut of the batch, not of a width).
+WAN_LOSS_RTOL = 1e-5
+WAN_GRAD_SHARE = 1e-4
+VAE_FRAMES = 2
+#: Seeds of the checks' inputs (weights from generator 0)
+INPUT_SEED = 1
 
 
 def flash_bwd_build_report(lib_path) -> dict:
@@ -2232,19 +2301,31 @@ def wkv6_bwd_kernel_phase(torch, dev) -> list:
     return rows
 
 
-def plain_attention(torch):
+def plain_attention(torch, nudge: bool = False):
     """Context: the flash wrapper's forward and backward on the card run
     their plain versions (``ops._forward`` and ``ops._backward`` patched
-    here; the package has no switch for it), for the gradient check."""
+    here; the package has no switch for it), for the gradient check.  With
+    ``nudge`` each forward's float32 output is moved one float32 step up or
+    down before its cast to the input's type, the direction drawn from a
+    generator seeded `YARDSTICK_SEED` at each call (so a checkpointed
+    recompute draws what its forward drew): what another order of its
+    float32 sums does, a gradient check's yardstick."""
     import contextlib
 
     from repro_torch.kernels.flash_attention import attention_bwd_ref, attention_ref, ops
 
+    def forward(q, k, v, c, s, lse=None):
+        if not nudge:
+            return attention_ref(q, k, v, causal=c, sm_scale=s)
+        o = attention_ref(q.float(), k.float(), v.float(), causal=c, sm_scale=s)
+        gen = torch.Generator(device=o.device).manual_seed(YARDSTICK_SEED)
+        up = torch.rand(o.shape, generator=gen, device=o.device) < 0.5
+        return torch.nextafter(o, torch.where(up, math.inf, -math.inf)).to(q.dtype)
+
     @contextlib.contextmanager
     def patched():   # the plain backward recomputes the softmax, as before
         real = ops._forward, ops._backward
-        ops._forward = lambda q, k, v, c, s, lse=None: attention_ref(
-            q, k, v, causal=c, sm_scale=s)
+        ops._forward = forward
         ops._backward = lambda q, k, v, o, do, c, s, lse=None: attention_bwd_ref(
             q, k, v, o, do, causal=c, sm_scale=s)
         try:
@@ -2417,71 +2498,327 @@ def rwkv6_grad_check(torch, dev) -> dict:
     return out
 
 
-def train_grad_check(torch, np, dev) -> dict:
-    """qwen3-1.7b at full width, `GRAD_CHECK_LAYERS` layers, bfloat16: one
-    loss and gradient of ``registry.loss_fn`` through the flash kernels,
-    then the same with the plain attention (`plain_attention`)."""
+def train_attention_calls(cfg) -> tuple:
+    """(flash forward, flash backward) launches of one loss and gradient of
+    the training objective of ``cfg``: ``registry.loss_fn`` for a model
+    config, ``dit.diffusion_loss`` for a Wan pipeline config.  Every family's
+    layers run under ``torch.utils.checkpoint``, so a flash attention there
+    launches its forward twice (the forward and the recompute) and its
+    backward once: a transformer's full-attention layers (a windowed layer
+    is plain PyTorch), whisper's encoder self-attention and its decoder's
+    self- and cross-attention, zamba2's shared block at each place, none in
+    rwkv6.  The DiT is not checkpointed: a self- and a cross-attention a
+    layer, each once forward and once backward."""
+    from repro_torch.configs.wan_i2v import WanPipelineConfig
+    from repro_torch.models import mamba2, transformer
+
+    if isinstance(cfg, WanPipelineConfig):
+        return 2 * cfg.dit_layers, 2 * cfg.dit_layers
+    if cfg.family == "ssm":
+        n = 0
+    elif cfg.family == "hybrid":
+        n = mamba2._periods(cfg)[0] if cfg.hybrid_attn_every else 0
+    elif cfg.family == "audio":
+        n = cfg.encoder_layers + 2 * cfg.num_layers
+    else:
+        n = sum(1 for *_, w in transformer.layer_slots(cfg) if not w)
+    return 2 * n, n
+
+
+def fan_in_weights(torch, params, spec_tree) -> None:
+    """In place: each stacked matrix leaf of ``params`` (the JAX layout,
+    [L, ...], drawn by the init rule, whose fan_in = shape[0] is the layer
+    count) and each HWIO convolution (whose shape[0] is its height)
+    rescaled to std 1 / sqrt(its contracted fan-in), as the CPU parity
+    tests draw it: the product of the axes but the last for a convolution
+    and of the per-layer axes but the last for an output projection
+    (``*wo``), else the first per-layer axis.  A depthwise convolution's
+    taps (``conv_w``) keep the rule's draw."""
+    from repro_torch.models.param import spec_leaves
+
+    with torch.no_grad():
+        for path, s in spec_leaves(spec_tree):
+            if s.init != "normal" or path[-1] == "conv_w":
+                continue
+            if s.logical[0] == "layers":
+                per = s.shape[1:]
+                fan = math.prod(per[:-1]) if path[-1].endswith("wo") else per[0]
+            elif len(s.shape) == 4:
+                fan = math.prod(s.shape[:-1])
+            else:
+                continue
+            leaf = params
+            for k in path:
+                leaf = leaf[k]
+            leaf.mul_(math.sqrt(s.shape[0] / fan))
+
+
+def leaf_shares(torch, label: str, names, grads, refs) -> dict:
+    """name -> max|a - b| / max|b| of each gradient leaf against its
+    reference; fails at a leaf that is not finite."""
+    out = {}
+    for name, a, b in zip(names, grads, refs):
+        check(bool(torch.isfinite(a).all()), f"{label}: {name} not finite")
+        a, b = a.float(), b.float()
+        out[name] = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    return out
+
+
+def grad_check(torch, label: str, loss_of, leaves, names, want,
+               loss_rtol: float = GRAD_CHECK_LOSS_RTOL, share: float = GRAD_CHECK_SHARE,
+               yardstick: bool = False, must_hold: bool = True) -> dict:
+    """One loss (``loss_of()``) and its gradient with respect to ``leaves``
+    through the flash kernels, then the same with the attention's forward
+    and backward patched to their plain versions (`plain_attention`): the
+    kernel run's (forward, backward) launches equal to ``want``, none in the
+    plain runs, every leaf finite; each leaf (``names``) compared as
+    max|a - b| / max|b|, printed leaf by leaf, with each run's wall ms and
+    peak memory.  Held: the loss within ``loss_rtol`` relative, every leaf
+    within ``share``.  With ``yardstick`` the plain run is made again with
+    every attention output moved one float32 step (`plain_attention`'s
+    ``nudge``), what another order of its float32 sums does.  Where that
+    alone moves the loss or a leaf past its limit, the comparison decides
+    nothing (the weights leave the result to rounding): it is printed and
+    not held, or fails where ``must_hold``."""
+    from repro_torch.kernels import flash_attention, flash_attention_backward
+
+    def run():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts = (flash_attention.launches, flash_attention_backward.launches)
+        t0 = time.perf_counter()
+        loss = loss_of()
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        return (float(loss.detach()), grads, wall_ms, torch.cuda.max_memory_allocated() / 2 ** 30,
+                (flash_attention.launches - counts[0],
+                 flash_attention_backward.launches - counts[1]))
+
+    def compare(a_run, b_run):
+        sh = leaf_shares(torch, label, names, a_run[1], b_run[1])
+        worst = max(sh, key=sh.get)
+        return (abs(a_run[0] - b_run[0]) / abs(b_run[0]), worst, sh[worst],
+                statistics.median(sh.values()), sh)
+
+    kernels = run()
+    with plain_attention(torch):
+        plain = run()
+    check(kernels[4] == tuple(want),
+          f"{label}: the kernel run launched {kernels[4]} (forward, backward), not {want}")
+    check(plain[4] == (0, 0), f"{label}: the plain run launched {plain[4]}")
+    loss_rel, worst, worst_share, median, shares = compare(kernels, plain)
+    out = dict(loss_kernels=kernels[0], loss_plain=plain[0], loss_rel=loss_rel,
+               worst_leaf=worst, worst_share=worst_share, median_share=median,
+               launches=kernels[4], wall_ms=kernels[2], peak_gib=kernels[3],
+               plain_wall_ms=plain[2], plain_peak_gib=plain[3], held=True)
+    del kernels
+    yard = ""
+    if yardstick:
+        with plain_attention(torch, nudge=True):
+            nudged = run()
+        check(nudged[4] == (0, 0), f"{label}: the nudged plain run launched {nudged[4]}")
+        y_loss, y_worst, y_share, y_median, _ = compare(nudged, plain)
+        del nudged
+        out.update(yardstick_loss_rel=y_loss, yardstick_worst_leaf=y_worst,
+                   yardstick_worst_share=y_share, yardstick_median_share=y_median,
+                   held=y_loss <= loss_rtol and y_share <= share)
+        yard = (f"; yardstick (the plain attention's output one float32 step off): loss rel "
+                f"{y_loss:.3g}, worst {y_share:.4g} at {y_worst}, median {y_median:.4g}"
+                + ("" if out["held"] else " (past the limits: not held)"))
+    del plain
+    print(f"{label}: loss kernels {out['loss_kernels']:.6f} plain {out['loss_plain']:.6f} "
+          f"(rel {loss_rel:.3g}, tol {loss_rtol}); {len(shares)} gradient leaves, largest "
+          f"max|a-b|/max|b| {worst_share:.4g} at {worst} (tol {share:.4g}), median "
+          f"{median:.4g}{yard}; launches forward {out['launches'][0]} backward "
+          f"{out['launches'][1]}; wall {out['wall_ms']:.1f} ms, peak {out['peak_gib']:.2f} GiB "
+          f"(plain {out['plain_wall_ms']:.1f} ms, {out['plain_peak_gib']:.2f} GiB)")
+    for name in sorted(shares):
+        print(f"  {label} {name}: {shares[name]:.4g}")
+    check(out["held"] or not must_hold,
+          f"{label}: a one-step move of the plain attention's output alone moves the "
+          f"result past the limits")
+    if out["held"]:
+        check(loss_rel <= loss_rtol, f"{label}: the losses differ")
+        check(worst_share <= share, f"{label}: {worst} differs")
+    return out
+
+
+def family_grad_check(torch, dev, label: str, arch: str, over: dict,
+                      fan_in: bool = True) -> dict:
+    """``arch`` at full width with the depth of ``over``, bfloat16: one loss
+    and gradient of ``registry.loss_fn`` on B 4 x S 256 tokens (and, for
+    whisper, random frames) by `grad_check` on the init rule's weights;
+    with ``fan_in`` with its yardstick (held where it allows), then on the
+    same draws rescaled by `fan_in_weights`, there always held."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.convert import to_port_layout
     from repro_torch.device import generator
-    from repro_torch.kernels import flash_attention, flash_attention_backward
     from repro_torch.models import registry
     from repro_torch.models.param import spec_leaves, tree_leaves
     from repro_torch.training.data import data_iterator
     from repro_torch.training.train_step import init_params
 
-    cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=GRAD_CHECK_LAYERS)
+    cfg = dataclasses.replace(get_config(arch), **over)
     params = init_params(cfg, generator(0, dev), dev)
-    names = ["/".join(p) for p, _ in spec_leaves(registry.abstract_params(cfg))]
+    spec = registry.abstract_params(cfg)
+    names = ["/".join(p) for p, _ in spec_leaves(spec)]
     batch = next(data_iterator(cfg.vocab_size, 4, 256, seed=0))
     batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev) for k, v in batch.items()}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((4, cfg.frontend_tokens, cfg.d_model),
+                                      generator=generator(INPUT_SEED, dev), device=dev
+                                      ).to(getattr(torch, cfg.dtype))
+    depth = ", ".join(f"{k} {v}" for k, v in over.items())
+    out = {}
+    for weights in ("init", "fan_in") if fan_in else ("init",):
+        if weights == "fan_in":
+            fan_in_weights(torch, params, spec)
+        out[weights] = grad_check(
+            torch, f"{label} grad check: {arch} full width, {depth}, B 4 S 256 {cfg.dtype}"
+                   + (f", {weights} weights" if fan_in else ""),
+            lambda: registry.loss_fn(to_port_layout(params), batch, cfg)[0],
+            tree_leaves(params), names, train_attention_calls(cfg), yardstick=fan_in,
+            must_hold=weights == "fan_in" or not fan_in)
+    del params, batch
+    return out if fan_in else out["init"]
 
-    def loss_and_grads():
-        loss, _ = registry.loss_fn(to_port_layout(params), batch, cfg)
-        grads = torch.autograd.grad(loss, tree_leaves(params))
-        torch.cuda.synchronize()
-        return float(loss.detach()), grads
 
-    counts = (flash_attention.launches, flash_attention_backward.launches)
-    loss_k, grads_k = loss_and_grads()
-    launched = (flash_attention.launches - counts[0],
-                flash_attention_backward.launches - counts[1])
-    with plain_attention(torch):
-        counts = (flash_attention.launches, flash_attention_backward.launches)
-        loss_p, grads_p = loss_and_grads()
-        check((flash_attention.launches, flash_attention_backward.launches) == counts,
-              "grad check: the plain run launched a flash kernel")
-    check(launched == (2 * GRAD_CHECK_LAYERS, GRAD_CHECK_LAYERS),
-          f"grad check: the kernel run launched {launched} (forward, backward)")
-    shares = {}
-    for name, a, b in zip(names, grads_k, grads_p):
-        check(bool(torch.isfinite(a).all()), f"grad check: {name} not finite")
-        ref = float(b.float().abs().max())
-        shares[name] = float((a.float() - b.float()).abs().max()) / max(ref, 1e-30)
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    worst = max(shares, key=shares.get)
-    print(f"train grad check: qwen3-1.7b full width, {GRAD_CHECK_LAYERS} layers, B 4 S 256 "
-          f"bf16: loss kernels {loss_k:.6f} plain {loss_p:.6f} (rel {loss_rel:.3g}, tol "
-          f"{GRAD_CHECK_LOSS_RTOL}); {len(shares)} gradient leaves, largest "
-          f"max|a-b|/max|b| {shares[worst]:.4g} at {worst} (tol {GRAD_CHECK_SHARE}); "
-          f"launches forward {launched[0]} backward {launched[1]}")
-    for name in sorted(shares):
-        print(f"  grad check {name}: {shares[name]:.4g}")
-    check(loss_rel <= GRAD_CHECK_LOSS_RTOL, "grad check: the losses differ")
-    check(shares[worst] <= GRAD_CHECK_SHARE, f"grad check: {worst} differs")
-    return dict(loss_kernels=loss_k, loss_plain=loss_p, loss_rel=loss_rel,
-                worst_leaf=worst, worst_share=shares[worst])
+def wan_grad_check(torch, dev) -> dict:
+    """Wan's ``diffusion_loss`` at ``PORT`` (2 DiT layers, every width, B 1,
+    float32; weights from generator 0, latent tokens, text embeddings, the
+    timestep and the noise from generator `INPUT_SEED`, the last two passed
+    in so that every run sees the same draws), by `grad_check` at
+    WAN_LOSS_RTOL and WAN_GRAD_SHARE with its yardstick: on the init rule's
+    weights (held where the yardstick allows; at ``PORT`` it does not: the
+    rule's fan_in is the layer count, so a query is ~50 and a score ~2,500,
+    the softmax one-hot and its gradient set by rounding) and on the same
+    draws rescaled by `fan_in_weights`, there always held; then one more
+    loss and gradient through the kernels under `profile_steps`: the flash
+    backward's share of the device time."""
+    from repro_torch.configs.wan_i2v import PORT
+    from repro_torch.convert import to_port_layout
+    from repro_torch.device import generator
+    from repro_torch.models.aigc import dit
+    from repro_torch.models.param import init_tree, spec_leaves, tree_leaves
+    from repro_torch.training.train_step import trainable
+
+    spec = dit.abstract_params(PORT)
+    params = trainable(init_tree(spec, generator(0, dev), dev))
+    leaves = tree_leaves(params)
+    names = ["/".join(p) for p, _ in spec_leaves(spec)]
+    gen = generator(INPUT_SEED, dev)
+    pd = PORT.patch ** 2 * PORT.vae_latent_ch
+    z = torch.randn((1, PORT.video_tokens, pd), generator=gen, device=dev)
+    text = torch.randn((1, PORT.text_len, PORT.text_d_model), generator=gen, device=dev)
+    t = torch.randint(0, 1000, (1,), generator=gen, device=dev)
+    noise = torch.randn(z.shape, generator=gen, device=dev)
+
+    def loss_of():
+        return dit.diffusion_loss(to_port_layout(params), z, text, PORT, t=t, noise=noise)
+
+    out = {}
+    for weights in ("init", "fan_in"):
+        if weights == "fan_in":
+            fan_in_weights(torch, params, spec)
+        out[weights] = grad_check(
+            torch, f"wan grad check: diffusion_loss at PORT ({PORT.dit_layers} DiT layers, "
+                   f"{PORT.dit_d_model} wide, {PORT.dit_heads} heads, {PORT.video_tokens} "
+                   f"tokens over {PORT.text_len} text keys), float32, t {int(t[0])}, "
+                   f"{weights} weights",
+            loss_of, leaves, names, train_attention_calls(PORT), WAN_LOSS_RTOL,
+            WAN_GRAD_SHARE, yardstick=True, must_hold=weights == "fan_in")
+    prof = profile_steps(torch, lambda i: torch.autograd.grad(loss_of(), leaves), 1,
+                         "wan grad profile: one loss and gradient through the kernels")
+    busy = prof["busy_ms"]
+    bwd = prof["by_kind_ms"].get("flash backward", 0.0)
+    print(f"wan grad profile: the flash backward {bwd:.2f} ms of {busy:.2f} ms device time "
+          f"({bwd / busy:.1%}), the flash forward "
+          f"{prof['by_kind_ms'].get('flash forward', 0.0):.2f} ms")
+    out.update(profile=prof, flash_bwd_share=bwd / busy)
+    del params, leaves
+    return out
+
+
+def vae_grad_check(torch, dev) -> dict:
+    """Wan's ``vae_loss`` at ``PORT``'s widths (480 x 480 frames, 96 base
+    channels, 16 latent channels), float32, for VAE_FRAMES frames with the
+    noise passed in: one loss and gradient on the card against the same
+    call of the port on the CPU, on the same weights (generator 0 on the
+    CPU, by the init rule, then rescaled by `fan_in_weights`) and inputs,
+    the loss within WAN_LOSS_RTOL relative and each leaf within
+    WAN_GRAD_SHARE of its largest element.  It runs no kernel of the port
+    (convolutions in ATen, without cuDNN: ``vae._conv2d``)."""
+    from repro_torch.configs.wan_i2v import PORT
+    from repro_torch.convert import to_port_layout
+    from repro_torch.device import generator
+    from repro_torch.models.aigc import vae
+    from repro_torch.models.param import init_tree, spec_leaves, tree_leaves, tree_map
+    from repro_torch.training.train_step import trainable
+
+    spec = vae.abstract_params(PORT)
+    names = ["/".join(p) for p, _ in spec_leaves(spec)]
+    cpu = trainable(init_tree(spec, generator(0, "cpu"), "cpu"))
+    gen = generator(INPUT_SEED, "cpu")
+    frames = torch.rand((VAE_FRAMES, PORT.image_size, PORT.image_size, 3), generator=gen) * 2 - 1
+    hl = PORT.latent_size
+    noise = torch.randn((VAE_FRAMES, hl, hl, PORT.vae_latent_ch), generator=gen)
+    out = {}
+    for weights in ("init", "fan_in"):
+        if weights == "fan_in":
+            fan_in_weights(torch, cpu, spec)
+        card = trainable(tree_map(lambda p: p.detach().to(dev), cpu))
+        runs = {}
+        for where, params in (("card", card), ("cpu", cpu)):
+            d = dev if where == "card" else torch.device("cpu")
+            if where == "card":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, parts = vae.vae_loss(to_port_layout(params), frames.to(d), PORT,
+                                       noise=noise.to(d))
+            grads = torch.autograd.grad(loss, tree_leaves(params))
+            if where == "card":
+                torch.cuda.synchronize()
+            runs[where] = (float(loss.detach()), [g.cpu() for g in grads],
+                           1e3 * (time.perf_counter() - t0),
+                           torch.cuda.max_memory_allocated() / 2 ** 30 if where == "card"
+                           else None, {k: float(v.detach()) for k, v in parts.items()})
+        del card
+        (loss_c, grads_c, wall_c, peak, parts_c), (loss_h, grads_h, wall_h, _, _) = (
+            runs["card"], runs["cpu"])
+        label = f"vae grad check {weights} weights"
+        shares = leaf_shares(torch, label, names, grads_c, grads_h)
+        loss_rel = abs(loss_c - loss_h) / abs(loss_h)
+        worst = max(shares, key=shares.get)
+        print(f"{label}: vae_loss at PORT's widths ({VAE_FRAMES} frames of "
+              f"{PORT.image_size}x{PORT.image_size}, base {PORT.vae_base_ch}, latent "
+              f"{PORT.vae_latent_ch}), float32: loss card {loss_c:.7g} cpu {loss_h:.7g} (rel "
+              f"{loss_rel:.3g}, tol {WAN_LOSS_RTOL}; rec {parts_c['rec']:.6g}, kl "
+              f"{parts_c['kl']:.6g}); {len(shares)} gradient leaves, largest max|a-b|/max|b| "
+              f"{shares[worst]:.4g} at {worst} (tol {WAN_GRAD_SHARE}), median "
+              f"{statistics.median(shares.values()):.4g}; card wall {wall_c:.1f} ms, peak "
+              f"{peak:.2f} GiB; cpu wall {wall_h:.1f} ms")
+        for name in sorted(shares):
+            print(f"  {label} {name}: {shares[name]:.4g}")
+        check(loss_rel <= WAN_LOSS_RTOL, f"{label}: the losses differ")
+        check(shares[worst] <= WAN_GRAD_SHARE, f"{label}: {worst} differs")
+        out[weights] = dict(loss_card=loss_c, loss_cpu=loss_h, loss_rel=loss_rel,
+                            worst_leaf=worst, worst_share=shares[worst], wall_ms=wall_c,
+                            cpu_wall_ms=wall_h, peak_gib=peak, frames=VAE_FRAMES, **parts_c)
+    return out
 
 
 def train_run(torch, dev, argv=TRAIN_ARGS) -> dict:
     """A model through ``launch.train`` (its ``train``, as ``main`` runs it;
     qwen3-1.7b at full width and depth unless ``argv`` says otherwise): the
     launch counters set to 0 just before and read just after; ce finite and
-    falling, the model's kernels launched (2 forward per layer and step: the
-    forward and its recompute under checkpointing; 1 backward): flash
-    attention's, or for rwkv6 WKV6's and no flash kernel."""
+    falling, the model's kernels launched: flash attention's
+    `train_attention_calls` a step, or for rwkv6 WKV6's (2 forward per layer
+    and step: the forward and its recompute under checkpointing; 1
+    backward) and no flash kernel."""
     from repro_torch.kernels import (flash_attention, flash_attention_backward, wkv6,
                                      wkv6_backward)
     from repro_torch.launch import train as launcher
@@ -2506,7 +2843,9 @@ def train_run(torch, dev, argv=TRAIN_ARGS) -> dict:
                flash_bwd_launches=bwd, wkv6_launches=wf, wkv6_bwd_launches=wb)
     recurrent = cfg.family == "ssm"
     kf, kb, name = (wf, wb, "wkv6") if recurrent else (fwd, bwd, "flash")
-    print(f"train {args.arch} {args.preset} ({cfg.num_layers} layers, {cfg.dtype}): ce "
+    depth = (f"{cfg.encoder_layers} encoder and {cfg.num_layers} decoder"
+             if cfg.family == "audio" else f"{cfg.num_layers}")
+    print(f"train {args.arch} {args.preset} ({depth} layers, {cfg.dtype}): ce "
           f"{ces[0]:.4f} -> {ces[-1]:.4f} in {args.steps} steps of {args.batch}x{args.seq}; "
           f"step {step_ms:.1f} ms (median after the first, {res['first_step_ms']:.0f} ms), "
           f"{res['tokens_per_s']:.0f} tokens/s, peak {res['peak_gib']:.2f} GiB; launches "
@@ -2514,10 +2853,13 @@ def train_run(torch, dev, argv=TRAIN_ARGS) -> dict:
           f"({kb / args.steps:.0f} a step)" + (f", flash {fwd + bwd}" if recurrent else ""))
     check(all(math.isfinite(c) for c in ces), "train: non-finite ce")
     check(ces[-1] < ces[0], f"train: ce did not fall ({ces[0]} -> {ces[-1]})")
-    want = (2 * cfg.num_layers * args.steps, cfg.num_layers * args.steps)
+    per_step = ((2 * cfg.num_layers, cfg.num_layers) if recurrent
+                else train_attention_calls(cfg))
+    want = tuple(n * args.steps for n in per_step)
     other = (fwd, bwd) if recurrent else (wf, wb)
     check((kf, kb) == want and other == (0, 0),
-          f"train: launches flash {fwd}, backward {bwd}; wkv6 {wf}, backward {wb}")
+          f"train: launches flash {fwd}, backward {bwd}; wkv6 {wf}, backward {wb}; "
+          f"{name} expected {want}")
     return res
 
 
@@ -2667,13 +3009,23 @@ def train_phase(torch, F, np, dev, randn, lib_path) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out = dict(build=build, rows=rows, wkv6_build=wkv_build, wkv6_rows=wkv_rows)
-    for key, fn in (("grad_check", lambda: train_grad_check(torch, np, dev)),
-                    ("run", lambda: train_run(torch, dev)),
-                    ("profile", lambda: train_profile(torch, dev)),
-                    ("run_f32", lambda: train_run(torch, dev, TRAIN_F32_ARGS)),
-                    ("rwkv6_grad_check", lambda: rwkv6_grad_check(torch, dev)),
-                    ("rwkv6_run", lambda: rwkv6_train_steps(torch, dev)),
-                    ("rwkv6_run_f32", lambda: train_run(torch, dev, RWKV_TRAIN_F32_ARGS))):
+    steps = [
+        # qwen3's on the init rule's weights alone (its queries and keys are
+        # RMS-normed), held at the fixed limits
+        ("grad_check", partial(family_grad_check, torch, dev, "train", "qwen3-1.7b",
+                               dict(num_layers=GRAD_CHECK_LAYERS), fan_in=False)),
+        ("run", partial(train_run, torch, dev)),
+        ("profile", partial(train_profile, torch, dev)),
+        ("run_f32", partial(train_run, torch, dev, TRAIN_F32_ARGS)),
+        ("rwkv6_grad_check", partial(rwkv6_grad_check, torch, dev)),
+        ("rwkv6_run", partial(rwkv6_train_steps, torch, dev)),
+        ("rwkv6_run_f32", partial(train_run, torch, dev, RWKV_TRAIN_F32_ARGS)),
+        ("wan_grad_check", partial(wan_grad_check, torch, dev)),
+        ("vae_grad_check", partial(vae_grad_check, torch, dev))]
+    for label, (arch, over) in FAMILY_GRAD_CHECKS.items():
+        steps += [(f"{label}_grad_check", partial(family_grad_check, torch, dev, label, arch, over)),
+                  (f"{label}_run", partial(train_run, torch, dev, FAMILY_TRAIN_ARGS[arch]))]
+    for key, fn in steps:
         out[key] = fn()
         gc.collect()
         torch.cuda.empty_cache()

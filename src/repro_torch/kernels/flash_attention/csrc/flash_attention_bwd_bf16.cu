@@ -8,8 +8,8 @@
 // through the forward kernel differentiates through a kernel too: every
 // family's bfloat16 training on the card (qwen3-1.7b's 28 layers, whisper's
 // encoder, decoder and cross-attention, zamba2's shared block) runs it once
-// a layer.  The float32 gradient stays on the CUDA cores in
-// flash_attention_bwd.cu.
+// a layer.  The float32 gradient is flash_attention_bwd.cu's, on the same
+// tensor cores as three TF32 wgmma products.
 //
 // Layout as the forward: q, o, dO, dq are [B, Sq, H, D], k, v, dk, dv are
 // [B, Sk, KV, D], contiguous bfloat16, D in {32, 64, 128}; GQA without

@@ -1,8 +1,9 @@
 """The port's training path held against the JAX package on the CPU: the
 plain flash-attention backward against ``jax.vjp`` of the reference's
 plain attention, the chunked cross entropy and its gradient, one loss and
-gradient of ``registry.loss_fn`` for every family (dense qwen3, moe granite
-with the capacity dispatch and dropless, vlm
+gradient of ``registry.loss_fn`` for every family (dense qwen3, chatglm3 and
+gemma3 with local and global layers, moe granite with the capacity dispatch
+and dropless, deepseek-moe dropless with its dense layer and shared expert, vlm
 internvl2 with patch embeddings, ssm rwkv6, hybrid zamba2, audio whisper
 with frames), ``vae_loss`` and ``diffusion_loss`` with the reference's noise
 passed in, ``adamw_update`` with clipping, one ``make_train_step`` step and
@@ -242,9 +243,17 @@ def test_chunked_cross_entropy_and_gradient_match_jax():
 #: name -> (arch, overrides of the reduced float32 config, dropless, batch
 #: extras); S 16 tokens, B 2.  Reduced zamba2 is 2 Mamba2 layers and the
 #: shared block after them (a tail layer would cost the JAX side 14 s of
-#: compilation).
+#: compilation).  chatglm3 keeps its half-dim rotary and groups its 4 query
+#: heads over 1; gemma3's 2 layers form one period of a local layer with a
+#: window of 8 (shorter than S, so both layers mask) and a global one;
+#: deepseek-moe runs dropless through its leading dense layer, then a MoE
+#: layer with a shared expert.
 FAMILIES = {
     "dense qwen3": ("qwen3-1.7b", {}, False, ()),
+    "dense chatglm3 half rotary": ("chatglm3-6b", {}, False, ()),
+    "dense gemma3 local and global": (
+        "gemma3-27b", dict(local_global_pattern=(1, 1), sliding_window=8), False, ()),
+    "moe deepseek dropless": ("deepseek-moe-16b", {}, True, ()),
     "moe granite capacity": ("granite-moe-3b-a800m", {}, False, ()),
     "moe granite dropless": ("granite-moe-3b-a800m", {}, True, ()),
     "vlm internvl2 patches": ("internvl2-1b", {}, False, ("patch_embeds",)),
