@@ -12,10 +12,11 @@ them: the bfloat16 forward at the served prefill shapes
 and the other float32 shapes (``flash_f32_cases``).  Times are
 ``chip_smoke.device_ms`` (inputs out of the L2) where a call takes under
 ``DEVICE_TIME_BELOW_MS``, else the median of 3 single calls between
-events.  Last, the float32 backward at the smoke's float32 training shapes
-(``TRAIN_BWD_CASES``), timed the same way: from the forward's log-sum-exp
-where ROOT's forward stores it, else without (a tree whose float32 backward
-recomputed it).
+events.  Last, the backward at the smoke's training shapes
+(``TRAIN_BWD_CASES``, bfloat16 and float32), timed the same way: from the
+forward's log-sum-exp where ROOT's forward stores it, else without (a tree
+whose float32 backward recomputed it; every tree with a bfloat16 backward
+stores it).
 
 It calls only ``flash_attention`` under ``no_grad``, and
 ``flash_attention_backward``, which every tree since the training slice
@@ -23,7 +24,9 @@ has, so that a parent unpacked by ``git archive`` into a git-ignored
 directory runs it too.  Time two trees in one call, in turns (parent,
 change, change, parent).  ``--compare`` prints, per case, each run's ms
 and whether its forward output equals the first run's bit for bit, and
-exits 1 if one does not.  ``--backward`` times the float32 backward alone.
+exits 1 if one does not (a change to a forward's arithmetic changes its
+bits by design: read the cases then).  ``--backward`` times the backward
+alone.
 """
 from __future__ import annotations
 
@@ -86,10 +89,9 @@ def run(root: str, out: str, forward: bool = True) -> None:
     except (ImportError, ValueError):
         stores_lse = False
     for name, (b, sq, sk, h, kv, d), causal, dt, _ in cs.TRAIN_BWD_CASES:
-        if dt != "float32":
-            continue
-        q, do = (torch.randn(b, sq, h, d, generator=gen, device=dev) for _ in range(2))
-        k, v = (torch.randn(b, sk, kv, d, generator=gen, device=dev) for _ in range(2))
+        dtype = getattr(torch, dt)
+        q, do = (torch.randn(b, sq, h, d, generator=gen, device=dev).to(dtype) for _ in range(2))
+        k, v = (torch.randn(b, sk, kv, d, generator=gen, device=dev).to(dtype) for _ in range(2))
         if stores_lse:
             o, lse = flash_attention_with_lse(q, k, v, causal=causal)
         else:
@@ -98,12 +100,11 @@ def run(root: str, out: str, forward: bool = True) -> None:
         sets = cs.rotation((q, k, v, o, do))
         ms = _ms(torch, cs, [lambda c=c: flash_attention_backward(*c, causal=causal, lse=lse)
                              for c in sets])
-        res["backward"][name] = {"ms": ms}
+        res["backward"][name] = {"ms": ms, "dtype": dt}
         del q, k, v, o, do, lse, sets
     torch.save(res, out)
     print(f"{root}: " + ", ".join(f"{n} {c['ms']:.4f}" for n, c in res["cases"].items())
-          + "; float32 backward " + ", ".join(f"{n} {c['ms']:.4f}"
-                                              for n, c in res["backward"].items()))
+          + "; backward " + ", ".join(f"{n} {c['ms']:.4f}" for n, c in res["backward"].items()))
 
 
 def compare(paths) -> int:
@@ -118,7 +119,7 @@ def compare(paths) -> int:
         print(f"{name}: ms " + " / ".join(f"{r['cases'][name]['ms']:.4f}" for r in runs)
               + f"; outputs equal to the first run's: {same}")
     for name in runs[0]["backward"]:
-        print(f"float32 backward {name}: ms "
+        print(f"backward {name} ({runs[0]['backward'][name].get('dtype', 'float32')}): ms "
               + " / ".join(f"{r['backward'][name]['ms']:.4f}" for r in runs))
     return 1 if bad else 0
 

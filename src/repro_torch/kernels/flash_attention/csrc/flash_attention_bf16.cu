@@ -20,21 +20,30 @@
 //
 // Numerics.  S = Q K^T accumulates exact bfloat16 products in float32; m, l,
 // the rescale factor and p = exp(s - m) are float32, and l sums the float32
-// p.  P V is taken as hi V + lo V with hi = bf16(p) and lo = bf16(p - hi),
-// accumulated in float32, and the output is rounded to bfloat16 once, at the
-// store.  Rounding p to bfloat16 once, as the TPU kernel does, moves an
-// output by up to 2^-9 |v| where a few keys carry a row's weight (the early
-// causal rows); that is many bfloat16 steps of a small output, and fails
-// the port's one-step check against the exact softmax.  The split leaves an
-// error of at most 2^-18 p, so the kernel agrees with the float32 plain
-// version to one bfloat16 rounding, at the price of a third product (P V
-// twice) beside the two of the TPU kernel.
+// p.  P V is taken as hi V + mid V + lo V with hi = bf16(p), mid =
+// bf16(p - hi) and lo = bf16(p - hi - mid): three bfloat16 terms carry p to
+// float32's 24 bits, and V is exact in bfloat16.  Each tile's three products
+// go into a zeroed fragment, added to O in float32 (round to nearest), and
+// the output is rounded to bfloat16 once, at the store.  Rounding p to
+// bfloat16 once, as the TPU kernel does, moves an output by up to 2^-9 |v|
+// where a few keys carry a row's weight (the early causal rows); that is
+// many bfloat16 steps of a small output.  Two terms (hi + lo) leave p's
+// error at 2^-17 p, and an output that cancels keeps 2^-17 sum |p v| / l of
+// it: where |v| is large (the init rule's weights give |v| ~ 150 on
+// qwen3-1.7b's layer inputs, whose scores stay near 5, so the softmax is
+// spread) that is several times the limit's absolute part, 1e-5, though
+// never when |v| ~ 1.  The tensor core truncates what it adds into its
+// accumulator; summed into O directly, twelve such additions a tile would
+// bias a cancelling output by as much again, hence the zeroed fragment.
+// On those layer inputs the kernel lies within one bfloat16 rounding of the
+// float64 result, at the price of a fourth product (P V three times)
+// beside the two of the TPU kernel.
 //
 // Design, simple first: one block of one warpgroup (128 threads) per (b*h,
-// tile of 64 query rows), so that even at D = 128, about 230 registers a
-// thread, two blocks fit on an SM; causal grids start with the longest
-// tiles.  (Two warpgroups sharing each K/V tile were no faster on the card
-// at qwen3's prefill lengths.)
+// tile of 64 query rows), so that even at D = 128 (205 registers a thread)
+// two blocks fit on an SM;
+// causal grids start with the longest tiles.  (Two warpgroups sharing each
+// K/V tile were no faster on the card at qwen3's prefill lengths.)
 // Q stays in shared memory; K and V tiles of 64 keys are double-buffered,
 // brought in with cp.async, in the 128-byte swizzle (64-byte for D = 32)
 // that `wgmma` reads: chunks of 64 columns in 8-row atoms, the 16-byte unit
@@ -44,16 +53,21 @@
 //   2. masks S_t in registers from the accumulator's (row, column) map (row
 //      16 warp + lane/4 (+8), column 8 j + 2 (lane % 4) (+1)) and takes the
 //      online softmax, two xor shuffles per row;
-//   3. packs p into hi and lo bfloat16 pairs: the S accumulator's fragment
-//      of 16 keys is the A fragment of the next `wgmma`, so P never touches
-//      shared memory;
-//   4. O += hi V_t + lo V_t as 2 x 4 `wgmma.m64nDk16` with A from registers
-//      and V read MN-major (transposed B) from its [key, d] tile.
-// Step 4 of tile t - 1 is started together with step 1 of tile t, so the
-// softmax of tile t runs while the tensor cores finish P_{t-1} V_{t-1}; the
-// next tile's copies are started behind both.  No `wgmma` sits on a path
-// that depends on the thread (ptxas serialises those).  TMA, a producer
-// warp, a persistent grid and ping-pong between warpgroups are later work.
+//   3. rescales O and packs p into hi, mid and lo bfloat16 pairs: the S
+//      accumulator's fragment of 16 keys is the A fragment of the next
+//      `wgmma`, so P never touches shared memory;
+//   4. O += hi V_t + mid V_t + lo V_t, per chunk of 64 columns of V (one
+//      for D <= 64, two for D = 128): 3 x 4 `wgmma.m64nNk16` (N = min(D,
+//      64)) with A from registers and V read MN-major (transposed B) from
+//      its [key, d] tile, into a zeroed fragment held in S's registers
+//      (free once P is packed), added to O's columns of the chunk.
+// Step 4 of tile t - 1 runs before step 1 of tile t, since both use S's
+// registers (at D = 128 a fragment of its own would cost 64 registers a
+// thread, and the block would no longer fit twice on an SM); the next
+// tile's copies start behind step 1 and land during the softmax.  No
+// `wgmma` sits on a path that depends on the thread (ptxas serialises
+// those).  TMA, a producer warp, a persistent grid and ping-pong between
+// warpgroups are later work.
 //
 // The log-sum-exp for the backward.  Where the caller passes a float32
 // [B, H, Sq] buffer (training), the epilogue also stores each row's
@@ -114,7 +128,10 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float acc[D / 2], s[BK / 2], corr[2];
-  uint32_t hi[BK / 16][4], lo[BK / 16][4];  // P of the previous tile
+  uint32_t hi[BK / 16][4], mid[BK / 16][4], lo[BK / 16][4];  // P of the previous tile
+  // step 4's fragment of PW columns of O: S's registers, free once P is packed
+  constexpr int PW = D < 64 ? D : 64;
+  float(&frag)[PW / 2] = *reinterpret_cast<float(*)[PW / 2]>(&s[0]);
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 #pragma unroll
@@ -143,15 +160,25 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     wgmma_commit();
   };
-  auto start_pv = [&](int t) {  // 4. O += hi V_t + lo V_t, P from registers, V MN-major
+  auto pv = [&](int t) {  // 4. O += hi V_t + mid V_t + lo V_t, chunk by chunk of V
     const uint32_t v_t = v_s + (t & 1) * KV_BYTES;
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t dv = desc<D>(v_t + kk * 16 * T::RB, BK * T::RB);
-      wgmma_pv<D>(acc, hi[kk], dv);
-      wgmma_pv<D>(acc, lo[kk], dv);
+    for (int c = 0; c < D / PW; ++c) {
+      pin(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t dv = desc<D>(v_t + c * BK * T::RB + kk * 16 * T::RB, BK * T::RB);
+        wgmma_pv<PW>(frag, hi[kk], dv, kk > 0);
+        wgmma_pv<PW>(frag, mid[kk], dv, 1);
+        wgmma_pv<PW>(frag, lo[kk], dv, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(s);
+#pragma unroll
+      for (int i = 0; i < PW / 2; ++i) acc[c * (PW / 2) + i] += frag[i];
     }
-    wgmma_commit();
   };
   auto softmax = [&](int t) {  // 2. mask, scale to log2 units, online softmax
     const int k0 = t * BK;
@@ -181,7 +208,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       l[(i >> 1) & 1] += s[i];
     }
   };
-  auto rescale_and_pack = [&]() {  // 3. O *= corr; p = hi + lo, as A fragments
+  auto rescale_and_pack = [&]() {  // 3. O *= corr; p = hi + mid + lo, as A fragments
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
 #pragma unroll
@@ -191,8 +218,12 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float x0 = s[8 * kk + 2 * e], x1 = s[8 * kk + 2 * e + 1];
         const __nv_bfloat162 ph = __floats2bfloat162_rn(x0, x1);
         const float2 pf = __bfloat1622float2(ph);
+        const float r0 = x0 - pf.x, r1 = x1 - pf.y;  // exact in float32
+        const __nv_bfloat162 pm = __floats2bfloat162_rn(r0, r1);
+        const float2 mf = __bfloat1622float2(pm);
         hi[kk][e] = bits(ph);
-        lo[kk][e] = bits(__floats2bfloat162_rn(x0 - pf.x, x1 - pf.y));
+        mid[kk][e] = bits(pm);
+        lo[kk][e] = bits(__floats2bfloat162_rn(r0 - mf.x, r1 - mf.y));
       }
   };
 
@@ -200,39 +231,28 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_tile<D, BK>(k_s, kb, k_row, 0, Sk, tid);
   cp_async_commit();
 
-  tiles_landed();  // Q, K_0
-  pin(s);
-  wgmma_fence();
-  start_s(0);
-  load_next(0);  // the copies start while the tensor cores work
-  wgmma_wait<0>();
-  pin(s);
-  softmax(0);
-  rescale_and_pack();
-  // Step t runs S_t = Q K_t^T and O += P_{t-1} V_{t-1} on the tensor cores
-  // together, and the softmax of S_t while P_{t-1} V_{t-1} runs.
-  for (int t = 1; t < n_tiles; ++t) {
-    tiles_landed();  // K_t, V_{t-1}
+  auto scores = [&](int t) {  // steps 1-3 of tile t
     pin(s);
-    pin(acc);
     wgmma_fence();
     start_s(t);
-    start_pv(t - 1);
-    load_next(t);
-    wgmma_wait<1>();  // S_t
+    load_next(t);  // the copies start while the tensor cores work
+    wgmma_wait<0>();
     pin(s);
     softmax(t);
-    wgmma_wait<0>();  // P_{t-1} V_{t-1}: O, hi and lo are free
-    pin(acc);
-    pin(s);
     rescale_and_pack();
+  };
+
+  tiles_landed();  // Q, K_0
+  scores(0);
+  // Step t runs O += P_{t-1} V_{t-1}, then steps 1-3 of tile t, each behind
+  // the one before.
+  for (int t = 1; t < n_tiles; ++t) {
+    tiles_landed();  // K_t, V_{t-1}
+    pv(t - 1);
+    scores(t);
   }
   tiles_landed();  // V_{n-1}
-  pin(acc);
-  wgmma_fence();
-  start_pv(n_tiles - 1);
-  wgmma_wait<0>();
-  pin(acc);
+  pv(n_tiles - 1);
 
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {

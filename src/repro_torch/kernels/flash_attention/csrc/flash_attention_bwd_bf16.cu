@@ -45,19 +45,20 @@
 //        query heads and their query tiles (causal: from the diagonal; the
 //        longest blocks first), the Q and dO tiles and their rows' (lse,
 //        delta) double-buffered by cp.async.  Per query tile:
-//          S^T = K Q^T (and dP^T = V dO^T) as D/16 `wgmma.m64n64k16`, both
-//          operands K-major from shared memory; P^T = exp2(S^T scale log2 e
-//          - lse log2 e) masked from the accumulator's (row, column) map as
-//          the forward masks S; dS^T = P^T (dP^T - delta); then dV += P^T
-//          dO or dK += dS^T Q, A from registers (the accumulator's fragment
-//          of 16 queries is the next `wgmma`'s A fragment, as in the
-//          forward) and dO or Q read MN-major from their [query, d] tiles,
-//          as the forward reads V.
+//          S^T = K Q^T (and dP^T = V dO^T, one k-step at a time) as D/16
+//          `wgmma.m64n64k16`, both operands K-major from shared memory;
+//          P^T = exp2(S^T scale log2 e - lse log2 e) masked from the
+//          accumulator's (row, column) map as the forward masks S; dS^T =
+//          P^T (dP^T - delta); then dV += P^T dO or dK += dS^T Q, A from
+//          registers (the accumulator's fragment of 16 queries is the next
+//          `wgmma`'s A fragment, as in the forward) and dO or Q read
+//          MN-major from their [query, d] tiles, as the forward reads V.
 //        dV and dK in separate blocks keep a thread at one D / 2
-//        accumulator (64 floats at D 128) beside S^T, dP^T and the tile's
-//        sum: at D 128 240 registers, 2 blocks an SM, no spill (at D 64
-//        three, under 170 registers).  It costs S^T twice and doubles the
-//        blocks at the training shapes, which is what they lack.
+//        accumulator (64 floats at D 128) beside S^T, dP^T, dS^T's three
+//        terms and the tile's sum: at D 128 255 registers, 2 blocks an SM,
+//        no spill (at D 64 207 registers, 2 blocks; at D 32 three).  It
+//        costs S^T twice and doubles the blocks at the training shapes,
+//        which is what they lack.
 //      - dQ blocks, one per (b, h, query tile, split of the key range): S =
 //        Q K^T and dP = dO V^T K-major, dQ += dS K with K read MN-major.
 //        Where the (b, h, query tile) blocks alone would leave SMs idle
@@ -66,17 +67,29 @@
 //   3. flash_bwd_bf16_combine sums them in split order, as flash-decode's
 //      split and combine do.
 //
-// Numerics.  S and dP accumulate exact bfloat16 products in float32; P, dS,
-// lse and delta are float32.  A product whose A operand is P or dS rounded
-// once to bfloat16 moves a sum by up to 2^-9 of its terms, and dq and dk sum
-// terms that cancel (each row of dS sums to 0), so P and dS are taken as hi
-// + lo, hi = bf16(x) and lo = bf16(x - hi), two products accumulated in
-// float32, as the forward splits P: an error of at most 2^-18 x.  The tensor
+// Numerics.  S and dP accumulate exact bfloat16 products in float32; P, dS
+// and lse are float32; delta is summed in float64 and rounded to float32
+// once.  A product whose A operand is P or dS rounded once to bfloat16
+// moves a sum by up to 2^-9 of its terms, and dq and dk sum terms that
+// cancel (each row of dS sums to 0), so dS is taken as hi + mid + lo, hi =
+// bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid): three bfloat16
+// terms carry float32's 24 bits, three products accumulated in float32.
+// Two terms (hi + lo) leave 2^-17 of each term, which a cancelling dq or dk
+// keeps where |v| is large and dS with it (the init rule's weights give |v|
+// ~ 150 on qwen3-1.7b's layer inputs): there they missed the one-step limit
+// from the float64 gradient, though never at |v| ~ 1.  dv = P^T dO sums
+// terms that do not cancel, so P stays at two terms (hi + lo).  A delta
+// summed in float32 moves dS = P (dP - delta) by 2^-24 of sum |dO o| in
+// every key of a row, which dq keeps whole where V is large.  The tensor
 // core truncates what it adds into its accumulator, a bias toward zero that
 // grows with the number of additions: summed over 128 query tiles (4096
 // causal tokens) it left one element of dv 1.22 of the one-step limit.  So
 // each tile's products go into a zeroed fragment, added to the running sum
 // on the CUDA cores (round to nearest), which cut that bias about fourfold.
+// dP meets the same bias inside one tile: D / 16 truncated additions into
+// |dP| ~ |dO| |V| sqrt(D), against delta formed apart, leave each row of dS
+// a sum that is no longer 0, and dq keeps it; so dP too is taken one k-step
+// of 16 at a time, each into a zeroed fragment added on the CUDA cores.
 // Each result rounds to bfloat16 once, at the store.
 //
 // Each tile's products wait for the previous step (no overlap of the
@@ -129,7 +142,7 @@ __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool ok
 }
 
 // Per row of q: (lse log2 e, delta = sum_d dO o), D / 8 threads a row, each
-// reading 16 bytes of o and of dO.
+// reading 16 bytes of o and of dO; delta summed in float64.
 template <int D>
 __global__ void __launch_bounds__(PREP_NT)
 flash_bwd_bf16_prep(const bf16* __restrict__ o, const bf16* __restrict__ dout,
@@ -140,7 +153,7 @@ flash_bwd_bf16_prep(const bf16* __restrict__ o, const bf16* __restrict__ dout,
   const long idx = (long)blockIdx.x * PREP_NT + threadIdx.x;
   const long r = idx / TPR;  // (b Sq + s) H + h
   const int u = idx % TPR;
-  float acc = 0.f;
+  double acc = 0.0;  // exact: each product of two bfloat16 values fits a float64
   if (r < rows) {
     const uint4 a = *reinterpret_cast<const uint4*>(o + r * D + u * 8);
     const uint4 b = *reinterpret_cast<const uint4*>(dout + r * D + u * 8);
@@ -149,8 +162,8 @@ flash_bwd_bf16_prep(const bf16* __restrict__ o, const bf16* __restrict__ dout,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float2 fa = __bfloat1622float2(pa[e]), fb = __bfloat1622float2(pb[e]);
-      acc = fmaf(fa.x, fb.x, acc);
-      acc = fmaf(fa.y, fb.y, acc);
+      acc = fma((double)fa.x, (double)fb.x, acc);
+      acc = fma((double)fa.y, (double)fb.y, acc);
     }
   }
 #pragma unroll
@@ -158,7 +171,7 @@ flash_bwd_bf16_prep(const bf16* __restrict__ o, const bf16* __restrict__ dout,
   if (r < rows && u == 0) {
     const long bs = r / H;
     const size_t at = ((size_t)(bs / Sq) * H + r % H) * Sq + bs % Sq;
-    stats[at] = make_float2(lse[at] * LOG2E, acc);
+    stats[at] = make_float2(lse[at] * LOG2E, (float)acc);
   }
 }
 
@@ -240,10 +253,19 @@ __device__ __forceinline__ void backward_block(const Args a, uint8_t* smem, uint
     cp_async_commit();
   };
 
-  float acc[D / 2], tmp[D / 2], s[BM / 2], dp[BM / 2];
-  uint32_t hi[BM / 16][4], lo[BM / 16][4];
+  // dS (dK and dQ blocks) in three bfloat16 terms, P (dV blocks) in two
+  constexpr int TERMS = DP ? 3 : 2;
+  // tmp: step 4's zeroed fragment of the tile's sum, and in step 1 that of
+  // one k-step of dP
+  constexpr int TW = D / 2 > BM / 2 ? D / 2 : BM / 2;
+  float acc[D / 2], tmp[TW], s[BM / 2], dp[BM / 2];
+  float(&out_f)[D / 2] = *reinterpret_cast<float(*)[D / 2]>(&tmp[0]);
+  float(&dp_f)[BM / 2] = *reinterpret_cast<float(*)[BM / 2]>(&tmp[0]);
+  uint32_t frag[TERMS][BM / 16][4];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < TW; ++i) tmp[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BM / 2; ++i) s[i] = 0.f, dp[i] = 0.f;
 
@@ -267,9 +289,10 @@ __device__ __forceinline__ void backward_block(const Args a, uint8_t* smem, uint
     const int stage = t & 1, r0 = other_row0(t);
     const uint32_t xo = xo_s + stage * TILE, yo = yo_s + stage * TILE;
 
-    // 1. S = X X_t^T (and dP = Y Y_t^T), both K-major in shared memory
+    // 1. S = X X_t^T (and dP = Y Y_t^T), both K-major in shared memory; dP
+    //    one k-step at a time into a zeroed fragment, added on the CUDA
+    //    cores
     pin(s);
-    if constexpr (DP) pin(dp);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
@@ -277,18 +300,24 @@ __device__ __forceinline__ void backward_block(const Args a, uint8_t* smem, uint
       wgmma_ss_n64(s, desc<D>(x_s + c * BM * T::RB + off, 16),
                    desc<D>(xo + c * BM * T::RB + off, 16), kk > 0);
     }
+    wgmma_commit();
     if constexpr (DP) {
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t c = kk * 16 / T::CW, off = (kk * 16 % T::CW) * 2;
-        wgmma_ss_n64(dp, desc<D>(y_s + c * BM * T::RB + off, 16),
-                     desc<D>(yo + c * BM * T::RB + off, 16), kk > 0);
+        pin(tmp);
+        wgmma_fence();
+        wgmma_ss_n64(dp_f, desc<D>(y_s + c * BM * T::RB + off, 16),
+                     desc<D>(yo + c * BM * T::RB + off, 16), 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(tmp);
+#pragma unroll
+        for (int i = 0; i < BM / 2; ++i) dp[i] = kk > 0 ? dp[i] + dp_f[i] : dp_f[i];
       }
     }
-    wgmma_commit();
     wgmma_wait<0>();
     pin(s);
-    if constexpr (DP) pin(dp);
 
     // 2. P = exp2(S scale log2 e - lse log2 e), masked; dS = P (dP - delta)
     const int key0 = KV_SIDE ? own0 : r0, query0 = KV_SIDE ? r0 : own0;
@@ -304,37 +333,40 @@ __device__ __forceinline__ void backward_block(const Args a, uint8_t* smem, uint
       if constexpr (DP) s[i] = p * (dp[i] - sv.y);
       else s[i] = p;
     }
-    // 3. x = hi + lo as A fragments
+    // 3. x = hi (+ mid) + lo as A fragments: each term the bfloat16 rounding
+    //    of what the ones before it leave (exact in float32)
 #pragma unroll
     for (int kk = 0; kk < BM / 16; ++kk)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float x0 = s[8 * kk + 2 * e], x1 = s[8 * kk + 2 * e + 1];
-        const __nv_bfloat162 xh = __floats2bfloat162_rn(x0, x1);
-        const float2 xf = __bfloat1622float2(xh);
-        hi[kk][e] = bits(xh);
-        lo[kk][e] = bits(__floats2bfloat162_rn(x0 - xf.x, x1 - xf.y));
+        float x0 = s[8 * kk + 2 * e], x1 = s[8 * kk + 2 * e + 1];
+#pragma unroll
+        for (int j = 0; j < TERMS; ++j) {
+          const __nv_bfloat162 xh = __floats2bfloat162_rn(x0, x1);
+          const float2 xf = __bfloat1622float2(xh);
+          frag[j][kk][e] = bits(xh);
+          x0 -= xf.x;
+          x1 -= xf.y;
+        }
       }
 
-    // 4. out += hi B + lo B, B MN-major from its [row, d] tile: dO for dV,
-    //    Q for dK, K for dQ; the tile's sum in a zeroed fragment, added to
-    //    the running sum on the CUDA cores
+    // 4. out += sum of the terms' products with B, B MN-major from its [row,
+    //    d] tile: dO for dV, Q for dK, K for dQ; the tile's sum in a zeroed
+    //    fragment, added to the running sum on the CUDA cores
     const uint32_t bo = ROLE == kDV ? yo : xo;
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) tmp[i] = 0.f;
     pin(tmp);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BM / 16; ++kk) {
       const uint64_t db = desc<D>(bo + kk * 16 * T::RB, BM * T::RB);
-      wgmma_pv<D>(tmp, hi[kk], db);
-      wgmma_pv<D>(tmp, lo[kk], db);
+#pragma unroll
+      for (int j = 0; j < TERMS; ++j) wgmma_pv<D>(out_f, frag[j][kk], db, kk + j > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
     pin(tmp);
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] += tmp[i];
+    for (int i = 0; i < D / 2; ++i) acc[i] += out_f[i];
   }
 
   // epilogue: the accumulator's rows are own rows, its columns d
@@ -386,7 +418,7 @@ constexpr size_t smem_bytes() {
 // key tile (causal: the longest first), then the dQ blocks, query tile by
 // query tile (causal: the longest first); the two sides run side by side.
 template <int D>
-__global__ void __launch_bounds__(NT, D <= 64 ? 3 : 1) flash_bwd_bf16_main(const Args a) {
+__global__ void __launch_bounds__(NT, D <= 32 ? 3 : 1) flash_bwd_bf16_main(const Args a) {
   ALIGNED_SMEM
   const int nq = (a.Sq + BM - 1) / BM;
   const int per_kt = a.B * a.KV * 2;

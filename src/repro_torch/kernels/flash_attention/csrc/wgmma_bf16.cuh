@@ -140,12 +140,13 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+// d (+)= a B over N = D columns of B; accumulate 0 overwrites d.
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (D == 32) wgmma_rs_n32(d, a, db, 1);
-  else if constexpr (D == 64) wgmma_rs_n64(d, a, db, 1);
-  else wgmma_rs_n128(d, a, db, 1);
+                                         uint64_t db, int accumulate = 1) {
+  if constexpr (D == 32) wgmma_rs_n32(d, a, db, accumulate);
+  else if constexpr (D == 64) wgmma_rs_n64(d, a, db, accumulate);
+  else wgmma_rs_n128(d, a, db, accumulate);
 }
 
 }  // namespace

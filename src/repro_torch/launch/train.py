@@ -17,6 +17,15 @@ the model keeps its whole vocabulary.  Over qwen3-1.7b's 151,936 ids a
 batch of 1,024 tokens almost never repeats one, so a few steps learn
 nothing of the chain and the cross entropy only wanders by the batch's
 noise; over 1,024 ids it falls within a few steps.
+
+A VLM's stub patch embeddings (over the first min(frontend_tokens, S)
+positions) are drawn N(0, 1) from ``--seed``, where the JAX launcher feeds
+zeros: at S <= frontend_tokens (256 for internvl2-1b) zeros make the whole
+sequence zero, every RMSNorm's gradient there is rsqrt(eps) = 1000 times
+its input's, and at 24 layers the bfloat16 gradient overflows to NaN in
+the first step (with the plain attention too).  An audio model's stub
+frames stay zero, as the JAX launcher's: their positional embedding keeps
+the encoder's input nonzero.
 """
 from __future__ import annotations
 
@@ -98,13 +107,14 @@ def train(args: argparse.Namespace) -> Dict[str, Any]:
     data = data_iterator(args.data_vocab or cfg.vocab_size, args.batch, args.seq,
                          seed=args.seed)
     dtype = getattr(torch, cfg.dtype)
+    patches = generator(args.seed, dev)
 
     def adapt(batch):
         b = {k: torch.as_tensor(v, dtype=torch.long, device=dev) for k, v in batch.items()}
         if cfg.family == "vlm":
-            b["patch_embeds"] = torch.zeros(
+            b["patch_embeds"] = torch.randn(
                 (args.batch, min(cfg.frontend_tokens, args.seq), cfg.d_model),
-                dtype=dtype, device=dev)
+                generator=patches, device=dev).to(dtype)
         if cfg.family == "audio":
             b["frames"] = torch.zeros((args.batch, cfg.frontend_tokens, cfg.d_model),
                                       dtype=dtype, device=dev)

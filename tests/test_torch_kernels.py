@@ -121,52 +121,155 @@ BF16_RTOL, BF16_ATOL = 2 ** -7, 1e-5
 KERNEL_BK = 64          # keys per kv tile in flash_attention_bf16.cu
 
 
-def _emulate_bf16_kernel(q, k, v, split_p: bool):
+def _bf16_terms(x, terms: int) -> list:
+    """float32 ``x`` as ``terms`` bfloat16 terms (hi, mid, lo), each the
+    rounding of what the ones before it leave, in float64."""
+    out, rest = [], x.float()
+    for _ in range(terms):
+        t = rest.bfloat16().float()
+        out.append(t.double())
+        rest = rest - t
+    return out
+
+
+def _emulate_bf16_kernel(q, k, v, terms: int):
     """The tensor-core kernel's arithmetic for one causal head, in torch on
     the CPU: float32 scores of the bfloat16 inputs in log2 units, the online
-    softmax over key blocks of KERNEL_BK with m, l and the accumulator in
-    float32, l summed from the float32 p, and P V as hi V + lo V (hi =
-    bf16(p), lo = bf16(p - hi)) or, as the TPU kernel does, bf16(p) V; the
+    softmax over key blocks of KERNEL_BK with m, l and p in float32, l summed
+    from the float32 p, and P V with p as ``terms`` bfloat16 terms: 3 (hi +
+    mid + lo, the kernel), 2 (hi + lo, the kernel before) or, as the TPU
+    kernel does, 1 (bf16(p)); the products and their sums in float64, the
     output rounded to bfloat16 once."""
     sq, d = q.shape
     scale = d ** -0.5 * 1.4426950408889634
     m = torch.full((sq, 1), -torch.inf)
     l = torch.zeros(sq, 1)
-    acc = torch.zeros(sq, d)
+    acc = torch.zeros(sq, d, dtype=torch.float64)
     qpos = torch.arange(sq)[:, None]
     for k0 in range(0, sq, KERNEL_BK):
-        kb, vb = k[k0:k0 + KERNEL_BK].float(), v[k0:k0 + KERNEL_BK].float()
-        s = (q.float() @ kb.T) * scale
+        kb, vb = k[k0:k0 + KERNEL_BK].double(), v[k0:k0 + KERNEL_BK].double()
+        s = (q.double() @ kb.T).float() * scale
         s = s.masked_fill(torch.arange(k0, k0 + kb.shape[0])[None, :] > qpos, -torch.inf)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         corr = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new)
         l = l * corr + p.sum(-1, keepdim=True)
-        hi = p.bfloat16().float()
-        pv = hi @ vb + ((p - hi).bfloat16().float() @ vb if split_p else 0)
-        acc = acc * corr + pv
+        acc = acc * corr.double() + sum(t @ vb for t in _bf16_terms(p, terms))
         m = m_new
-    return (acc / l).bfloat16()
+    return (acc / l.double()).bfloat16()
+
+
+def _heads_bf16(seed, v_scale: float, n: int = 3):
+    """n tensors [1, 512, 2, 128] ~ N(0, 1) in bfloat16 from ``seed``, the
+    third (v) times ``v_scale`` (a power of two: exact)."""
+    rng = np.random.default_rng(seed)
+    out = [torch.from_numpy(rng.standard_normal((1, 512, 2, 128)).astype(np.float32))
+           .bfloat16() for _ in range(n)]
+    out[2] = out[2] * v_scale
+    return out
+
+
+def _share(out, ref) -> float:
+    """The largest share of the bfloat16 elementwise limit of out from ref."""
+    out, ref = out.double(), ref.double()
+    return float(((out - ref).abs() / (BF16_ATOL + BF16_RTOL * ref.abs())).max())
 
 
 @pytest.mark.parametrize("split_p", [True, False])
 def test_bf16_kernel_numerics_meet_one_bf16_step_only_with_split_p(split_p):
-    """Why the bfloat16 kernel takes P V as hi V + lo V: at S 512, causal, 2
+    """Why the bfloat16 kernel splits p before P V: at S 512, causal, 2
     heads of 128, with q, k, v ~ N(0, 1) in bfloat16, the emulated kernel
-    stays within one bfloat16 step of ``attention_ref``; rounding p to
-    bfloat16 once moves the early causal rows, where a few keys carry the
-    weight, by more than ten steps."""
-    rng = np.random.default_rng(16)
-    q, k, v = (torch.from_numpy(rng.standard_normal((1, 512, 2, 128)).astype(np.float32))
-               .bfloat16() for _ in range(3))
+    with p in two bfloat16 terms stays within one bfloat16 step of
+    ``attention_ref``; rounding p to bfloat16 once moves the early causal
+    rows, where a few keys carry the weight, by more than ten steps."""
+    q, k, v = _heads_bf16(16, 1.0)
     ref = attention_ref(q, k, v, causal=True).float()
-    out = torch.stack([_emulate_bf16_kernel(q[0, :, h], k[0, :, h], v[0, :, h], split_p)
+    out = torch.stack([_emulate_bf16_kernel(q[0, :, h], k[0, :, h], v[0, :, h],
+                                            2 if split_p else 1)
                        for h in range(2)], dim=1)[None].float()
-    share = float(((out - ref).abs() / (BF16_ATOL + BF16_RTOL * ref.abs())).max())
+    share = _share(out, ref)
     if split_p:
         assert share <= 1.0, share
     else:
         assert share > 10.0, share
+
+
+def _attention64(q, k, v, do, o):
+    """o, dq, dk, dv of one causal head in float64, [S, D] each: softmax(q
+    k^T / sqrt(D)) v and the gradient for ``do`` given the forward's output
+    ``o`` (delta = rowsum(dO o)), as the backward kernel takes it."""
+    q, k, v, do, o = (x.double() for x in (q, k, v, do, o))
+    scale = q.shape[-1] ** -0.5
+    s = (q @ k.T) * scale
+    p = s.masked_fill(torch.ones_like(s, dtype=torch.bool).triu(1), -torch.inf).softmax(-1)
+    ds = p * (do @ v.T - (do * o).sum(-1, keepdim=True))
+    return p @ v, ds @ k * scale, ds.T @ q * scale, p.T @ do
+
+
+@pytest.mark.parametrize("terms", [2, 3])
+def test_bf16_kernel_numerics_at_large_v_meet_the_limit_only_with_three_terms(terms):
+    """Why the bfloat16 kernel takes p in three bfloat16 terms: with V x 2^7
+    (|v| ~ 150 and a spread softmax, as the init rule's weights make
+    qwen3-1.7b's layer inputs), an output that cancels keeps 2^-17 sum |p v|
+    / l of two terms' error, past the limit's absolute part.  At S 512,
+    causal, 2 heads of 128, q, k ~ N(0, 1), the emulated kernel with two
+    terms lies 3.6 of the elementwise limit from the float64 result, with
+    three within 1.  Held from float64, not from ``attention_ref``: the
+    plain float32 path itself lies ~1.27 of the limit from float64 here (a
+    reading that moves with the CPU's summation order, so not asserted)."""
+    q, k, v = _heads_bf16(16, 2.0 ** 7)
+    out = torch.stack([_emulate_bf16_kernel(q[0, :, h], k[0, :, h], v[0, :, h], terms)
+                       for h in range(2)], dim=1)
+    exact = torch.stack([_attention64(q[0, :, h], k[0, :, h], v[0, :, h], q[0, :, h],
+                                      q[0, :, h])[0] for h in range(2)], dim=1)
+    share = _share(out, exact)
+    if terms == 3:
+        assert share <= 1.0, share
+    else:
+        assert share > 2.0, share
+
+
+def _emulate_bf16_backward(q, k, v, o, do, terms: int):
+    """The bfloat16 backward kernel's splits for one causal head, [S, D]
+    each: dq += dS K and dk += dS^T Q with dS = P (dP - delta) rounded to
+    float32 and taken as ``terms`` bfloat16 terms, dv += P^T dO with P in
+    two; S, P, dP, delta and every product in float64, each result rounded
+    to bfloat16 once."""
+    q, k, v, o, do = (x.double() for x in (q, k, v, o, do))
+    scale = q.shape[-1] ** -0.5
+    s = (q @ k.T) * scale
+    p = s.masked_fill(torch.ones_like(s, dtype=torch.bool).triu(1), -torch.inf).softmax(-1)
+    ds = p * (do @ v.T - (do * o).sum(-1, keepdim=True))
+    dq = sum(t @ k for t in _bf16_terms(ds, terms)) * scale
+    dk = sum(t.T @ q for t in _bf16_terms(ds, terms)) * scale
+    dv = sum(t.T @ do for t in _bf16_terms(p, 2))
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.parametrize("terms", [2, 3])
+def test_bf16_backward_numerics_at_large_v_meet_the_limit_only_with_three_terms(terms):
+    """Why the bfloat16 backward takes dS in three bfloat16 terms for dq
+    and dk: at S 512, causal, 2 heads of 128, q, k, dO ~ N(0, 1) and V x
+    2^7, dq and dk sum terms of dS that cancel (each row sums to 0), and two
+    terms leave them more than 1 of the elementwise limit from the float64
+    gradient (given the bfloat16 o), dk most (~6.8); three terms stay
+    within it.  dv = P^T dO does not cancel, and P in two terms keeps it
+    within 1 either way.  S, P, dP and delta are float64 here: the kernel's
+    float32 ones add their own error, which the card measures."""
+    q, k, v, do = _heads_bf16(16, 2.0 ** 7, 4)
+    o = attention_ref(q, k, v, causal=True)
+    dq, dk, dv = [], [], []
+    for h in range(2):
+        ours = _emulate_bf16_backward(q[0, :, h], k[0, :, h], v[0, :, h], o[0, :, h],
+                                      do[0, :, h], terms)
+        exact = _attention64(q[0, :, h], k[0, :, h], v[0, :, h], do[0, :, h], o[0, :, h])[1:]
+        for acc, a, e in zip((dq, dk, dv), ours, exact):
+            acc.append(_share(a, e))
+    assert max(dv) <= 1.0, dv
+    if terms == 3:
+        assert max(dq + dk) <= 1.0, (dq, dk)
+    else:
+        assert max(dq + dk) > 1.0, (dq, dk)
 
 
 LOG2E = 1.4426950408889634

@@ -482,6 +482,22 @@ def test_launcher_draws_the_data_from_data_vocab_ids(capsys):
         launcher.train(args)
 
 
+def test_launcher_keeps_a_deep_vlm_finite(monkeypatch):
+    """A VLM's stub patch embeddings cover the whole sequence at S <=
+    frontend_tokens.  Zeros there (the JAX launcher's) make every position
+    zero, each RMSNorm's gradient rsqrt(eps) times its input's, and at 24
+    layers the gradient overflows; the launcher draws them from its seed,
+    and one step of internvl2-1b at 24 layers (narrow widths, float32) keeps
+    the cross entropy and the gradient norm finite."""
+    deep = dataclasses.replace(launcher.build_config("internvl2-1b", "smoke"), num_layers=24)
+    monkeypatch.setattr(launcher, "build_config", lambda arch, preset: deep)
+    args = launcher.parser().parse_args(["--arch", "internvl2-1b", "--preset", "smoke",
+                                         "--device", "cpu", "--steps", "1", "--batch", "2",
+                                         "--seq", "32"])
+    out = launcher.train(args)
+    assert np.isfinite(out["ce"][0]) and np.isfinite(out["grad_norm"][0]), out
+
+
 def test_launcher_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
