@@ -149,10 +149,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    a yardstick: the plain attention's output moved by 1e-6) at full width
    in bfloat16, at qwen3's limits, on the init rule's draws at std 1 /
    sqrt(fan-in); on the rule's own weights every flash call of one kernel
-   run within 2^-7 of its largest element from float64, and qwen3's and
-   zamba2's at the bfloat16 elementwise limit from float64, the kernels'
-   arithmetic emulated beside.  Then the four families at full width and
-   depth through ``launch.train`` (4 steps), ce finite and falling.  Every training run and gradient check
+   run within 2^-7 of its largest element from float64, and qwen3's,
+   zamba2's and gemma3's at the bfloat16 elementwise limit from float64,
+   the kernels' arithmetic emulated beside.  Then the four families at full
+   width and depth through ``launch.train`` (4 steps), ce finite and
+   falling.  Last chatglm3-6b (2 layers), gemma3-27b (one period of 5
+   local and 1 global layer, end to end on the rule's weights, as qwen3),
+   deepseek-moe-16b (dense layer 0 and one MoE layer, dropless, within
+   twice the routing yardstick) and deepseek-67b (2 layers), each with its
+   gradient check, then at the depths of `FAMILY_TRAIN_DEPTHS` (24, 6, 8
+   and 5 layers) for 4 AdamW steps through ``make_train_step``.  Each run prints its peak memory beside the
+   reckoning of its weights, gradients and float32 moments (12 bytes a
+   bfloat16 parameter).  Every training run and gradient check
    holds its flash launches to `train_attention_calls`; the backward cases
    include Wan's text cross-attention (float32, 18,900 over 512) and
    whisper's encoder self-attention (bfloat16, 1500 frames).
@@ -1905,7 +1913,11 @@ def whisper_generate_phase(torch, np, dev) -> dict:
 #: cross-attention, all 18,900 tokens and 40 heads over the 512 text keys
 #: (``diffusion_loss``'s, float32 with Sq != Sk); whisper-large-v3's encoder
 #: self-attention at the training batch of 4 (1500 frames: a ragged last
-#: tile of 28 rows and keys).
+#: tile of 28 rows and keys); then the training shapes of the families
+#: trained at a cut depth (B 4 x S 256, causal, heads of 128), whose query
+#: groups a dK/dV block loops over: chatglm3-6b 32 heads over 2 (groups of
+#: 16), deepseek-67b 64 over 8 (8), gemma3-27b 32 over 16 (2), and
+#: deepseek-moe-16b 16 over 16 (1).
 TRAIN_BWD_CASES = [
     ("qwen3_train_4x256", (4, 256, 256, 16, 8, 128), True, "bfloat16", 10),
     ("zamba2_train_512", (1, 512, 512, 32, 32, 64), True, "bfloat16", 10),
@@ -1918,6 +1930,10 @@ TRAIN_BWD_CASES = [
     ("whisper_enc_1500", (4, 1500, 1500, 20, 20, 64), False, "bfloat16", 5),
     ("qwen3_train_4x256_v128", (4, 256, 256, 16, 8, 128), True, "bfloat16", 10),
     ("zamba2_train_512_v128", (1, 512, 512, 32, 32, 64), True, "bfloat16", 10),
+    ("chatglm3_train_4x256", (4, 256, 256, 32, 2, 128), True, "bfloat16", 10),
+    ("deepseek67b_train_4x256", (4, 256, 256, 64, 8, 128), True, "bfloat16", 10),
+    ("gemma3_train_4x256", (4, 256, 256, 32, 16, 128), True, "bfloat16", 10),
+    ("deepseek_moe_train_4x256", (4, 256, 256, 16, 16, 128), True, "bfloat16", 10),
 ]
 #: The full-width gradient check: qwen3-1.7b at 2 of its 28 layers, one
 #: loss and gradient with the flash kernels against the same with the
@@ -1957,6 +1973,27 @@ FAMILY_TRAIN_ARGS = {
     arch: ["--arch", arch, "--preset", "full", "--steps", "4", "--batch", "4", "--seq",
            "256", "--log-every", "1", "--lr", "1e-3", "--data-vocab", "1024"]
     for arch in ("whisper-large-v3", "zamba2-1.2b", "internvl2-1b", "granite-moe-3b-a800m")}
+#: The families that one card cannot train at full depth: every width, the
+#: depth cut to the layers below, FAMILY_TRAIN_STEPS AdamW steps through
+#: ``make_train_step`` (`train_steps`; the launcher has no depth flag, as
+#: the JAX launcher has none) of the bigram chain as `TRAIN_ARGS`.
+#: Reckoned by ``registry.abstract_params`` at 12 bytes a parameter
+#: (bfloat16 weights and gradients, float32 moments), which must leave
+#: room in the card's 80 GB for the activations and the per-layer
+#: gradients autograd holds until it stacks them (on an H100 the peaks
+#: stood 1.4-2.6 GiB above the reckoning): chatglm3-6b 24 of 28 layers:
+#: 5.428 B parameters, 60.7 GiB (whole, 6.243 B and 69.8 GiB, it peaked at
+#: 72.84 GiB in its first step on an H100 and ran out of memory in the
+#: second, asking 2.93 GiB, its stacked w_down gradient, with 7.16 GiB
+#: reserved but free in pieces); gemma3-27b 6 of 62, one period of (5
+#: local, 1 global), the fewest layers that reach a flash kernel: 5.296 B,
+#: 59.2 GiB, its embedding and unembedding 1.409 B each; deepseek-moe-16b 8
+#: of 28, dense layer 0 and 7 MoE layers (dropless, as the launcher trains
+#: them): 4.620 B, 51.6 GiB; deepseek-67b 5 of 95: 5.138 B, 57.4 GiB, each
+#: layer 0.692 B or 7.73 GiB.
+FAMILY_TRAIN_DEPTHS = {"chatglm3-6b": 24, "gemma3-27b": 6, "deepseek-moe-16b": 8,
+                       "deepseek-67b": 5}
+FAMILY_TRAIN_STEPS = 4
 #: The gradient checks of those families at full width (B 4 x S 256,
 #: bfloat16, at qwen3's limits): name -> (arch, depth overrides).
 #: whisper at 2 encoder and 2 decoder layers over 1500 random frames (zero
@@ -1987,18 +2024,40 @@ FAMILY_TRAIN_ARGS = {
 #: the attention's output so moved (`grad_check`'s ``yardstick``): its
 #: top-8 routing of 40 experts sends a token to another expert where a
 #: rounding of the attention moves two router logits past each other.
+#:
+#: The families trained at a cut depth (`FAMILY_TRAIN_DEPTHS`): chatglm3,
+#: deepseek-moe (its dense layer 0 and one MoE layer, dropless, with the
+#: routing yardstick: top-6 of 64 experts) and deepseek-67b at 2 layers;
+#: gemma3 at 6, one period of its (5 local, 1 global) pattern, since only
+#: the sixth, global, layer reaches the flash kernels.
 FAMILY_GRAD_CHECKS = {
     "whisper": ("whisper-large-v3", dict(num_layers=2, encoder_layers=2)),
     "zamba2": ("zamba2-1.2b", dict(num_layers=6)),
     "internvl2": ("internvl2-1b", dict(num_layers=2)),
     "granite": ("granite-moe-3b-a800m", dict(num_layers=2)),
+    "chatglm3": ("chatglm3-6b", dict(num_layers=2)),
+    "gemma3": ("gemma3-27b", dict(num_layers=6)),
+    "deepseek_moe": ("deepseek-moe-16b", dict(num_layers=2)),
+    "deepseek67b": ("deepseek-67b", dict(num_layers=2)),
 }
 #: The families whose flash calls on the init rule's weights are held at
 #: the elementwise limit from float64 too (`init_attention_check`): qwen3
-#: (its queries and keys normalised) and zamba2, whose scores stay near 5
-#: there.  The others are one-hot there and held at
-#: ONE_HOT_SHARE only.
-ELEMENTWISE_INIT_FAMILIES = ("qwen3-1.7b", "zamba2-1.2b")
+#: and gemma3 (their queries and keys normalised) and zamba2, whose scores
+#: stay near 5 there.  The others are one-hot there (scores 1.0e4-2.2e4 for
+#: chatglm3, deepseek-moe and deepseek-67b) and held at ONE_HOT_SHARE only.
+#: gemma3's one flash call at 6 layers read, on an H100, scores up to 5.09
+#: and a row's largest softmax weight 0.097 on average, the kernels' o, dq,
+#: dk, dv 0.498, 0.691, 0.498, 0.495 of the limit from float64 (the plain
+#: path's dq 1.61): qwen3's regime.  At another draw of weights and tokens
+#: (`scripts/grad_check_seeds.py`, seed 1) its dq read 1.043 of that limit,
+#: the plain path's 1.574: the float32 sums, not the bfloat16 terms.
+ELEMENTWISE_INIT_FAMILIES = ("qwen3-1.7b", "zamba2-1.2b", "gemma3-27b")
+#: The families whose end-to-end check (`family_grad_check`) keeps the init
+#: rule's weights, where their normalised queries and keys keep the
+#: softmax spread: qwen3 and gemma3 (whose end-to-end check there read a
+#: worst leaf of 0.0135 on an H100).  The others run it on the fan-in
+#: weights (`fan_in_weights`).
+RULE_WEIGHTS_FAMILIES = ("qwen3-1.7b", "gemma3-27b")
 #: Wan's training objective at ``PORT`` (2 DiT layers, every width), float32:
 #: ``diffusion_loss`` through the float32 flash kernels against the same
 #: under `plain_attention`, the loss within WAN_LOSS_RTOL relative and each
@@ -2559,12 +2618,13 @@ YARDSTICK_SEED = 1
 YARDSTICK_FACTOR = 2.0
 
 
-def rwkv6_grad_check(torch, dev) -> dict:
+def rwkv6_grad_check(torch, dev, seed: int = 0) -> dict:
     """rwkv6-7b at full width and `GRAD_CHECK_LAYERS` layers: one loss and
     gradient of ``registry.loss_fn`` for each of `RWKV_GRAD_RUNS` (in
     float32 only both kernels and the plain loop), on the same weights and
-    batch, each run's WKV6 launches checked, and the pairs of
-    `RWKV_GRAD_PAIRS` compared leaf by leaf."""
+    batch (generator ``seed``, the data's seed ``seed``), each run's WKV6
+    launches checked, and the pairs of `RWKV_GRAD_PAIRS` compared leaf by
+    leaf."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2580,9 +2640,9 @@ def rwkv6_grad_check(torch, dev) -> dict:
     for dt in ("bfloat16", "float32"):
         cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=GRAD_CHECK_LAYERS,
                                   dtype=dt)
-        params = init_params(cfg, generator(0, dev), dev)
+        params = init_params(cfg, generator(seed, dev), dev)
         names = ["/".join(p) for p, _ in spec_leaves(registry.abstract_params(cfg))]
-        batch = next(data_iterator(cfg.vocab_size, 4, 256, seed=0))
+        batch = next(data_iterator(cfg.vocab_size, 4, 256, seed=seed))
         batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev) for k, v in batch.items()}
         runs = {}
         for label, fwd, bwd, per_layer in RWKV_GRAD_RUNS:
@@ -3158,15 +3218,17 @@ def init_attention_check(torch, label: str, loss_of, leaves, want,
 
 
 def family_grad_check(torch, dev, label: str, arch: str, over: dict,
-                      fan_in: bool = True, init_only: bool = False) -> dict:
+                      init_only: bool = False, seed: int = 0) -> dict:
     """``arch`` at full width with the depth of ``over``, bfloat16, on B 4 x
     S 256 tokens (whisper with random frames, internvl2 with random patch
     embeddings of the launcher's shape; MoE layers dropless, as the
     launcher trains them): `init_attention_check` on the init rule's
     weights (held at the elementwise limit too for
     `ELEMENTWISE_INIT_FAMILIES`), then, unless ``init_only``, `grad_check`
-    of ``registry.loss_fn`` on the same draws rescaled by `fan_in_weights`
-    where ``fan_in``, else on the rule's."""
+    of ``registry.loss_fn`` on the same draws rescaled by `fan_in_weights`,
+    or on the rule's for `RULE_WEIGHTS_FAMILIES`.  ``seed`` moves every draw: the
+    weights from generator ``seed``, the tokens from the data's seed
+    ``seed``, the frames or patches from generator `INPUT_SEED` + ``seed``."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3178,16 +3240,16 @@ def family_grad_check(torch, dev, label: str, arch: str, over: dict,
     from repro_torch.training.train_step import init_params
 
     cfg = dataclasses.replace(get_config(arch), **over)
-    params = init_params(cfg, generator(0, dev), dev)
+    params = init_params(cfg, generator(seed, dev), dev)
     spec = registry.abstract_params(cfg)
     names = ["/".join(p) for p, _ in spec_leaves(spec)]
-    batch = next(data_iterator(cfg.vocab_size, 4, 256, seed=0))
+    batch = next(data_iterator(cfg.vocab_size, 4, 256, seed=seed))
     batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev) for k, v in batch.items()}
     front = {"audio": ("frames", cfg.frontend_tokens),
              "vlm": ("patch_embeds", min(cfg.frontend_tokens, 256))}.get(cfg.family)
     if front:
         batch[front[0]] = torch.randn((4, front[1], cfg.d_model),
-                                      generator=generator(INPUT_SEED, dev), device=dev
+                                      generator=generator(INPUT_SEED + seed, dev), device=dev
                                       ).to(getattr(torch, cfg.dtype))
     depth = ", ".join(f"{k} {v}" for k, v in over.items())
     label = f"{label} grad check: {arch} full width, {depth}, B 4 S 256 {cfg.dtype}"
@@ -3201,6 +3263,7 @@ def family_grad_check(torch, dev, label: str, arch: str, over: dict,
     if init_only:
         del params, batch
         return dict(init_attention=init)
+    fan_in = arch not in RULE_WEIGHTS_FAMILIES
     if fan_in:
         fan_in_weights(torch, params, spec)
     out = grad_check(torch, f"{label}, {'fan-in' if fan_in else 'init'} weights", loss_of,
@@ -3354,13 +3417,15 @@ def train_run(torch, dev, argv=TRAIN_ARGS) -> dict:
     steady = sorted(out["step_s"][1:])
     step_ms = 1e3 * steady[len(steady) // 2]
     tokens = args.batch * args.seq
+    reckoning = state_reckoning_gib(cfg)
     res = dict(arch=args.arch, preset=args.preset, dtype=cfg.dtype, layers=cfg.num_layers,
                ce_first=ces[0], ce_last=ces[-1], steps=args.steps, batch=args.batch,
                seq=args.seq, step_ms=step_ms, first_step_ms=1e3 * out["step_s"][0],
                tokens_per_s=tokens / (step_ms / 1e3),
                launcher_tokens_per_s=out["tokens_per_s"],
-               peak_gib=out["peak_bytes"] / 2 ** 30, flash_launches=fwd,
-               flash_bwd_launches=bwd, wkv6_launches=wf, wkv6_bwd_launches=wb)
+               peak_gib=out["peak_bytes"] / 2 ** 30, reckoning_gib=reckoning,
+               flash_launches=fwd, flash_bwd_launches=bwd, wkv6_launches=wf,
+               wkv6_bwd_launches=wb)
     recurrent = cfg.family == "ssm"
     kf, kb, name = (wf, wb, "wkv6") if recurrent else (fwd, bwd, "flash")
     depth = (f"{cfg.encoder_layers} encoder and {cfg.num_layers} decoder"
@@ -3368,30 +3433,51 @@ def train_run(torch, dev, argv=TRAIN_ARGS) -> dict:
     print(f"train {args.arch} {args.preset} ({depth} layers, {cfg.dtype}): ce "
           f"{ces[0]:.4f} -> {ces[-1]:.4f} in {args.steps} steps of {args.batch}x{args.seq}; "
           f"step {step_ms:.1f} ms (median after the first, {res['first_step_ms']:.0f} ms), "
-          f"{res['tokens_per_s']:.0f} tokens/s, peak {res['peak_gib']:.2f} GiB; launches "
+          f"{res['tokens_per_s']:.0f} tokens/s, peak {res['peak_gib']:.2f} GiB (weights, "
+          f"gradients and moments reckoned {reckoning:.2f} GiB); launches "
           f"{name} {kf} ({kf / args.steps:.0f} a step) backward {kb} "
           f"({kb / args.steps:.0f} a step)" + (f", flash {fwd + bwd}" if recurrent else ""))
     check(all(math.isfinite(c) for c in ces), "train: non-finite ce")
     check(ces[-1] < ces[0], f"train: ce did not fall ({ces[0]} -> {ces[-1]})")
-    per_step = ((2 * cfg.num_layers, cfg.num_layers) if recurrent
-                else train_attention_calls(cfg))
-    want = tuple(n * args.steps for n in per_step)
-    other = (fwd, bwd) if recurrent else (wf, wb)
-    check((kf, kb) == want and other == (0, 0),
-          f"train: launches flash {fwd}, backward {bwd}; wkv6 {wf}, backward {wb}; "
-          f"{name} expected {want}")
+    held_launches("train", cfg, args.steps, (fwd, bwd, wf, wb))
     return res
 
 
-def rwkv6_train_steps(torch, dev, layers: int = RWKV_TRAIN_LAYERS,
-                      steps: int = RWKV_TRAIN_STEPS) -> dict:
-    """rwkv6-7b at full width and ``layers`` of its 32 layers in bfloat16,
+def state_reckoning_gib(cfg) -> float:
+    """GiB of ``cfg``'s weights and gradients in its dtype and its two
+    float32 moments: 12 bytes a bfloat16 parameter, 16 a float32 one."""
+    from repro_torch.models import registry
+
+    item = 2 if cfg.dtype == "bfloat16" else 4
+    return registry.count_params(cfg) * (2 * item + 8) / 2 ** 30
+
+
+def held_launches(label: str, cfg, steps: int, counts) -> None:
+    """``counts`` (flash forward, flash backward, WKV6 forward, WKV6
+    backward) of ``steps`` training steps of ``cfg``: for rwkv6 2 forward
+    and 1 backward WKV6 launches a layer and step and no flash kernel, for
+    every other family `train_attention_calls` a step and no WKV6."""
+    fwd, bwd, wf, wb = counts
+    if cfg.family == "ssm":
+        want, ok = (2 * cfg.num_layers * steps, cfg.num_layers * steps), (fwd, bwd) == (0, 0)
+        got = (wf, wb)
+    else:
+        want = tuple(n * steps for n in train_attention_calls(cfg))
+        ok, got = (wf, wb) == (0, 0), (fwd, bwd)
+    check(got == want and ok, f"{label}: launches flash {fwd}, backward {bwd}; wkv6 {wf}, "
+                              f"backward {wb}; {'wkv6' if cfg.family == 'ssm' else 'flash'} "
+                              f"expected {want}")
+
+
+def train_steps(torch, dev, arch: str, layers: int, steps: int, profiled: int = 0) -> dict:
+    """``arch`` at full width and ``layers`` of its layers in bfloat16,
     ``steps`` AdamW steps through ``make_train_step`` (as `train_profile`
-    drives it) of B 4 x S 256 tokens of the bigram chain over 1,024 ids, the
-    WKV6 counters set to 0 just before and read just after: ce finite and
-    falling, 2 forward and 1 backward WKV6 launches a layer and step, no
-    flash kernel; step time (median after the first), tokens/s, peak
-    memory; then `PROFILED_STEPS` more steps under `profile_steps`."""
+    drives it; MoE layers dropless, as the launcher trains them) of B 4 x
+    S 256 tokens of the bigram chain over 1,024 ids at lr 1e-3, the launch
+    counters set to 0 just before and read just after: ce finite and
+    falling, the launches of `held_launches`; step time (median after the
+    first), tokens/s, the peak memory beside `state_reckoning_gib`; then
+    ``profiled`` more steps under `profile_steps`."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3403,18 +3489,19 @@ def rwkv6_train_steps(torch, dev, layers: int = RWKV_TRAIN_LAYERS,
     from repro_torch.training.data import data_iterator
     from repro_torch.training.train_step import init_params
 
-    cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=layers)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
     torch.cuda.empty_cache()
     params = init_params(cfg, generator(0, dev), dev)
     opt = adamw_init(params)
-    step = make_train_step(cfg, lr=1e-3)
+    step = make_train_step(cfg, lr=1e-3, dropless=cfg.num_experts > 0)
     data = data_iterator(1024, 4, 256, seed=0)
     batches = [{k: torch.as_tensor(v, dtype=torch.long, device=dev)
-                for k, v in next(data).items()} for _ in range(steps + PROFILED_STEPS)]
+                for k, v in next(data).items()} for _ in range(steps + profiled)]
     n_params = sum(p.numel() for p in tree_leaves(params))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters = (wkv6, wkv6_backward, flash_attention, flash_attention_backward)
+    counters = (flash_attention, flash_attention_backward, wkv6, wkv6_backward)
     for c in counters:
         c.launches = 0
     ces, step_s = [], []
@@ -3423,33 +3510,41 @@ def rwkv6_train_steps(torch, dev, layers: int = RWKV_TRAIN_LAYERS,
         params, opt, m = step(params, opt, b)
         ces.append(float(m["ce"]))
         step_s.append(time.perf_counter() - t0)
-    wf, wb, fl, flb = (c.launches for c in counters)
+    fl, flb, wf, wb = counts = tuple(c.launches for c in counters)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reckoning = state_reckoning_gib(cfg)
     steady = sorted(step_s[1:])
     step_ms = 1e3 * steady[len(steady) // 2]
     tokens = 4 * 256
-    print(f"train rwkv6-7b full width ({layers} of 32 layers, {n_params / 1e9:.2f} B "
+    kf, kb, name, other = ((wf, wb, "wkv6", f"flash {fl + flb}") if cfg.family == "ssm"
+                           else (fl, flb, "flash", f"wkv6 {wf + wb}"))
+    label = f"train {arch}"
+    print(f"{label} full width ({layers} of {full.num_layers} layers, {n_params / 1e9:.2f} B "
           f"params, bfloat16) through make_train_step: ce {ces[0]:.4f} -> {ces[-1]:.4f} "
           f"in {steps} steps of 4x256; step {step_ms:.1f} ms (median after the first, "
           f"{1e3 * step_s[0]:.0f} ms), {tokens / (step_ms / 1e3):.0f} tokens/s, peak "
-          f"{peak:.2f} GiB; launches wkv6 {wf} ({wf / steps:.0f} a step) backward {wb} "
-          f"({wb / steps:.0f} a step), flash {fl + flb}")
-    check(all(math.isfinite(c) for c in ces), "train rwkv6: non-finite ce")
-    check(ces[-1] < ces[0], f"train rwkv6: ce did not fall ({ces[0]} -> {ces[-1]})")
-    check((wf, wb, fl, flb) == (2 * layers * steps, layers * steps, 0, 0),
-          f"train rwkv6: launches wkv6 {wf}, backward {wb}, flash {fl}, {flb}")
-    state = [params, opt]
+          f"{peak:.2f} GiB (weights, gradients and moments reckoned {reckoning:.2f} GiB); "
+          f"launches {name} {kf} ({kf / steps:.0f} a step) backward {kb} "
+          f"({kb / steps:.0f} a step), {other}")
+    check(all(math.isfinite(c) for c in ces), f"{label}: non-finite ce")
+    check(ces[-1] < ces[0], f"{label}: ce did not fall ({ces[0]} -> {ces[-1]})")
+    held_launches(label, cfg, steps, counts)
+    out = dict(arch=arch, layers=layers, dtype="bfloat16", params=n_params,
+               ce_first=ces[0], ce_last=ces[-1], ces=ces, steps=steps, batch=4, seq=256,
+               step_ms=step_ms, first_step_ms=1e3 * step_s[0],
+               tokens_per_s=tokens / (step_ms / 1e3), peak_gib=peak,
+               reckoning_gib=reckoning, flash_launches=fl, flash_bwd_launches=flb,
+               wkv6_launches=wf, wkv6_bwd_launches=wb)
+    if profiled:
+        state = [params, opt]
 
-    def run_step(i):
-        state[:] = step(*state, batches[steps + i])[:2]
-    prof = profile_steps(torch, run_step, PROFILED_STEPS,
-                         f"train profile rwkv6-7b ({layers} layers)")
-    del params, opt, state
-    return dict(arch="rwkv6-7b", layers=layers, dtype="bfloat16", params=n_params,
-                ce_first=ces[0], ce_last=ces[-1], ces=ces, steps=steps, batch=4, seq=256,
-                step_ms=step_ms, first_step_ms=1e3 * step_s[0],
-                tokens_per_s=tokens / (step_ms / 1e3), peak_gib=peak,
-                wkv6_launches=wf, wkv6_bwd_launches=wb, profile=prof)
+        def run_step(i):
+            state[:] = step(*state, batches[steps + i])[:2]
+        out["profile"] = profile_steps(torch, run_step, profiled,
+                                       f"train profile {arch} ({layers} layers)")
+        del state
+    del params, opt
+    return out
 
 
 #: kernel name -> kind, for the training step's device-time breakdown (the
@@ -3533,7 +3628,9 @@ def bf16_numerics(torch, F, dev, randn, lib_path) -> dict:
         ("qwen3", partial(family_grad_check, torch, dev, "train", "qwen3-1.7b",
                           dict(num_layers=GRAD_CHECK_LAYERS), init_only=True)),
         ("zamba2", partial(family_grad_check, torch, dev, "zamba2", "zamba2-1.2b",
-                           FAMILY_GRAD_CHECKS["zamba2"][1], init_only=True)))
+                           FAMILY_GRAD_CHECKS["zamba2"][1], init_only=True)),
+        ("gemma3", partial(family_grad_check, torch, dev, "gemma3", "gemma3-27b",
+                           FAMILY_GRAD_CHECKS["gemma3"][1], init_only=True)))
     for key, fn in parts:
         try:
             out[key] = fn()
@@ -3548,7 +3645,7 @@ def bf16_numerics(torch, F, dev, randn, lib_path) -> dict:
 def train_phase(torch, F, np, dev, randn, lib_path) -> dict:
     """The training phase (``--only train``): the backward kernels' builds
     and cases (flash attention's, then WKV6's), the full-width gradient
-    checks, the full runs."""
+    checks, the full runs, then the runs at a cut depth."""
     build = flash_bwd_build_report(lib_path)
     rows = flash_bwd_kernel_phase(torch, F, dev, randn)
     wkv_build = wkv6_bwd_build_report(lib_path)
@@ -3557,20 +3654,24 @@ def train_phase(torch, F, np, dev, randn, lib_path) -> dict:
     torch.cuda.empty_cache()
     out = dict(build=build, rows=rows, wkv6_build=wkv_build, wkv6_rows=wkv_rows)
     steps = [
-        # qwen3's end to end on the init rule's weights (`FAMILY_GRAD_CHECKS`)
+        # qwen3's end to end on the init rule's weights (`RULE_WEIGHTS_FAMILIES`)
         ("grad_check", partial(family_grad_check, torch, dev, "train", "qwen3-1.7b",
-                               dict(num_layers=GRAD_CHECK_LAYERS), fan_in=False)),
+                               dict(num_layers=GRAD_CHECK_LAYERS))),
         ("run", partial(train_run, torch, dev)),
         ("profile", partial(train_profile, torch, dev)),
         ("run_f32", partial(train_run, torch, dev, TRAIN_F32_ARGS)),
         ("rwkv6_grad_check", partial(rwkv6_grad_check, torch, dev)),
-        ("rwkv6_run", partial(rwkv6_train_steps, torch, dev)),
+        ("rwkv6_run", partial(train_steps, torch, dev, "rwkv6-7b", RWKV_TRAIN_LAYERS,
+                              RWKV_TRAIN_STEPS, PROFILED_STEPS)),
         ("rwkv6_run_f32", partial(train_run, torch, dev, RWKV_TRAIN_F32_ARGS)),
         ("wan_grad_check", partial(wan_grad_check, torch, dev)),
         ("vae_grad_check", partial(vae_grad_check, torch, dev))]
     for label, (arch, over) in FAMILY_GRAD_CHECKS.items():
+        run = (partial(train_run, torch, dev, FAMILY_TRAIN_ARGS[arch]) if arch in FAMILY_TRAIN_ARGS
+               else partial(train_steps, torch, dev, arch, FAMILY_TRAIN_DEPTHS[arch],
+                            FAMILY_TRAIN_STEPS))
         steps += [(f"{label}_grad_check", partial(family_grad_check, torch, dev, label, arch, over)),
-                  (f"{label}_run", partial(train_run, torch, dev, FAMILY_TRAIN_ARGS[arch]))]
+                  (f"{label}_run", run)]
     for key, fn in steps:
         out[key] = fn()
         gc.collect()

@@ -1149,3 +1149,28 @@ def test_two_training_steps_from_one_start_give_equal_weights_on_card(cuda):
         runs.append([p.detach().clone() for p in tree_leaves(params)])
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_adamw_update_of_a_large_leaf_keeps_its_temporaries_small(cuda):
+    """One ``adamw_update`` of a bfloat16 leaf of 2^28 elements (512 MiB;
+    its float32 copy is 1 GiB): the peak above the leaf, its gradient and
+    its two moments stays under 2 GiB, and the moments and the leaf move."""
+    from repro_torch.training import adamw_init, adamw_update
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n = 1 << 28
+    params = {"w": torch.randn(n, generator=gen, device=cuda).to(torch.bfloat16)}
+    grads = {"w": torch.randn(n, generator=gen, device=cuda).to(torch.bfloat16)}
+    before = params["w"].clone()
+    state = adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    params, state, gnorm = adamw_update(grads, state, params, lr=1e-3)
+    torch.cuda.synchronize()
+    above = torch.cuda.max_memory_allocated() - held
+    assert above < 2 * 2 ** 30, f"{above / 2 ** 30:.2f} GiB above the leaf and its state"
+    assert bool(torch.isfinite(gnorm)) and float(gnorm) > 1.0
+    assert float(state.mu["w"].abs().max()) > 0 and float(state.nu["w"].abs().max()) > 0
+    assert not torch.equal(params["w"], before)

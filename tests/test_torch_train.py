@@ -247,10 +247,11 @@ def test_chunked_cross_entropy_and_gradient_match_jax():
 #: heads over 1; gemma3's 2 layers form one period of a local layer with a
 #: window of 8 (shorter than S, so both layers mask) and a global one;
 #: deepseek-moe runs dropless through its leading dense layer, then a MoE
-#: layer with a shared expert.
+#: layer with a shared expert; deepseek-67b groups its 8 query heads over 2.
 FAMILIES = {
     "dense qwen3": ("qwen3-1.7b", {}, False, ()),
     "dense chatglm3 half rotary": ("chatglm3-6b", {}, False, ()),
+    "dense deepseek-67b gqa": ("deepseek-67b", {}, False, ()),
     "dense gemma3 local and global": (
         "gemma3-27b", dict(local_global_pattern=(1, 1), sliding_window=8), False, ()),
     "moe deepseek dropless": ("deepseek-moe-16b", {}, True, ()),
@@ -372,6 +373,79 @@ def test_adamw_update_matches_jax(clip):
     for tree, ref in ((p, jp), (s.mu, js.mu), (s.nu, js.nu)):
         for a, b in zip(tree_leaves(tree), jax.tree.leaves(ref)):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-6, atol=1e-7)
+
+
+def whole_leaf_adamw(grads, mu, nu, params, gnorm, step, *, lr, b1=0.9, b2=0.95,
+                     eps=1e-8, weight_decay=0.1, clip_norm=1.0):
+    """The update as one expression per leaf over whole leaves, in place,
+    clipped by the given norm: the arithmetic that ``adamw_update`` applies
+    slice by slice."""
+    scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    step_f = torch.tensor(float(step), dtype=torch.float32)
+    bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** step_f
+    bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** step_f
+    for g, m, v, p in zip(grads, mu, nu, params):
+        g = g.float() * scale
+        m.copy_(b1 * m + (1 - b1) * g)
+        v.copy_(b2 * v + (1 - b2) * g * g)
+        pf = p.float()
+        delta = (m / bc1) / (torch.sqrt(v / bc2) + eps) + weight_decay * pf
+        p.copy_((pf - lr * delta).to(p.dtype))
+
+
+def optimizer_tree(dtype, rng):
+    """Leaves against a slice of 7 elements: 36 (five slices and a ragged
+    one), 14 (two whole slices), 3 (less than one) and a transposed [5, 6]
+    view (not contiguous)."""
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+    return {"ragged": t(4, 9), "whole": t(2, 7), "small": t(3), "strided": t(6, 5).t()}
+
+
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_update_in_slices_equals_the_whole_leaf_update(monkeypatch, dtype, clip):
+    from repro_torch.training import optimizer
+
+    monkeypatch.setattr(optimizer, "SLICE", 7)
+    rng = np.random.default_rng(13)
+    params = optimizer_tree(dtype, rng)
+    ref = [p.clone() for p in tree_leaves(params)]
+    state = adamw_init(params)
+    ref_mu = [m.clone() for m in tree_leaves(state.mu)]
+    ref_nu = [v.clone() for v in tree_leaves(state.nu)]
+    for step in range(1, 4):
+        scale = 100.0 if clip else 1e-3        # global norm far above / below 1
+        grads = {k: (v.float() * scale).to(dtype) for k, v in optimizer_tree(dtype, rng).items()}
+        params, state, gnorm = adamw_update(grads, state, params, lr=1e-2)
+        assert (float(gnorm) > 1.0) == clip
+        whole_leaf_adamw(tree_leaves(grads), ref_mu, ref_nu, ref, gnorm, step, lr=1e-2)
+        for tree, want in ((params, ref), (state.mu, ref_mu), (state.nu, ref_nu)):
+            for a, b in zip(tree_leaves(tree), want):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+    assert not params["strided"].is_contiguous()
+
+
+@pytest.mark.parametrize("slice_elements", [7, None])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_global_norm_is_the_float64_norm_within_float32_rounding(monkeypatch, dtype,
+                                                                 slice_elements):
+    """Within the bound of a float32 sum of N squares added one by one:
+    (N - 1) 2^-24 of the sum, half that of its root, plus one rounding of
+    each square and of the root."""
+    from repro_torch.training import optimizer
+
+    if slice_elements:
+        monkeypatch.setattr(optimizer, "SLICE", slice_elements)
+    rng = np.random.default_rng(14)
+    tree = optimizer_tree(dtype, rng)
+    tree["big"] = torch.from_numpy(rng.standard_normal(1000).astype(np.float32)).to(dtype)
+    leaves = tree_leaves(tree)
+    exact = float(np.sqrt(sum(np.sum(np.square(x.double().numpy())) for x in leaves)))
+    n = sum(x.numel() for x in leaves)
+    ours = optimizer.global_norm(tree)
+    assert ours.dtype == torch.float32
+    assert abs(float(ours) - exact) <= (0.5 * (n - 1) + 2) * 2.0 ** -24 * exact
 
 
 def test_adamw_keeps_the_parameter_type():
