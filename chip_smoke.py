@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only wkv6      # set-up and the WKV6 cases alone
     python3 chip_smoke.py --only wkv6_bwd  # set-up and the WKV6 backward's build and cases
     python3 chip_smoke.py --only train     # set-up and the training phase alone
+    python3 chip_smoke.py --only sharding  # set-up and the sharding phase alone
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -164,7 +165,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    holds its flash launches to `train_attention_calls`; the backward cases
    include Wan's text cross-attention (float32, 18,900 over 512) and
    whisper's encoder self-attention (bfloat16, 1500 frames).
-6. A ``{"kernels": [...]}`` line, then the last line
+6. Sharding (``--only sharding`` runs set-up and this phase alone): the
+   production dry-run of qwen3-1.7b at ``train_4k``, ``prefill_32k`` and
+   ``decode_32k``, deepseek-moe-16b at ``train_4k`` and rwkv6-7b at
+   ``long_500k`` on a 16x16 mesh, each in a subprocess on the CPU (fake
+   tensors over a fake process group; it exits 0 and launches nothing), and
+   on the card's 1x1 mesh (NCCL, world size 1) with DTensor weights, cache
+   and inputs: qwen3-1.7b at full width and depth (prefill of 4 prompts of
+   512 tokens, 8 decode steps), deepseek-moe-16b at full width and 8 of its
+   28 layers through the sharded ``moe_ffn``, rwkv6-7b at full width and
+   depth through WKV6 under ``local_map``, and one qwen3-1.7b train step at
+   B 4 x S 256, each output (the loss and every parameter after the step)
+   equal bit for bit to the unsharded port's, with the flash, flash-decode
+   and WKV6 launches of the sharded runs above 0.
+7. A ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -380,8 +394,10 @@ def main(argv) -> int:
     import torch
 
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
-    if argv and only not in ("decode", "wkv6", "wkv6_bwd", "train", "bf16_numerics"):
-        print("usage: chip_smoke.py [--only decode|wkv6|wkv6_bwd|train|bf16_numerics]",
+    if argv and only not in ("decode", "wkv6", "wkv6_bwd", "train", "bf16_numerics",
+                             "sharding"):
+        print("usage: chip_smoke.py [--only decode|wkv6|wkv6_bwd|train|bf16_numerics|"
+              "sharding]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -452,6 +468,9 @@ def main(argv) -> int:
     if only == "train":
         print(json.dumps({"train": train_phase(torch, F, np, dev, randn, lib_path)},
                          default=str))
+        return 0
+    if only == "sharding":
+        print(json.dumps({"sharding": sharding_phase(torch)}, default=str))
         return 0
     if only == "bf16_numerics":
         print(json.dumps({"bf16_numerics": bf16_numerics(torch, F, dev, randn, lib_path)},
@@ -696,6 +715,10 @@ def main(argv) -> int:
     llm = {k: sum(c.get(k, 0) for c in by_arch.values())
            for k in ("flash_attention", "decode_attention_grouped",
                      "decode_attention_int8_grouped")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard = sharding_phase(torch)
+    sharded = shard["sharded_launches"]
 
     # ------------------------------------------------------------ 5. result
     dom = next(r for r in flash_rows if r["shape"] == "dit_self")
@@ -724,6 +747,7 @@ def main(argv) -> int:
         replaces="src/repro/kernels/flash_attention/kernel.py:36",
         launches=llm["flash_attention"],
         launches_by_model={a: c.get("flash_attention", 0) for a, c in by_arch.items()},
+        sharded_launches=sharded["flash_attention"] + sharded["train_flash_attention"],
         max_abs_err=max(r["max_abs_err"] for r in flash_bf16_rows),
         ms=fb["ms"], plain_ms=fb["plain_ms"], bound_ms=fb["bound_ms"],
         bound_by=fb["bound_by"], library_ms=fb["library_ms"],
@@ -740,6 +764,7 @@ def main(argv) -> int:
             source="src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
             replaces=replaces, launches=llm[counter],
             launches_by_model={a: c.get(counter, 0) for a, c in by_arch.items()},
+            sharded_launches=sharded.get(counter, 0),
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main["ms"], call_ms=main["call_ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
@@ -750,7 +775,7 @@ def main(argv) -> int:
         name="wkv6", route="cuda",
         source="src/repro_torch/kernels/rwkv6_wkv/csrc/wkv6.cu",
         replaces="src/repro/kernels/rwkv6_wkv/kernel.py:23",
-        launches=rwkv_launches,
+        launches=rwkv_launches, sharded_launches=sharded["wkv6"],
         max_abs_err=max(r["max_abs_err"] for r in wkv_rows),
         ms=served["ms"], plain_ms=served["plain_ms"], bound_ms=served["bound_ms"],
         bound_by=served["bound_by"], library_ms=None, at="served_512",
@@ -777,6 +802,8 @@ def main(argv) -> int:
             replaces="src/repro/models/layers.py:136", tpu_kernel=None,
             launches=run["flash_bwd_launches"],
             launches_by_model={a: r["flash_bwd_launches"] for a, r in runs.items()},
+            **({"sharded_launches": sharded["train_flash_attention_backward"]}
+               if dt == "bf16" else {}),
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"], at=at,
@@ -798,6 +825,8 @@ def main(argv) -> int:
         fma_bound_ms=main["fma_bound_ms"], build=train["wkv6_build"], shapes=wb_rows, train=train["rwkv6_run"],
         train_f32=train["rwkv6_run_f32"], grad_check=train["rwkv6_grad_check"]))
     print(f"total {time.perf_counter() - t_start:.1f}s on {card}")
+    print(json.dumps({"sharding": {"sharded_launches": sharded, "dryrun": shard["dryrun"]}},
+                     default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -3715,6 +3744,164 @@ def _to(torch, tree, dev):
     if isinstance(tree, list):
         return [_to(torch, v, dev) for v in tree]
     return tree.to(dev)
+
+
+
+#: The production dry-run cases of the sharding phase, each traced at 16x16
+#: in a subprocess on the CPU (the card hidden): (arch, shape).
+DRYRUN_CASES = [("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "prefill_32k"),
+                ("qwen3-1.7b", "decode_32k"), ("deepseek-moe-16b", "train_4k"),
+                ("rwkv6-7b", "long_500k")]
+#: The sharded checks on the card's 1x1 mesh: name -> (arch, layers or None
+#: for the full depth, check, its arguments).  deepseek-moe-16b runs its
+#: capacity branch (``moe_ffn``), sharded through ``local_map``.
+SHARDED_CHECKS = [
+    ("qwen3-1.7b", "qwen3-1.7b", None, "inference",
+     dict(batch=4, prompt=512, max_len=520, steps=8)),
+    ("deepseek-moe-16b", "deepseek-moe-16b", 8, "inference",
+     dict(batch=4, prompt=512, max_len=516, steps=4)),
+    ("rwkv6-7b", "rwkv6-7b", None, "inference",
+     dict(batch=4, prompt=512, max_len=516, steps=4)),
+    ("qwen3-1.7b train", "qwen3-1.7b", None, "train", dict(batch=4, seq=256)),
+]
+
+
+def sharding_phase(torch) -> dict:
+    """The sharding phase (``--only sharding``): (b) the five production
+    dry-run cases, started first, each in a subprocess on the CPU with the
+    card hidden (fake tensors over a fake process group of 256); (a) on the
+    card's 1x1 mesh (NCCL, world size 1) each model of `SHARDED_CHECKS` with
+    DTensor weights, cache and inputs against the unsharded port on the same
+    weights, bit for bit, the kernels' launches counted over the sharded runs
+    alone.  Then the dry-run cases' figures: each exits 0 and launches
+    nothing."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.configs import H100, get_config
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.shard_check import check_inference, check_train_step
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"sharding: configs.H100.hbm_bytes={H100.hbm_bytes:.0f}, the card's "
+          f"total_memory={total}")
+    check(H100.hbm_bytes == total, "configs.H100.hbm_bytes is not this card's capacity")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    out_dir = os.path.join(ROOT, "build", "dryrun_torch")
+    t0 = time.perf_counter()
+    procs = [(case, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", case[0], "--shape",
+         case[1], "--out", out_dir], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)) for case in DRYRUN_CASES]
+    names = ("flash_attention", "flash_attention_backward", "decode_attention_grouped",
+             "decode_attention_int8_grouped", "wkv6", "wkv6_backward")
+
+    def zero():
+        torch.cuda.synchronize()
+        for n in names:
+            getattr(kernels, n).launches = 0
+
+    lse_check = decode_lse_check(torch)
+    mesh = make_smoke_mesh("cuda")
+    results = {}
+    try:
+        for label, arch, layers, kind, kw in SHARDED_CHECKS:
+            cfg = get_config(arch)
+            if layers:
+                cfg = dataclasses.replace(cfg, num_layers=layers)
+            t1 = time.perf_counter()
+            fn = check_inference if kind == "inference" else check_train_step
+            res = fn(cfg, mesh, device="cuda", on_sharded=zero, **kw)
+            torch.cuda.synchronize()
+            launches = {n: getattr(kernels, n).launches for n in names}
+            rows = res.values() if kind == "inference" else [
+                res["loss"], res["grad_norm"], res["params"]]
+            equal = all(r["equal"] for r in rows)
+            worst = max(r["max_abs"] for r in rows)
+            print(f"sharding 1x1 {label} ({cfg.num_layers} layers, {cfg.dtype}, {kw}): "
+                  f"sharded against unsharded equal bit for bit: {equal} (max_abs "
+                  f"{worst:.3g}); launches in the sharded run {launches}; "
+                  f"{time.perf_counter() - t1:.1f}s")
+            check(equal, f"sharding 1x1 {label}: the sharded outputs differ from the "
+                         f"unsharded ones: {res}")
+            results[label] = dict(result=res, launches=launches)
+            gc.collect()
+            torch.cuda.empty_cache()
+    except BaseException:
+        for _, p in procs:
+            p.kill()
+        raise
+    finally:
+        dist.destroy_process_group()
+    inf = [r["launches"] for k, r in results.items() if "train" not in k]
+    sharded = {"flash_attention": sum(x["flash_attention"] for x in inf),
+               "decode_attention_grouped": sum(x["decode_attention_grouped"] for x in inf),
+               "wkv6": results["rwkv6-7b"]["launches"]["wkv6"],
+               "train_flash_attention": results["qwen3-1.7b train"]["launches"][
+                   "flash_attention"],
+               "train_flash_attention_backward": results["qwen3-1.7b train"]["launches"][
+                   "flash_attention_backward"]}
+    print(f"sharding 1x1: launches over the sharded runs {sharded}")
+    for k, v in sharded.items():
+        check(v > 0, f"sharding 1x1: {k} launched no time in the sharded runs")
+
+    dry = {}
+    for (arch, shape), p in procs:
+        try:
+            so, se = p.communicate(timeout=max(30.0, 600 - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            so, se = p.communicate()
+        check(p.returncode == 0, f"dry-run {arch} {shape} exited {p.returncode}: "
+                                 f"{se[-3000:]}")
+        row = json.loads(next(ln for ln in so.splitlines() if ln.startswith("{")))
+        dry[f"{arch} {shape}"] = row
+        print(f"dryrun {arch} {shape} 16x16 (fake tensors, the dry-run's arithmetic "
+              f"with configs.H100): per chip flops={row['flops_per_chip']:.4g} "
+              f"bytes={row['bytes_per_chip']:.4g} collective_bytes="
+              f"{row['collective_bytes_per_chip']:.4g} peak={row['peak_bytes'] / 1e9:.2f} GB "
+              f"fits_hbm={row['fits_hbm']} dominant={row['dominant']} "
+              f"trace_s={row['trace_s']} launches={sum(row['kernel_launches'].values())}")
+        check(sum(row["kernel_launches"].values()) == 0,
+              f"dry-run {arch} {shape} launched kernels")
+    print(f"sharding: phase took {time.perf_counter() - t0:.1f}s")
+    return dict(one_device=results, sharded_launches=sharded, dryrun=dry,
+                decode_lse=lse_check)
+
+
+def decode_lse_check(torch) -> dict:
+    """The flash-decode kernel's log-sum-exp, read from its own partials
+    (``decode_attention_grouped_lse``, what a cache sharded over its
+    sequence combines its shards by), against the plain version's at qwen3's
+    served decode shape (bfloat16, KV 8, G 2, D 128, 1024 positions), one row
+    with no valid position: its output zeros and its log-sum-exp -inf; the
+    other rows' outputs within one bfloat16 step, log-sum-exp within 1e-5
+    of 1 + |b| (float32 sums in another order)."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_grouped_lse, decode_lse_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, kc, vc = r(4, 8, 2, 128), r(4, 8, 1024, 128), r(4, 8, 1024, 128)
+    cur = torch.tensor([1023, 300, 0, -1], dtype=torch.int32, device="cuda")
+    out, lse = decode_attention_grouped_lse(q, kc, vc, cur)
+    ref_out, ref_lse = decode_lse_ref(q, kc, vc, cur)
+    torch.cuda.synchronize()
+    _, out_use = limit_errs(out[:3], ref_out[:3])
+    lse_use = float(((lse[:3] - ref_lse[:3]).abs() / (1e-5 * (1 + ref_lse[:3].abs()))).max())
+    empty = bool(torch.isneginf(lse[3]).all() and not out[3].any())
+    print(f"sharding: decode log-sum-exp from the kernel's partials against the plain "
+          f"version: out {out_use:.3f} of the bf16 limit, lse {lse_use:.3f} of 1e-5 (1 + |b|); "
+          f"the row with no valid position gives zeros and -inf: {empty}")
+    check(out_use <= 1.0 and lse_use <= 1.0 and empty,
+          "decode_attention_grouped_lse differs from decode_lse_ref")
+    return dict(out_limit_use=out_use, lse_limit_use=lse_use, empty_row=empty)
 
 
 if __name__ == "__main__":

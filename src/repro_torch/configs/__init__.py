@@ -5,7 +5,15 @@ from __future__ import annotations
 import importlib
 from dataclasses import replace
 
-from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.configs.base import (
+    H100,
+    LONG_CONTEXT_ARCHS,
+    SHAPES,
+    HardwareConfig,
+    ModelConfig,
+    ShapeConfig,
+    supported_shapes,
+)
 from repro_torch.configs.wan_i2v import FULL, PORT, SMALL, WanPipelineConfig
 
 _ARCH_MODULES = {
@@ -35,6 +43,12 @@ def get_config(arch_id: str) -> ModelConfig:
     return _module(arch_id).CONFIG
 
 
+def get_shape(shape_id: str) -> ShapeConfig:
+    if shape_id not in SHAPES:
+        raise KeyError(f"unknown shape {shape_id!r}; available: {sorted(SHAPES)}")
+    return SHAPES[shape_id]
+
+
 def port_config(arch_id: str) -> ModelConfig:
     """The model as one H100 serves it: every width, and the depth cut to
     the config module's ``PORT_LAYERS`` where it has one (deepseek-67b)."""
@@ -43,5 +57,6 @@ def port_config(arch_id: str) -> ModelConfig:
                                                   mod.CONFIG.num_layers))
 
 
-__all__ = ["ARCH_IDS", "FULL", "PORT", "SMALL", "ModelConfig", "ShapeConfig",
-           "WanPipelineConfig", "get_config", "port_config"]
+__all__ = ["ARCH_IDS", "FULL", "H100", "LONG_CONTEXT_ARCHS", "PORT", "SHAPES", "SMALL",
+           "HardwareConfig", "ModelConfig", "ShapeConfig", "WanPipelineConfig",
+           "get_config", "get_shape", "port_config", "supported_shapes"]

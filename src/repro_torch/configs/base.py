@@ -1,12 +1,14 @@
 """Language-model configurations: :class:`ModelConfig` and
-:class:`ShapeConfig`, field for field as the JAX package defines them.
+:class:`ShapeConfig`, field for field as the JAX package defines them, the
+dry-run's input shapes (``SHAPES``, ``supported_shapes``) and the card's
+figures for its roofline (:data:`H100`).
 
-Four knobs of the JAX config have no meaning here and are left out:
+Three knobs of the JAX config have no meaning here and are left out:
 ``use_pallas`` (the port picks a kernel by the tensor's device alone),
-``decode_unroll`` (a ``lax.scan`` unroll), ``attn_causal_skip`` (a variant of
-the JAX blockwise attention, which the port runs through the flash kernel)
-and ``fsdp_weight_gather`` (sharding).  The TPU ``HardwareConfig`` stays
-behind too: no TPU figure describes the card.
+``decode_unroll`` (a ``lax.scan`` unroll) and ``attn_causal_skip`` (a
+variant of the JAX blockwise attention, which the port runs through the
+flash kernel).  The TPU ``HardwareConfig`` stays behind too: no TPU figure
+describes the card.
 
 One field is the port's own: ``embed_scale``, which the JAX package derives
 from the model's name (``name.startswith("gemma")``).
@@ -71,6 +73,8 @@ class ModelConfig:
     vocab_round: int = 256
     tie_embeddings: bool = False
     embed_scale: bool = False        # scale embeddings by sqrt(d_model) (gemma)
+    fsdp_weight_gather: bool = False # ZeRO-3: gather weights before their products
+                                     # instead of reducing the activations
     source: str = ""                 # citation from the assignment pool
 
     def __post_init__(self):
@@ -165,3 +169,49 @@ class ShapeConfig:
         if self.mode == "decode":
             return self.global_batch  # one new token per sequence
         return self.seq_len * self.global_batch
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", seq_len=4_096, global_batch=256, mode="train"),
+    "prefill_32k": ShapeConfig("prefill_32k", seq_len=32_768, global_batch=32, mode="prefill"),
+    "decode_32k": ShapeConfig("decode_32k", seq_len=32_768, global_batch=128, mode="decode"),
+    "long_500k": ShapeConfig("long_500k", seq_len=524_288, global_batch=1, mode="decode"),
+}
+
+#: the architectures that take ``long_500k`` (recurrent or windowed state)
+LONG_CONTEXT_ARCHS = {"rwkv6-7b", "zamba2-1.2b", "gemma3-27b"}
+
+
+def supported_shapes(cfg: ModelConfig):
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.name in LONG_CONTEXT_ARCHS:
+        names.append("long_500k")
+    return names
+
+
+@dataclass(frozen=True)
+class HardwareConfig:
+    """One card's figures for the dry-run's roofline: peak dense bfloat16
+    rate, memory rate and capacity, and the link a collective crosses."""
+
+    name: str
+    peak_flops_bf16: float     # FLOP/s per card, dense
+    hbm_bandwidth: float       # B/s per card
+    link_bandwidth: float      # B/s per card and direction, the slowest link
+    hbm_bytes: float           # capacity per card
+
+
+#: NVIDIA H100 80GB HBM3 (SXM5), power limit 700.00 W.  Peak dense bfloat16
+#: and memory rate from NVIDIA's H100 SXM datasheet; ``hbm_bytes`` is the
+#: card's own capacity as ``torch.cuda.get_device_properties(0).total_memory``
+#: reads it (``chip_smoke.py`` checks it against that reading).  A mesh axis
+#: of 16 spans two 8-card NVLink nodes, so a collective over it crosses the
+#: inter-node network: ``link_bandwidth`` is one card's 400 Gb/s InfiniBand
+#: NDR port (ConnectX-7), 50 GB/s a direction, not NVLink's 450 GB/s.
+H100 = HardwareConfig(
+    name="NVIDIA H100 80GB HBM3, 700.00 W",
+    peak_flops_bf16=989e12,
+    hbm_bandwidth=3.35e12,
+    link_bandwidth=50e9,
+    hbm_bytes=85_017_493_504,
+)

@@ -133,6 +133,15 @@ def refuse_grad(what: str, *tensors) -> None:
                            f"gradient, which the CUDA kernel cannot give")
 
 
+def is_fake(t) -> bool:
+    """Whether ``t`` is a fake tensor (the dry-run traces on them): it has a
+    device but no data, and goes through a kernel's custom op, whose fake
+    implementation gives its output's shape."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)
+
+
 def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches``; stage threads launch concurrently."""
     with _count_lock:

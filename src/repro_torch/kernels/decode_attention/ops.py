@@ -13,17 +13,36 @@ card launches the CUDA kernel (``csrc/decode_attention.cu``) or raises, and
 raises too under grad mode when an input needs a gradient (the kernel has
 no backward).
 ``cur_index`` is an int, a 0-d tensor or a [B] vector of last valid
-positions (>= 0); on the card it is handed over as an int32 [B] tensor
+positions (>= 0); it is handed over as an int32 [B] tensor, on the card
 without a host sync.  ``decode_attention_grouped.launches`` and
 ``decode_attention_int8_grouped.launches`` count kernel launches and
 nothing else.
+
+Both kernels' entries are custom ops (``torch.ops.repro.decode_attention``,
+``decode_attention_int8``), whose implementation is the device switch above;
+a fake tensor (the dry-run's) takes their fake implementation, and a flop
+formula counts their work.  ``decode_attention_lse`` and
+``decode_attention_int8_lse`` give each row's log-sum-exp beside its output
+(float32 [B,KV,G]; -inf, and an output of zeros, where the row has no
+position at or before its index, which ``cur_index`` < 0 asks for), read
+from the kernel's own partials: a cache sharded over its sequence combines
+its shards' outputs by them, as the kernel combines its splits.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention.ref import decode_int8_ref, decode_ref
+from repro_torch.kernels.decode_attention.ref import (
+    decode_int8_lse_ref,
+    decode_int8_ref,
+    decode_lse_ref,
+    decode_ref,
+)
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -86,21 +105,17 @@ def _partials(q, cache, s: int):
     return acc, ml
 
 
-def decode_attention_grouped(q: torch.Tensor, k_cache: torch.Tensor,
-                             v_cache: torch.Tensor, cur_index, *,
-                             seq_axis: int = 2) -> torch.Tensor:
-    """q [B,KV,G,D]; k/v cache [B,KV,S,D] (seq_axis 2) or [B,S,KV,D]
-    (seq_axis 1), float32 or bfloat16 like q -> [B,KV,G,D] in q's type."""
-    if q.device.type == "cpu":
-        return decode_ref(q, k_cache, v_cache, cur_index, seq_axis=seq_axis)
+def _check_device(q):
     if q.device.type != "cuda" or q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q is {q.dtype} on {q.device}; the kernel takes "
                         f"float32 or bfloat16 on a CUDA device")
-    _build.refuse_grad("decode_attention", q, k_cache, v_cache)
+
+
+def _launch(q, k_cache, v_cache, cur, seq_axis: int):
+    """The fp kernel -> (out, its partials' (m, l) [B*KV*G, n_split, 2])."""
     s, sb, skv, ss = _check_cache(q, (("k_cache", k_cache), ("v_cache", v_cache)),
                                   seq_axis, q.dtype)
     b, kv, g, d = q.shape
-    cur = _cur_vector(cur_index, b, q.device)
     out = torch.empty_like(q)
     acc, ml = _partials(q, k_cache, s)
     err = _build.library().repro_decode_attention(
@@ -110,22 +125,11 @@ def decode_attention_grouped(q: torch.Tensor, k_cache: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "decode_attention")
     _build.count_launch(decode_attention_grouped)
-    return out
+    return out, ml.view(b * kv * g, -1, 2)
 
 
-def decode_attention_int8_grouped(q: torch.Tensor, k_q: torch.Tensor,
-                                  v_q: torch.Tensor, k_scale: torch.Tensor,
-                                  v_scale: torch.Tensor, cur_index, *,
-                                  seq_axis: int = 2) -> torch.Tensor:
-    """q [B,KV,G,D] float32 or bfloat16; int8 k/v in either layout; float32
-    scales [B,KV,S] -> [B,KV,G,D] in q's type."""
-    if q.device.type == "cpu":
-        return decode_int8_ref(q, k_q, v_q, k_scale, v_scale, cur_index,
-                               seq_axis=seq_axis)
-    if q.device.type != "cuda" or q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"q is {q.dtype} on {q.device}; the kernel takes "
-                        f"float32 or bfloat16 on a CUDA device")
-    _build.refuse_grad("decode_attention_int8", q, k_q, v_q, k_scale, v_scale)
+def _launch_int8(q, k_q, v_q, k_scale, v_scale, cur, seq_axis: int):
+    """The int8 kernel -> (out, its partials' (m, l))."""
     s, sb, skv, ss = _check_cache(q, (("k_q", k_q), ("v_q", v_q)), seq_axis,
                                   torch.int8)
     b, kv, g, d = q.shape
@@ -135,7 +139,6 @@ def decode_attention_int8_grouped(q: torch.Tensor, k_q: torch.Tensor,
             raise ValueError(f"{name} must be a contiguous float32 [B,KV,S] = "
                              f"{(b, kv, s)} tensor on {q.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    cur = _cur_vector(cur_index, b, q.device)
     out = torch.empty_like(q)
     acc, ml = _partials(q, k_q, s)
     err = _build.library().repro_decode_attention_int8(
@@ -145,7 +148,132 @@ def decode_attention_int8_grouped(q: torch.Tensor, k_q: torch.Tensor,
         d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "decode_attention_int8")
     _build.count_launch(decode_attention_int8_grouped)
-    return out
+    return out, ml.view(b * kv * g, -1, 2)
+
+
+def _lse_of_partials(ml: Tensor, q: Tensor, cur: Tensor, s: int, elem_bytes: int) -> Tensor:
+    """Each row's log-sum-exp from the split kernel's (m, l) of the chunks
+    up to its index (later chunks are never written): M + log sum_j l_j
+    e^(m_j - M), -inf for a row with no valid position."""
+    b, kv, g, d = q.shape
+    chunk = _chunk(elem_bytes, d)
+    last = torch.where(cur < 0, -1, torch.clamp(cur, max=s - 1) // chunk)      # [B]
+    valid = (torch.arange(ml.shape[1], device=q.device)[None, :]
+             <= last[:, None]).repeat_interleave(kv * g, dim=0)               # [R, n]
+    m = torch.where(valid, ml[..., 0], float("-inf"))
+    mx = m.amax(dim=-1, keepdim=True)
+    mx_safe = torch.where(torch.isfinite(mx), mx, 0.0)
+    tot = torch.where(valid, ml[..., 1] * torch.exp(m - mx_safe), 0.0).sum(dim=-1)
+    return (mx_safe[:, 0] + torch.log(tot)).view(b, kv, g)
+
+
+@torch.library.custom_op("repro::decode_attention", mutates_args=())
+def _decode_op(q: Tensor, k_cache: Tensor, v_cache: Tensor, cur: Tensor,
+               seq_axis: int) -> Tensor:
+    if q.device.type == "cpu":
+        return decode_ref(q, k_cache, v_cache, cur, seq_axis=seq_axis)
+    _check_device(q)
+    return _launch(q, k_cache, v_cache, cur, seq_axis)[0]
+
+
+@torch.library.custom_op("repro::decode_attention_lse", mutates_args=())
+def _decode_lse_op(q: Tensor, k_cache: Tensor, v_cache: Tensor, cur: Tensor,
+                   seq_axis: int) -> Tuple[Tensor, Tensor]:
+    if q.device.type == "cpu":
+        return decode_lse_ref(q, k_cache, v_cache, cur, seq_axis=seq_axis)
+    _check_device(q)
+    out, ml = _launch(q, k_cache, v_cache, cur, seq_axis)
+    return out, _lse_of_partials(ml, q, cur, k_cache.shape[seq_axis], k_cache.element_size())
+
+
+@torch.library.custom_op("repro::decode_attention_int8", mutates_args=())
+def _decode_int8_op(q: Tensor, k_q: Tensor, v_q: Tensor, k_scale: Tensor,
+                    v_scale: Tensor, cur: Tensor, seq_axis: int) -> Tensor:
+    if q.device.type == "cpu":
+        return decode_int8_ref(q, k_q, v_q, k_scale, v_scale, cur, seq_axis=seq_axis)
+    _check_device(q)
+    return _launch_int8(q, k_q, v_q, k_scale, v_scale, cur, seq_axis)[0]
+
+
+@torch.library.custom_op("repro::decode_attention_int8_lse", mutates_args=())
+def _decode_int8_lse_op(q: Tensor, k_q: Tensor, v_q: Tensor, k_scale: Tensor,
+                        v_scale: Tensor, cur: Tensor, seq_axis: int
+                        ) -> Tuple[Tensor, Tensor]:
+    if q.device.type == "cpu":
+        return decode_int8_lse_ref(q, k_q, v_q, k_scale, v_scale, cur, seq_axis=seq_axis)
+    _check_device(q)
+    out, ml = _launch_int8(q, k_q, v_q, k_scale, v_scale, cur, seq_axis)
+    return out, _lse_of_partials(ml, q, cur, k_q.shape[seq_axis], 1)
+
+
+def _fake_out(q, *args):
+    return torch.empty_like(q)
+
+
+def _fake_out_lse(q, *args):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+for _op, _fake in ((_decode_op, _fake_out), (_decode_int8_op, _fake_out),
+                   (_decode_lse_op, _fake_out_lse), (_decode_int8_lse_op, _fake_out_lse)):
+    _op.register_fake(_fake)
+
+
+@register_flop_formula([torch.ops.repro.decode_attention, torch.ops.repro.decode_attention_lse,
+                        torch.ops.repro.decode_attention_int8,
+                        torch.ops.repro.decode_attention_int8_lse])
+def _decode_flops(q_shape, k_shape, *args, **kwargs) -> int:
+    """The scores and P V over the whole cache (the kernel's blocks past the
+    index exit at once, but the roofline counts the cache a decode reads at
+    its longest): two products of 2 D flops a position and query row."""
+    b, kv, g, d = q_shape
+    s = k_shape[args[-1]]
+    return 4 * b * kv * g * s * d
+
+
+def decode_attention_grouped(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, cur_index, *,
+                             seq_axis: int = 2) -> torch.Tensor:
+    """q [B,KV,G,D]; k/v cache [B,KV,S,D] (seq_axis 2) or [B,S,KV,D]
+    (seq_axis 1), float32 or bfloat16 like q -> [B,KV,G,D] in q's type."""
+    if q.device.type == "cuda":
+        _build.refuse_grad("decode_attention", q, k_cache, v_cache)
+    return _decode_op(q, k_cache, v_cache, _cur_vector(cur_index, q.shape[0], q.device),
+                      seq_axis)
+
+
+def decode_attention_grouped_lse(q: torch.Tensor, k_cache: torch.Tensor,
+                                 v_cache: torch.Tensor, cur_index, *,
+                                 seq_axis: int = 2) -> Tuple[Tensor, Tensor]:
+    """``decode_attention_grouped`` -> (out, each row's log-sum-exp [B,KV,G]
+    float32); an index < 0 gives zeros and -inf."""
+    if q.device.type == "cuda":
+        _build.refuse_grad("decode_attention", q, k_cache, v_cache)
+    return _decode_lse_op(q, k_cache, v_cache,
+                          _cur_vector(cur_index, q.shape[0], q.device), seq_axis)
+
+
+def decode_attention_int8_grouped(q: torch.Tensor, k_q: torch.Tensor,
+                                  v_q: torch.Tensor, k_scale: torch.Tensor,
+                                  v_scale: torch.Tensor, cur_index, *,
+                                  seq_axis: int = 2) -> torch.Tensor:
+    """q [B,KV,G,D] float32 or bfloat16; int8 k/v in either layout; float32
+    scales [B,KV,S] -> [B,KV,G,D] in q's type."""
+    if q.device.type == "cuda":
+        _build.refuse_grad("decode_attention_int8", q, k_q, v_q, k_scale, v_scale)
+    return _decode_int8_op(q, k_q, v_q, k_scale, v_scale,
+                           _cur_vector(cur_index, q.shape[0], q.device), seq_axis)
+
+
+def decode_attention_int8_grouped_lse(q: torch.Tensor, k_q: torch.Tensor,
+                                      v_q: torch.Tensor, k_scale: torch.Tensor,
+                                      v_scale: torch.Tensor, cur_index, *,
+                                      seq_axis: int = 2) -> Tuple[Tensor, Tensor]:
+    """``decode_attention_int8_grouped`` -> (out, each row's log-sum-exp)."""
+    if q.device.type == "cuda":
+        _build.refuse_grad("decode_attention_int8", q, k_q, v_q, k_scale, v_scale)
+    return _decode_int8_lse_op(q, k_q, v_q, k_scale, v_scale,
+                               _cur_vector(cur_index, q.shape[0], q.device), seq_axis)
 
 
 decode_attention_grouped.launches = 0

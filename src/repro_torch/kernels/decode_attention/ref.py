@@ -69,6 +69,40 @@ def decode_int8_ref(q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,
     return torch.einsum("bngt,bntd->bngd", pv, v.float()).to(q.dtype)
 
 
+def _with_lse(out: torch.Tensor, sc: torch.Tensor, valid: torch.Tensor):
+    """(out with the rows that see no position zeroed, each row's
+    log-sum-exp of its valid scores, -inf where there is none)."""
+    lse = torch.logsumexp(sc.masked_fill(~valid[:, None, None, :], float("-inf")), dim=-1)
+    seen = valid.any(dim=-1)[:, None, None]
+    return torch.where(seen[..., None], out, torch.zeros_like(out)), lse
+
+
+def decode_lse_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                   cur_index, *, seq_axis: int = 2):
+    """``decode_ref`` -> (out, lse [B,KV,G] float32): the output of a row
+    with no position at or before its index (``cur_index`` < 0) is zeros and
+    its log-sum-exp -inf, as the kernel's partials give them."""
+    k = _serving_layout(k_cache, seq_axis)
+    b, _, _, d = q.shape
+    sc = torch.einsum("bngd,bntd->bngt", q.float() * d ** -0.5, k.float())
+    valid = _valid(cur_index, b, k.shape[2], q.device)
+    return _with_lse(decode_ref(q, k_cache, v_cache, cur_index, seq_axis=seq_axis),
+                     sc, valid)
+
+
+def decode_int8_lse_ref(q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,
+                        k_scale: torch.Tensor, v_scale: torch.Tensor, cur_index, *,
+                        seq_axis: int = 2):
+    """``decode_int8_ref`` -> (out, lse), as ``decode_lse_ref``."""
+    k = _serving_layout(k_q, seq_axis)
+    b, _, _, d = q.shape
+    sc = torch.einsum("bngd,bntd->bngt", q.float() * d ** -0.5,
+                      k.float()) * k_scale[:, :, None, :]
+    valid = _valid(cur_index, b, k.shape[2], q.device)
+    out = decode_int8_ref(q, k_q, v_q, k_scale, v_scale, cur_index, seq_axis=seq_axis)
+    return _with_lse(out, sc, valid)
+
+
 def quantize_kv(cache: torch.Tensor):
     """[B,S,KV,D] float -> (int8 [B,S,KV,D], float32 scales [B,KV,S]):
     absmax per (position, head), as the JAX package's ``quantize_kv``."""

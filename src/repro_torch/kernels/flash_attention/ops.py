@@ -12,10 +12,21 @@ that the forward of either type stores when a gradient is wanted.
 ``flash_attention.launches`` counts the forward kernel's launches and
 ``flash_attention_backward.launches`` the backward's (one per call, either
 type), and nothing else.
+
+The forward (with and without the log-sum-exp) and the backward are custom
+ops (``torch.ops.repro.flash_attention``, ``flash_attention_lse``,
+``flash_attention_backward``), whose implementation is the device switch
+above: a fake tensor (the dry-run's) takes their fake implementation, which
+gives the outputs' shapes and launches nothing, and a flop formula counts
+their work (``torch.utils.flop_counter``).
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
+from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
@@ -120,6 +131,68 @@ def _backward(q, k, v, o, do, causal: bool, scale: float, lse=None):
     return dq, dk, dv
 
 
+def _lse_like(q: Tensor) -> Tensor:
+    return torch.empty(q.shape[0], q.shape[2], q.shape[1], dtype=torch.float32,
+                       device=q.device)
+
+
+@torch.library.custom_op("repro::flash_attention", mutates_args=())
+def _flash_op(q: Tensor, k: Tensor, v: Tensor, causal: bool, scale: float) -> Tensor:
+    return _forward(q, k, v, causal, scale)
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, scale):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro::flash_attention_lse", mutates_args=())
+def _flash_lse_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                  scale: float) -> Tuple[Tensor, Tensor]:
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, sm_scale=scale, return_lse=True)
+    lse = _lse_like(q)
+    return _forward(q, k, v, causal, scale, lse), lse
+
+
+@_flash_lse_op.register_fake
+def _(q, k, v, causal, scale):
+    return torch.empty_like(q), _lse_like(q)
+
+
+@torch.library.custom_op("repro::flash_attention_backward", mutates_args=())
+def _flash_bwd_op(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor, causal: bool,
+                  scale: float, lse: Optional[Tensor]) -> Tuple[Tensor, Tensor, Tensor]:
+    return _backward(q, k, v, o, do, causal, scale, lse)
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, o, do, causal, scale, lse):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _pairs(sq: int, sk: int, causal: bool) -> int:
+    """Query-key pairs the kernel computes (a causal kernel skips the tiles
+    above the diagonal)."""
+    return sq * (sq + 1) // 2 if causal else sq * sk
+
+
+@register_flop_formula([torch.ops.repro.flash_attention, torch.ops.repro.flash_attention_lse])
+def _flash_flops(q_shape, k_shape, v_shape, causal, scale, *args, **kwargs) -> int:
+    """S = Q K^T and O = P V: two products of 2 d flops a pair."""
+    b, sq, h, d = q_shape
+    return 4 * b * h * _pairs(sq, k_shape[1], causal) * d
+
+
+@register_flop_formula(torch.ops.repro.flash_attention_backward)
+def _flash_bwd_flops(q_shape, k_shape, v_shape, o_shape, do_shape, causal, *args,
+                     **kwargs) -> int:
+    """S again, dP = dO V^T, dV = P^T dO, dQ = dS K and dK = dS^T Q: five
+    products of 2 d flops a pair."""
+    b, sq, h, d = q_shape
+    return 10 * b * h * _pairs(sq, k_shape[1], causal) * d
+
+
 class _FlashAttention(torch.autograd.Function):
     """The forward kernel with the backward kernel as its gradient; on the
     CPU both plain versions."""
@@ -128,9 +201,9 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, scale):
         lse = None
         if q.device.type == "cuda" and any(ctx.needs_input_grad):
-            lse = torch.empty(q.shape[0], q.shape[2], q.shape[1], dtype=torch.float32,
-                              device=q.device)
-        o = _forward(q, k, v, causal, scale, lse)
+            o, lse = _flash_lse_op(q, k, v, causal, scale)
+        else:
+            o = _flash_op(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale
         return o
@@ -138,7 +211,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        return (*_backward(q, k, v, o, do.contiguous(), ctx.causal, ctx.scale, lse),
+        return (*_flash_bwd_op(q, k, v, o, do.contiguous(), ctx.causal, ctx.scale, lse),
                 None, None)
 
 
@@ -164,11 +237,7 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     _build.refuse_grad("flash_attention_with_lse", q, k, v)
     _check(q, k, v, causal)
     scale = float(sm_scale) if sm_scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, sm_scale=scale, return_lse=True)
-    lse = torch.empty(q.shape[0], q.shape[2], q.shape[1], dtype=torch.float32,
-                      device=q.device)
-    return _forward(q, k, v, causal, scale, lse), lse
+    return _flash_lse_op(q, k, v, causal, scale)
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -182,7 +251,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     card (no atomics)."""
     _check(q, k, v, causal)
     scale = float(sm_scale) if sm_scale is not None else q.shape[-1] ** -0.5
-    return _backward(q, k, v, o, do, causal, scale, lse)
+    return _flash_bwd_op(q, k, v, o, do, causal, scale, lse)
 
 
 flash_attention.launches = 0

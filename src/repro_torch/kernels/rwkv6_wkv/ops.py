@@ -7,12 +7,19 @@ raises: the forward (``csrc/wkv6.cu``) and, where an input needs a gradient,
 the backward (``csrc/wkv6_bwd.cu``) as its gradient.
 ``wkv6.launches`` counts the forward kernel's launches and
 ``wkv6_backward.launches`` the backward's (one per call), and nothing else.
+
+The forward and the backward are custom ops (``torch.ops.repro.wkv6``,
+``wkv6_backward``) under the autograd Function: a fake tensor (the
+dry-run's) takes their fake implementation, and a flop formula counts their
+work.  A real CPU tensor keeps the plain loop, which autograd differentiates.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.rwkv6_wkv.ref import wkv6_bwd_ref, wkv6_ref
@@ -95,23 +102,65 @@ def _backward(r, k, v, w, u, state, dy, dstate_out):
     return dr, dk, dv, dw, du, dstate
 
 
+@torch.library.custom_op("repro::wkv6", mutates_args=())
+def _wkv6_op(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
+             state: Tensor) -> Tuple[Tensor, Tensor]:
+    if r.device.type == "cpu":
+        return wkv6_ref(r, k, v, w, u, state)
+    return _forward(r, k, v, w, u, state)
+
+
+@_wkv6_op.register_fake
+def _(r, k, v, w, u, state):
+    return torch.empty_like(r), torch.empty_like(state)
+
+
+@torch.library.custom_op("repro::wkv6_backward", mutates_args=())
+def _wkv6_bwd_op(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor, state: Tensor,
+                 dy: Tensor, dstate_out: Optional[Tensor]
+                 ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    return _backward(r, k, v, w, u, state, dy, dstate_out)
+
+
+@_wkv6_bwd_op.register_fake
+def _(r, k, v, w, u, state, dy, dstate_out):
+    return (*(torch.empty_like(x) for x in (r, k, v, w, u)), torch.empty_like(state))
+
+
+@register_flop_formula(torch.ops.repro.wkv6)
+def _wkv6_flops(r_shape, *args, **kwargs) -> int:
+    """Per step and head: y = r (S + u k v^T), 2 K^2, and the state's
+    update w S + k v^T, 2 K^2."""
+    b, t, h, kk = r_shape
+    return 4 * b * t * h * kk * kk
+
+
+@register_flop_formula(torch.ops.repro.wkv6_backward)
+def _wkv6_bwd_flops(r_shape, *args, **kwargs) -> int:
+    """Per step and head: the state again (2 K^2), dr, the state's gradient
+    carried back, and dk, dv and dw from it (2 K^2 each)."""
+    b, t, h, kk = r_shape
+    return 12 * b * t * h * kk * kk
+
+
 class _WKV6(torch.autograd.Function):
     """The forward kernel with the backward kernel as its gradient (on the
-    card only: the CPU differentiates ``wkv6_ref``).  A gradient that does
-    not reach y or the final state comes as None and is taken as zero."""
+    card, or on fake tensors: a real CPU tensor differentiates ``wkv6_ref``).
+    A gradient that does not reach y or the final state comes as None and is
+    taken as zero."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, state):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(r, k, v, w, u, state)
-        return _forward(r, k, v, w, u, state)
+        return _wkv6_op(r, k, v, w, u, state)
 
     @staticmethod
     def backward(ctx, dy, dstate_out):
         r, k, v, w, u, state = ctx.saved_tensors
         dy = torch.zeros_like(r) if dy is None else dy.contiguous()
-        grads = _backward(r, k, v, w, u, state, dy,
-                          None if dstate_out is None else dstate_out.contiguous())
+        grads = _wkv6_bwd_op(r, k, v, w, u, state, dy,
+                             None if dstate_out is None else dstate_out.contiguous())
         return (*grads[:5], grads[5] if ctx.needs_input_grad[5] else None)
 
 
@@ -122,7 +171,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     column v).  Returns (y [B,T,H,K] in r.dtype, final state float32).  A
     gradient flows to every input through ``wkv6_backward``."""
     _check(r, k, v, w, u, state)
-    if r.device.type == "cpu":
+    if r.device.type == "cpu" and not _build.is_fake(r):
         return wkv6_ref(r, k, v, w, u, state)
     return _WKV6.apply(r, k, v, w, u, state)
 
@@ -136,7 +185,7 @@ def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Te
     their inputs' types, dstate in float32.  On the CPU ``wkv6_bwd_ref``.
     Deterministic on the card (no atomics)."""
     _check(r, k, v, w, u, state)
-    return _backward(r, k, v, w, u, state, dy, dstate_out)
+    return _wkv6_bwd_op(r, k, v, w, u, state, dy, dstate_out)
 
 
 wkv6.launches = 0

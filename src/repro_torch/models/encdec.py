@@ -49,7 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.param import ParamSpec, zeros
+from repro_torch.models.param import ParamSpec, constrain, zeros
 from repro_torch.models.transformer import FULL_ATTENTION_MAX, _write_prompt, _write_token
 
 Tree = Dict[str, Any]
@@ -132,15 +132,16 @@ def _merge(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _mlp(x: torch.Tensor, lp: Tree, cfg: ModelConfig) -> torch.Tensor:
     h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return L.per_row_matmul(F.gelu(L.per_row_matmul(h, lp["w1"]), approximate="tanh"),
-                            lp["w2"])
+    h = F.gelu(L.per_row_matmul(h, lp["w1"]), approximate="tanh")
+    h = constrain(h, "batch", "seq", "act_mlp")
+    return L.per_row_matmul(h, lp["w2"])
 
 
 def _encoder_layer(x: torch.Tensor, lp: Tree, cfg: ModelConfig) -> torch.Tensor:
     h = L.rms_norm(x, lp["norm"], cfg.norm_eps)
     q, k, v = (_project(h, lp[w]) for w in ("wq", "wk", "wv"))
     x = x + _merge(L.attention_full(q, k, v, causal=False), lp["wo"])
-    return x + _mlp(x, lp, cfg)
+    return constrain(x + _mlp(x, lp, cfg), "batch", "seq_res", "act_embed")
 
 
 def encode(params: Tree, frames: torch.Tensor, cfg: ModelConfig, *,
@@ -150,6 +151,7 @@ def encode(params: Tree, frames: torch.Tensor, cfg: ModelConfig, *,
     _, f, d = frames.shape
     pos = torch.arange(f, device=frames.device)
     x = frames + _sinusoid(pos, d)[None].to(frames.dtype)
+    x = constrain(x, "batch", "seq_res", "act_embed")
     for lp in params["encoder"]:
         x = (checkpoint(_encoder_layer, x, lp, cfg, use_reentrant=False) if remat
              else _encoder_layer(x, lp, cfg))
@@ -158,8 +160,9 @@ def encode(params: Tree, frames: torch.Tensor, cfg: ModelConfig, *,
 
 def _embed_tokens(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
                   positions: torch.Tensor) -> torch.Tensor:
-    x = params["embedding"][tokens]
-    return x + _sinusoid(positions, cfg.d_model).to(x.dtype)
+    x = L.embed(params["embedding"], tokens)
+    x = x + _sinusoid(positions, cfg.d_model).to(x.dtype)
+    return constrain(x, "batch", "seq_res", "act_embed")
 
 
 def _cross_kv(enc: torch.Tensor, lp: Tree):
@@ -197,7 +200,7 @@ def _decoder_layer(x: torch.Tensor, lp: Tree, cfg: ModelConfig,
         attx = L.attention_decode(qx[:, 0], cache[2], cache[3],
                                   cache[2].shape[2] - 1)[:, None]
     x = x + _merge(attx, lp["x_wo"])
-    return x + _mlp(x, lp, cfg)
+    return constrain(x + _mlp(x, lp, cfg), "batch", "seq_res", "act_embed")
 
 
 def _decoder_stack(params: Tree, x: torch.Tensor, enc: Optional[torch.Tensor],

@@ -15,6 +15,13 @@ kernel is only taken at ``window == 0``; the ring-cache decode of a local
 layer runs through the flash-decode kernel (``models/transformer.py``), and
 ``attention_decode_ring`` is the plain port of the JAX function it is held
 against.
+
+Under a partitioner (``models/param.py``) the kernels run on each rank's
+shards through ``local_map`` (``repro_torch.sharding.local``): the flash
+kernel with heads over ``model``, flash-decode over a cache sharded along
+its sequence, combined by log-sum-exp; so do the embedding lookup, the
+head projections, the MLP and the row-wise ops, whose layouts DTensor
+cannot find alone.
 """
 from __future__ import annotations
 
@@ -28,6 +35,12 @@ from repro_torch.kernels import (
     decode_attention_int8_grouped,
     flash_attention,
 )
+from repro_torch.kernels.decode_attention import (
+    decode_attention_grouped_lse,
+    decode_attention_int8_grouped_lse,
+)
+from repro_torch.models.param import constrain
+from repro_torch.sharding import local as shard_local
 
 NEG_INF = -1e30
 
@@ -43,7 +56,14 @@ MIN_REDUCE_ROWS = 16
 
 def row_mean(x: torch.Tensor) -> torch.Tensor:
     """Mean over the last axis, keepdim, with a summation order that does
-    not depend on how many rows ``x`` has (``MIN_REDUCE_ROWS``)."""
+    not depend on how many rows ``x`` has (``MIN_REDUCE_ROWS``); sharded, on
+    each rank's rows."""
+    if shard_local.sharded(x):
+        return shard_local.row_mean(_row_mean, x)
+    return _row_mean(x)
+
+
+def _row_mean(x: torch.Tensor) -> torch.Tensor:
     rows = x.reshape(-1, x.shape[-1])
     n = rows.shape[0]
     if n < MIN_REDUCE_ROWS:
@@ -62,7 +82,13 @@ ROW_BLOCK = 16
 
 def row_blocks_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` over blocks of exactly ``ROW_BLOCK`` rows of x [..., D],
-    zero-padded."""
+    zero-padded; sharded, over each rank's rows."""
+    if shard_local.sharded(x):
+        return shard_local.rowwise(_row_blocks_matmul, x, w)
+    return _row_blocks_matmul(x, w)
+
+
+def _row_blocks_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     rows = x.reshape(-1, x.shape[-1])
     n = rows.shape[0]
     rows = F.pad(rows, (0, 0, 0, -n % ROW_BLOCK))
@@ -75,10 +101,29 @@ def per_row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [B, S, D] @ w [D, N], each batch row's result as it would be alone:
     a decode step's rows (S == 1) in ``row_blocks_matmul``, a longer
     sequence row by row, so that every product has the same shape at any
-    batch size."""
+    batch size; sharded, over each rank's rows."""
+    if shard_local.sharded(x):
+        return shard_local.rowwise(_per_row_matmul, x, w)
+    return _per_row_matmul(x, w)
+
+
+def _per_row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.shape[1] == 1:
-        return row_blocks_matmul(x, w)
+        return _row_blocks_matmul(x, w)
     return torch.cat([x[i:i + 1] @ w for i in range(x.shape[0])])
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  Sharded, laid out with the sequence whole (batch as
+    the rules split it): a later layout that splits the sequence sends its
+    gradient back through that one, so that the lookup's backward (a sum
+    over flattened [B*S] rows) never meets a split sequence, which DTensor
+    cannot flatten.  The lookup runs on each rank's shards
+    (``sharding.local.embed``: DTensor's own lookup differentiates through
+    an index_put that some versions cannot place)."""
+    if shard_local.sharded(table):
+        return constrain(shard_local.embed(table, tokens), "batch", "seq", "act_embed")
+    return table[tokens]
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -119,13 +164,27 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
 
 
 def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [B,S,D] @ w [D,H,hd] -> contiguous [B,S,H,hd]."""
+    """x [B,S,D] @ w [D,H,hd] -> contiguous [B,S,H,hd]; sharded, on each
+    rank's shards (``sharding.local.project_heads``)."""
+    if shard_local.sharded(x):
+        return shard_local.project_heads(_project_heads, x, w)
+    return _project_heads(x, w)
+
+
+def _project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     b, s, _ = x.shape
     return (x @ w.reshape(w.shape[0], -1)).view(b, s, w.shape[1], w.shape[2])
 
 
 def merge_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [B,S,H,hd] @ w [H,hd,D] -> [B,S,D]."""
+    """x [B,S,H,hd] @ w [H,hd,D] -> [B,S,D]; sharded, on each rank's
+    shards (``sharding.local.merge_heads``)."""
+    if shard_local.sharded(x):
+        return shard_local.merge_heads(_merge_heads, x, w)
+    return _merge_heads(x, w)
+
+
+def _merge_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     b, s = x.shape[:2]
     return x.reshape(b, s, -1) @ w.reshape(-1, w.shape[-1])
 
@@ -158,6 +217,13 @@ def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s where s - window < t (and t <= s if causal), in plain PyTorch."""
     if window:
         return _masked_attention(q, k, v, 0, 0, causal, window)
+    return _flash(q, k, v, causal)
+
+
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+    """The flash kernel, on each rank's shards when q is sharded."""
+    if shard_local.sharded(q):
+        return shard_local.flash_attention(flash_attention, q, k, v, causal)
     return flash_attention(q, k, v, causal=causal)
 
 
@@ -171,7 +237,7 @@ def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``window + q_block`` keys ending at its last query, so a local layer
     costs O(S * window), in plain PyTorch."""
     if not window:
-        return flash_attention(q, k, v, causal=causal)
+        return _flash(q, k, v, causal)
     s = q.shape[1]
     q_block = min(q_block, s)
     while s % q_block:
@@ -197,6 +263,9 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
     k/v cache [B,KV,Smax,hd]; cur_index an int (lockstep batch) or a [B]
     tensor (one position per slot).  -> [B,H,hd] through the flash-decode
     kernel, for both forms of the index."""
+    if shard_local.sharded(q):
+        return shard_local.decode(decode_attention_grouped_lse, q, (k_cache, v_cache),
+                                  cur_index)
     out = decode_attention_grouped(_group(q, k_cache.shape[1]), k_cache,
                                    v_cache, cur_index)
     return out.reshape(q.shape)
@@ -235,6 +304,9 @@ def attention_decode_int8(q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,
     """int8-cache decode: q [B,H,hd]; int8 k/v [B,KV,Smax,hd]; float32
     scales [B,KV,Smax]; the scales fold into the scores (k) and the
     probabilities (v) inside the kernel."""
+    if shard_local.sharded(q):
+        return shard_local.decode(decode_attention_int8_grouped_lse, q,
+                                  (k_q, v_q, k_s, v_s), cur_index)
     out = decode_attention_int8_grouped(_group(q, k_q.shape[1]), k_q, v_q,
                                         k_s, v_s, cur_index)
     return out.reshape(q.shape)
@@ -242,7 +314,18 @@ def attention_decode_int8(q: torch.Tensor, k_q: torch.Tensor, v_q: torch.Tensor,
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    """Sharded, on each rank's shards as a column- then row-parallel MLP
+    (``sharding.local.mlp``)."""
+    if shard_local.sharded(x):
+        return shard_local.mlp(_swiglu, x, (w_gate, w_up), w_down)
+    return _swiglu(x, w_gate, w_up, w_down)
+
+
+def _swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+            w_down: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    h = constrain(h, "batch", "seq", "act_mlp")
+    return h @ w_down
 
 
 def ddim_update(x: torch.Tensor, eps: torch.Tensor, alpha_t,
@@ -253,9 +336,17 @@ def ddim_update(x: torch.Tensor, eps: torch.Tensor, alpha_t,
 
 
 def _ce_sum(h: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Summed cross entropy of one chunk: h [B,C,D] -> float32 logits."""
+    """Summed cross entropy of one chunk: h [B,C,D] -> float32 logits.
+    Sharded, the gold logit is a masked sum over the vocabulary (one term
+    and zeros: the gathered value), which needs no gather across the
+    vocabulary's shards."""
     logits = (h @ unembed).float()
-    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    logits = constrain(logits, "batch", "seq", "act_vocab")
+    if shard_local.sharded(logits):
+        ids = torch.arange(logits.shape[-1], device=labels.device)
+        gold = torch.where(ids == labels[..., None].long(), logits, 0.0).sum(dim=-1)
+    else:
+        gold = logits.gather(-1, labels[..., None].long())[..., 0]
     return (torch.logsumexp(logits, dim=-1) - gold).sum()
 
 
@@ -270,6 +361,9 @@ def chunked_cross_entropy(hidden: torch.Tensor, unembed: torch.Tensor,
     chunk = min(chunk, s)
     while s % chunk:
         chunk //= 2
+    # sharded, the sequence whole before it is cut into chunks
+    hidden = constrain(hidden, "batch", "seq", "act_embed")
+    labels = constrain(labels, "batch", "seq")
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, s, chunk):
         tot = tot + checkpoint(_ce_sum, hidden[:, i:i + chunk], unembed,

@@ -50,7 +50,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
-from repro_torch.models.param import ParamSpec, tree_map, zeros
+from repro_torch.models.param import ParamSpec, constrain, tree_map, zeros
 
 Tree = Dict[str, Any]
 CONV_WIDTH = 4
@@ -167,7 +167,7 @@ def mamba_layer(x: torch.Tensor, lp: Tree, cfg: ModelConfig, cache, seq_mode: bo
     y = y + lp["d_skip"][None, None, :, None] * xs32
     y = y.reshape(bsz, t, d_inner).to(x.dtype)
     out = _gated_norm(y, z, lp["gn_w"], cfg.norm_eps) @ lp["w_out"]
-    return x + out, (new_conv, new_ssd)
+    return constrain(x + out, "batch", "seq_res", "act_embed"), (new_conv, new_ssd)
 
 
 # ------------------------------------------------------- zamba2 shared block
@@ -194,7 +194,8 @@ def _shared_block(x: torch.Tensor, sp: Tree, cfg: ModelConfig, cache,
     sincos = transformer._sincos(cfg, positions)
     x = x + transformer._attention(x, sp, cfg, sincos, cache, cur_index, 0)
     h = L.rms_norm(x, sp["mlp_norm"], cfg.norm_eps)
-    return x + L.swiglu(h, sp["w_gate"], sp["w_up"], sp["w_down"])
+    return constrain(x + L.swiglu(h, sp["w_gate"], sp["w_up"], sp["w_down"]),
+                     "batch", "seq_res", "act_embed")
 
 
 # ------------------------------------------------------------------ zamba2
@@ -287,13 +288,15 @@ def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
     cache = zeros(abstract_cache(cfg, b, max_len), tokens.device)
-    x = _stack(params, params["embedding"][tokens], cfg, cache, None)
+    x = _stack(params, L.embed(params["embedding"], tokens), cfg, cache, None)
     return (x[:, -1] @ params["unembed"]).float(), cache
 
 
 def loss_fn(params: Tree, batch: Tree, cfg: ModelConfig, **_):
     """batch: tokens [B,S], labels [B,S] -> (ce, {"ce", "aux": 0.0})."""
-    x = _stack(params, params["embedding"][batch["tokens"]], cfg, None, None)
+    x = constrain(L.embed(params["embedding"], batch["tokens"]), "batch", "seq_res",
+                  "act_embed")
+    x = _stack(params, x, cfg, None, None)
     ce = L.chunked_cross_entropy(x, params["unembed"], batch["labels"])
     return ce, {"ce": ce, "aux": 0.0}
 
@@ -305,5 +308,5 @@ def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor, cur_index,
     if not isinstance(cur_index, torch.Tensor) and "attn" in cache:
         if not 0 <= cur_index < cache["attn"][0].shape[3]:
             raise ValueError(f"cur_index {cur_index} outside the cache")
-    x = _stack(params, params["embedding"][tokens[:, None]], cfg, cache, cur_index)
+    x = _stack(params, L.embed(params["embedding"], tokens[:, None]), cfg, cache, cur_index)
     return (x[:, 0] @ params["unembed"]).float()

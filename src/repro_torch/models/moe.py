@@ -9,10 +9,15 @@ dropless path, with the JAX package's names and arithmetic.
                            under a one-hot gate over all experts; what the
                            serving engine runs
 
-The JAX package shards ``moe_ffn`` over a mesh when a partitioner is
-ambient (``shard_map`` over the data shards, each expert's d_ff over the
-model axis).  The port has no partitioner (ROADMAP Queue 1, item 4), so it
-carries the single-device branch only.
+Under a partitioner (``models/param.py``) ``moe_ffn`` takes the JAX
+package's sharded branch, its ``shard_map`` as ``local_map``: tokens stay
+over ("pod", "data") and each rank routes and dispatches its own tokens, in
+chunks of about 8k local tokens (one ``torch.utils.checkpoint`` each while
+training), through a d_ff slice of every expert over ``model``; the d_ff
+partials are summed over ``model`` (a ``Partial`` placement, reduced where
+the next op needs it).  The load-balancing loss is the global one: the
+shards' weighted mean probabilities and counts are summed over the mesh.
+The dropless path has no sharded branch, as in the JAX package.
 
 No Pallas kernel is involved, in the JAX package or here: the expert
 products are batched matrix products over the expert axis, ``[E,T,d] @
@@ -33,9 +38,10 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.param import ParamSpec
+from repro_torch.models.param import ParamSpec, current_partitioner, is_dtensor
 
 Tree = Dict[str, Any]
 
@@ -77,23 +83,34 @@ def _top_k(probs: torch.Tensor, k: int):
     return w[..., :k], i[..., :k]
 
 
-def _router(x: torch.Tensor, lp: Tree, cfg: ModelConfig):
-    """x [B,S,D] -> (top_w [B,S,k] float32, top_i [B,S,k] int64, aux loss):
-    float32 logits, softmax, the top k renormalised, and the load-balancing
-    loss E * sum(me * ce).  The logits' product runs on rows padded to
-    ``ROW_BLOCK``."""
+def _route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """x [B,S,D] -> (top_w [B,S,k] float32, top_i [B,S,k] int64, the mean
+    probability of each expert [E], the assignments each expert got [E]):
+    float32 logits, softmax and the top k renormalised.  The logits' product
+    runs on rows padded to ``ROW_BLOCK``."""
     b, s, d = x.shape
     t, e = b * s, cfg.num_experts
     rows = _pad_rows(x.reshape(t, d).float())
-    logits = (rows @ lp["router"])[:t].reshape(b, s, e)
+    logits = (rows @ router)[:t].reshape(b, s, e)
     probs = torch.softmax(logits, dim=-1)
     top_w, top_i = _top_k(probs, cfg.top_k)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
-    me = probs.mean(dim=(0, 1))
-    ce = torch.zeros(e, dtype=torch.float32, device=x.device).index_add_(
-        0, top_i.reshape(-1), torch.ones(t * cfg.top_k, device=x.device)) / (
-        t * cfg.top_k)
-    return top_w, top_i, e * torch.sum(me * ce)
+    counts = torch.zeros(e, dtype=torch.float32, device=x.device).index_add_(
+        0, top_i.reshape(-1), torch.ones(t * cfg.top_k, device=x.device))
+    return top_w, top_i, probs.mean(dim=(0, 1)), counts
+
+
+def _aux(me: torch.Tensor, counts: torch.Tensor, n_tokens: int, cfg: ModelConfig):
+    """The load-balancing loss E * sum(me * ce), ce the share of the
+    assignments each expert got."""
+    ce = counts / (n_tokens * cfg.top_k)
+    return cfg.num_experts * torch.sum(me * ce)
+
+
+def _router(x: torch.Tensor, lp: Tree, cfg: ModelConfig):
+    """x [B,S,D] -> (top_w [B,S,k] float32, top_i [B,S,k] int64, aux loss)."""
+    top_w, top_i, me, counts = _route(x, lp["router"], cfg)
+    return top_w, top_i, _aux(me, counts, x.shape[0] * x.shape[1], cfg)
 
 
 def _experts(h: torch.Tensor, we_gate, we_up, we_down) -> torch.Tensor:
@@ -112,8 +129,8 @@ def _dispatch_compute(x, top_w, top_i, lp: Tree, cfg: ModelConfig) -> torch.Tens
     """The capacity dispatch: x [B,S,D] -> [B,S,D].  Assignments sorted by
     expert (a stable sort, as ``jnp.argsort`` is), each expert's first
     ``_capacity`` kept and the rest sent to a trash row, the experts run on
-    their [E, cap, D] buffers, and each kept assignment's output, weighted,
-    added into its token's row."""
+    their [E, cap, D] buffers, and each token's k weighted outputs summed
+    (a dropped one is zero) in a fixed order."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.num_experts, cfg.top_k
@@ -137,18 +154,98 @@ def _dispatch_compute(x, top_w, top_i, lp: Tree, cfg: ModelConfig) -> torch.Tens
     yflat = torch.cat([y.reshape(e * cap, d), torch.zeros((1, d), dtype=x.dtype,
                                                           device=dev)])
     w_sorted = top_w.reshape(t * k)[order].to(x.dtype)
-    out = torch.zeros((t, d), dtype=x.dtype, device=dev).index_add_(
-        0, src_tok, yflat[slot] * w_sorted[:, None])
+    # each kept assignment's weighted output back in assignment order, then
+    # a token's k summed in that order: no atomic adds, so the same inputs
+    # give the same bits on the card
+    per = torch.empty((t * k, d), dtype=x.dtype, device=dev)
+    per[order] = yflat[slot] * w_sorted[:, None]
+    out = per.view(t, k, d).sum(dim=1)
     if cfg.num_shared_experts:
         out = out + _shared(xf, lp)
     return out.reshape(b, s, d)
 
 
+#: local tokens a chunk of the sharded dispatch holds at most, about
+CHUNK_TOKENS = 8192
+EXPERT_LEAVES = ("we_gate", "we_up", "we_down")
+SHARED_LEAVES = ("ws_gate", "ws_up", "ws_down")
+#: each leaf's logical axes in the sharded branch: d_ff over ``model``
+_LOCAL_AXES = {"we_gate": (None, None, "mlp"), "we_up": (None, None, "mlp"),
+               "we_down": (None, "mlp", None), "ws_gate": (None, "mlp"),
+               "ws_up": (None, "mlp"), "ws_down": ("mlp", None)}
+
+
+def n_chunks(b_loc: int, s_loc: int) -> int:
+    """Chunks of the local sequence, so that a chunk holds about
+    ``CHUNK_TOKENS`` of the b_loc * s_loc local tokens (the JAX package's
+    rule: the largest count up to that which divides s_loc)."""
+    for cand in range(max(1, (b_loc * s_loc) // CHUNK_TOKENS), 0, -1):
+        if s_loc % cand == 0:
+            return cand
+    return 1
+
+
+def _moe_sharded(x: torch.Tensor, lp: Tree, cfg: ModelConfig, part):
+    """The sharded branch: x a DTensor [B,S,D] -> ([B,S,D], aux).  Two
+    ``local_map`` regions, as the JAX package routes outside its
+    ``shard_map``: the routing, on each rank's tokens and the same on every
+    ``model`` rank; then the dispatch through each ``model`` rank's d_ff
+    slice, whose outputs, and whose gradients for x and the routing
+    weights, are partial sums over ``model``."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = part.mesh
+    tok = part.placements(x.shape, ("batch", None, None))
+    names = [k for k in SHARED_LEAVES if cfg.num_shared_experts] + list(EXPERT_LEAVES)
+    wpl = [part.placements(lp[k].shape, _LOCAL_AXES[k]) for k in names]
+    f_sharded = any(p.is_shard() for p in wpl[-1])
+    n_tot = x.shape[0] * x.shape[1]
+    # sums over the token shards; d_ff partials over model
+    tok_sum = tuple(Partial() if p.is_shard() else Replicate() for p in tok)
+    part_f = tuple(Partial() if (n == "model" and f_sharded) else p
+                   for n, p in zip(mesh.mesh_dim_names, tok))
+    rep = tuple(Replicate() for _ in tok)
+
+    def route(xl, router):
+        top_w, top_i, me, counts = _route(xl, router, cfg)
+        return top_w, top_i, me * (xl.shape[0] * xl.shape[1] / n_tot), counts
+
+    top_w, top_i, me, counts = local_map(
+        route, out_placements=(tok, tok, tok_sum, tok_sum), in_placements=(tok, rep),
+        in_grad_placements=(tok, tok_sum), device_mesh=mesh,
+        redistribute_inputs=True)(x, lp["router"])
+
+    def dispatch(xl, twl, til, *ws):
+        b_loc, s_loc, _ = xl.shape
+        wl = dict(zip(names, ws))
+        k = n_chunks(b_loc, s_loc)
+        sc = s_loc // k
+        outs = []
+        for i in range(k):
+            args = (xl[:, i * sc:(i + 1) * sc], twl[:, i * sc:(i + 1) * sc],
+                    til[:, i * sc:(i + 1) * sc], wl, cfg)
+            outs.append(checkpoint(_dispatch_compute, *args, use_reentrant=False)
+                        if torch.is_grad_enabled() else _dispatch_compute(*args))
+        return outs[0] if k == 1 else torch.cat(outs, dim=1)
+
+    w_grads = [tuple(Partial() if t.is_shard() else w for t, w in zip(tok, wp)) for wp in wpl]
+    out = local_map(
+        dispatch, out_placements=list(part_f), in_placements=(tok, tok, tok, *wpl),
+        in_grad_placements=(part_f, part_f, tok, *w_grads), device_mesh=mesh,
+        redistribute_inputs=True)(x, top_w, top_i, *(lp[k] for k in names))
+    return out, _aux(me, counts, n_tot, cfg)
+
+
 def moe_ffn(x: torch.Tensor, lp: Tree, cfg: ModelConfig):
     """x [B,S,D] -> ([B,S,D], aux): top-k routing with a per-expert
     capacity; a token's output depends on the other tokens of its call
-    through the assignments that overflow.  The JAX package's
-    single-device branch (the port has no partitioner)."""
+    through the assignments that overflow.  Sharded when a partitioner is
+    ambient and x is a DTensor (``_moe_sharded``); else the JAX package's
+    single-device branch."""
+    part = current_partitioner()
+    if part is not None and is_dtensor(x):
+        return _moe_sharded(x, lp, cfg, part)
     top_w, top_i, aux = _router(x, lp, cfg)
     return _dispatch_compute(x, top_w, top_i, lp, cfg), aux
 

@@ -6,9 +6,17 @@ leaves with the same names, shapes and init rules as the JAX package's
 ``torch.Generator`` on an explicit device.  The tree keeps the JAX layout
 (layer-stacked ``[nl, ...]`` leaves, HWIO convs); ``repro_torch.convert``
 turns it into the layout the modules run on.
+
+The ambient partitioner (``use_partitioner``) is how the models run sharded
+without threading a mesh through every call: ``constrain`` redistributes a
+DTensor to the layout its logical axes give, and the kernels' call sites
+and ``moe_ffn`` ask ``current_partitioner`` whether to run under
+``local_map``.  Without one, or on a plain tensor, nothing changes.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Any, NamedTuple, Optional, Tuple
 
@@ -57,7 +65,8 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
     if isinstance(tree, (tuple, list)) and not is_spec(tree):
-        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+        mapped = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
+        return type(tree)(*mapped) if hasattr(tree, "_fields") else type(tree)(mapped)
     return fn(tree, *rest)
 
 
@@ -104,7 +113,11 @@ def materialize(spec: ParamSpec, generator: torch.Generator,
 
 
 def zeros(spec_tree, device):
-    """A tree of zero tensors for a ParamSpec tree (a decode cache)."""
+    """A tree of zero tensors for a ParamSpec tree (a decode cache); under a
+    partitioner, DTensors laid out by each leaf's logical axes."""
+    part = current_partitioner()
+    if part is not None:
+        return tree_map(part.zeros, spec_tree)
     return tree_map(lambda s: torch.zeros(s.shape, dtype=getattr(torch, s.dtype),
                                           device=device), spec_tree)
 
@@ -119,3 +132,56 @@ def init_tree(spec_tree, generator: torch.Generator, device) -> dict:
             node = node.setdefault(k, {})
         node[path[-1]] = materialize(spec, generator, device)
     return out
+
+
+# --- ambient partitioner: models call constrain() without threading a mesh ---
+_AMBIENT: contextvars.ContextVar = contextvars.ContextVar("partitioner", default=None)
+#: the partitioners in use, innermost last: the autograd engine runs a CUDA
+#: backward (and the recompute of a checkpointed layer) on threads of its
+#: own, which the context variable does not reach
+_ACTIVE: list = []
+
+
+@contextlib.contextmanager
+def use_partitioner(p):
+    """Make ``p`` the ambient partitioner.  With one, a plain tensor that
+    meets a DTensor in an op (a position index, an iota, a mask made on the
+    spot) is taken as replicated (DTensor's ``implicit_replication``)."""
+    tok = _AMBIENT.set(p)
+    if p is not None:
+        _ACTIVE.append(p)
+    try:
+        if p is None:
+            yield p
+        else:
+            from torch.distributed.tensor.experimental import implicit_replication
+
+            with implicit_replication():
+                yield p
+    finally:
+        _AMBIENT.reset(tok)
+        if p is not None:
+            _ACTIVE.remove(p)
+
+
+def current_partitioner():
+    """The ambient partitioner; on a thread the context does not reach (the
+    autograd engine's), the one in use.  Only DTensors act on it."""
+    p = _AMBIENT.get()
+    return p if p is not None or not _ACTIVE else _ACTIVE[-1]
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def constrain(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
+    """Redistribute a DTensor to the layout of its logical axes; a no-op
+    without a partitioner or on a plain tensor."""
+    p = current_partitioner()
+    if p is None or not is_dtensor(x):
+        return x
+    want = p.placements(x.shape, logical)
+    return x if tuple(x.placements) == want else x.redistribute(p.mesh, want)

@@ -9,6 +9,7 @@ and hybrid (Mamba2 with a shared attention block, zamba2).
   decode_step(params, cache, tokens, cur_index, cfg, dropless=) -> logits
   loss_fn(params, batch, cfg, dropless=)    -> (loss, {"ce", "aux"})
   abstract_cache(cfg, B, S)                 -> ParamSpec tree
+  input_specs(cfg, shape)                   -> ParamSpec tree of a step's inputs
   count_params(cfg), count_active_params(cfg)
 
 ``dropless`` and ``patch_embeds`` reach the transformer; the other
@@ -24,10 +25,10 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.convert import to_port_layout
 from repro_torch.models import encdec, mamba2, rwkv6, transformer
-from repro_torch.models.param import count, init_tree
+from repro_torch.models.param import ParamSpec, count, init_tree
 
 Tree = Dict[str, Any]
 
@@ -68,6 +69,32 @@ def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor, cur_index,
 
 def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int) -> Tree:
     return module_for(cfg).abstract_cache(cfg, batch, seq_len)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Tree:
+    """ParamSpec stand-ins of a step's inputs (the dry-run's), as the JAX
+    package's: train tokens/labels [B,S], prefill tokens [B,S] (+ a VLM's
+    patch embeddings or the audio frames), decode tokens [B] and a scalar
+    cur_index."""
+    b, s = shape.global_batch, shape.seq_len
+    tok = ("batch", "seq")
+    specs: Tree = {}
+    if shape.mode == "decode":
+        specs["tokens"] = ParamSpec((b,), ("batch",), "int32", "zeros")
+        specs["cur_index"] = ParamSpec((), (), "int32", "zeros")
+        return specs
+    specs["tokens"] = ParamSpec((b, s), tok, "int32", "zeros")
+    if shape.mode == "train":
+        specs["labels"] = ParamSpec((b, s), tok, "int32", "zeros")
+    if cfg.family == "vlm":
+        p = min(cfg.frontend_tokens, s)
+        specs["patch_embeds"] = ParamSpec(
+            (b, p, cfg.d_model), ("batch", None, "act_embed"), cfg.dtype, "zeros")
+    if cfg.family == "audio":
+        specs["frames"] = ParamSpec(
+            (b, cfg.frontend_tokens, cfg.d_model), ("batch", None, "act_embed"),
+            cfg.dtype, "zeros")
+    return specs
 
 
 def count_params(cfg: ModelConfig) -> int:

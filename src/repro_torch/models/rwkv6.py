@@ -35,6 +35,10 @@ recurrence is the plain version, which autograd differentiates; on the card
 the WKV6 forward kernel with the WKV6 backward kernel as its gradient
 (``kernels.wkv6_backward``): a layer launches the forward twice a step (its
 forward and the recompute under checkpointing) and the backward once.
+
+Under a partitioner the weights and the state are DTensors, the activations
+held to the JAX package's layouts by ``constrain``, and the recurrence runs
+on each rank's shards (heads over ``model``) through ``local_map``.
 """
 from __future__ import annotations
 
@@ -47,7 +51,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import wkv6
 from repro_torch.models import layers as L
-from repro_torch.models.param import ParamSpec, zeros
+from repro_torch.models.param import ParamSpec, constrain, zeros
+from repro_torch.sharding import local as shard_local
 
 Tree = Dict[str, Any]
 LORA_MIX = 32
@@ -148,6 +153,8 @@ def _ddlerp(x, xx, lp, matmul=torch.matmul):
     delta = xx - x
     base = x + delta * lp["mu_x"]
     lora = torch.tanh(matmul(base, lp["lora_a"]))   # [B,T,5*R]
+    # sharded, whole along 5 * R before the view splits it
+    lora = constrain(lora, "batch", "seq", None)
     b, t, _ = lora.shape
     lora = lora.reshape(b, t, 5, LORA_MIX)
     dd = torch.einsum("btcr,crd->btcd", lora, lp["lora_b"])
@@ -168,23 +175,26 @@ def _time_mix(x, lp, cfg: ModelConfig, x_prev, wkv_state, seq_mode: bool):
     skinny = torch.matmul if seq_mode else L.row_blocks_matmul
     mixed = _ddlerp(xn, xx, lp, skinny)
     xr, xk, xv, xw, xg = (mixed[:, :, i] for i in range(5))
-    r = (xr @ lp["w_r"]).reshape(b, t, h, kdim)
-    kk = (xk @ lp["w_k"]).reshape(b, t, h, kdim)
-    vv = (xv @ lp["w_v"]).reshape(b, t, h, kdim)
+    r, kk, vv = (L.project_heads(xi, lp[name].view(d, h, kdim))
+                 for xi, name in ((xr, "w_r"), (xk, "w_k"), (xv, "w_v")))
     g = F.silu(xg @ lp["w_g"])
     # the decay in float32, then cast to the model's type before the
     # recurrence, as the JAX package does
     w = torch.exp(-torch.exp(
         (lp["w0"] + torch.tanh(skinny(xw, lp["wa"])) @ lp["wb"]).float()
     )).to(x.dtype).reshape(b, t, h, kdim)
-    if seq_mode:
+    r = constrain(r, "batch", "seq", "ssm_heads", None)
+    if seq_mode and shard_local.sharded(r):
+        y, new_state = shard_local.wkv6(wkv6, r, kk, vv, w, lp["bonus_u"], wkv_state)
+    elif seq_mode:
         y, new_state = wkv6(r, kk, vv, w, lp["bonus_u"], wkv_state)
     else:
         y, new_state = wkv6_step(r[:, 0], kk[:, 0], vv[:, 0], w[:, 0],
                                  lp["bonus_u"], wkv_state)
         y = y[:, None]
     y = _group_norm(y.reshape(b, t, d).to(x.dtype), lp["gn_w"], h)
-    out = ((y * g) @ lp["w_o"]).to(x.dtype)
+    # sharded, the products' partial sums reduced before the residual add
+    out = constrain(((y * g) @ lp["w_o"]).to(x.dtype), "batch", "seq", "act_embed")
     return out, xn[:, -1], new_state
 
 
@@ -195,7 +205,9 @@ def _channel_mix(x, lp, cfg: ModelConfig, x_prev, seq_mode: bool):
     xk = xn + delta * lp["mu_k2"]
     xr = xn + delta * lp["mu_r2"]
     kk = torch.square(torch.relu(xk @ lp["w_k2"]))
-    out = torch.sigmoid(xr @ lp["w_r2"]) * (kk @ lp["w_v2"])
+    kk = constrain(kk, "batch", "seq", "act_mlp")
+    out = torch.sigmoid(xr @ lp["w_r2"]) * constrain(kk @ lp["w_v2"], "batch", "seq",
+                                                     "act_embed")
     return out, xn[:, -1]
 
 
@@ -204,7 +216,7 @@ def _layer(x, lp, cfg: ModelConfig, xp_att, xp_ffn, st, seq_mode: bool):
     att, nxa, nst = _time_mix(x, lp, cfg, xp_att, st, seq_mode)
     x = x + att
     ffn, nxf = _channel_mix(x, lp, cfg, xp_ffn, seq_mode)
-    return x + ffn, nxa, nxf, nst
+    return constrain(x + ffn, "batch", "seq_res", "act_embed"), nxa, nxf, nst
 
 
 def _stack(params: Tree, x: torch.Tensor, cfg: ModelConfig, cache: Tree,
@@ -230,7 +242,7 @@ def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
     if max_len is not None and s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
     cache = zeros(abstract_cache(cfg, b, s), tokens.device)
-    x = _stack(params, params["embedding"][tokens], cfg, cache, True)
+    x = _stack(params, L.embed(params["embedding"], tokens), cfg, cache, True)
     return (x[:, -1] @ params["unembed"]).float(), cache
 
 
@@ -244,10 +256,12 @@ def loss_fn(params: Tree, batch: Tree, cfg: ModelConfig, **_):
     ``torch.utils.checkpoint``."""
     tokens = batch["tokens"]
     b = tokens.shape[0]
-    x = params["embedding"][tokens]
-    x_prev = x.new_zeros((b, cfg.d_model))
+    x = constrain(L.embed(params["embedding"], tokens), "batch", "seq_res", "act_embed")
     k = cfg.resolved_head_dim
-    state = torch.zeros((b, cfg.num_heads, k, k), dtype=torch.float32, device=x.device)
+    dt = str(x.dtype).removeprefix("torch.")
+    x_prev = zeros(ParamSpec((b, cfg.d_model), ("batch", "act_embed"), dt, "zeros"), x.device)
+    state = zeros(ParamSpec((b, cfg.num_heads, k, k), ("batch", "ssm_heads", None, None),
+                            "float32", "zeros"), x.device)
     for lp in params["layers"]:
         x = checkpoint(_train_layer, x, lp, cfg, x_prev, state, use_reentrant=False)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -260,5 +274,5 @@ def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor, cur_index,
     """tokens [B] -> logits [B,V] float32; the state in ``cache`` advances
     in place.  ``cur_index`` is ignored, as is ``dropless``."""
     del cur_index
-    x = _stack(params, params["embedding"][tokens[:, None]], cfg, cache, False)
+    x = _stack(params, L.embed(params["embedding"], tokens[:, None]), cfg, cache, False)
     return (x[:, 0] @ params["unembed"]).float()

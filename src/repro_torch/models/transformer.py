@@ -40,6 +40,12 @@ first wrap its valid slots are the prefix 0..cur, so that index computes
 A MoE layer's FFN is ``moe.moe_ffn`` (the capacity dispatch) or, with
 ``dropless=True`` as the serving engine runs it, ``moe.moe_ffn_dense_fallback``.
 
+Under a partitioner (``models/param.py``) the weights, the cache and the
+inputs are DTensors: activations are held to the JAX package's layouts by
+``constrain`` at its call sites, the kernels run on each rank's shards
+(``repro_torch.sharding.local``), and each rank writes the cache positions
+it holds.
+
 ``loss_fn`` is the training path: a full causal forward with no cache, each
 layer under ``torch.utils.checkpoint`` (the JAX package's ``remat=True``),
 the MoE layers' load-balancing losses summed beside it, and the chunked
@@ -58,7 +64,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.moe import moe_ffn, moe_ffn_dense_fallback, moe_param_specs
-from repro_torch.models.param import ParamSpec, zeros
+from repro_torch.models.param import ParamSpec, constrain, zeros
+from repro_torch.sharding import local as shard_local
 
 Tree = Dict[str, Any]
 
@@ -227,13 +234,15 @@ def _write_prompt(cache: Tuple[torch.Tensor, ...], k: torch.Tensor,
         kc, vc = (torch.roll(x[:, :, s - keep:], s % keep, dims=2) for x in (kc, vc))
         s = keep
     if len(cache) == 4:
-        for dst, sdst, src in ((cache[0], cache[2], kc), (cache[1], cache[3], vc)):
-            qv, sc = L.quantize_token_kv(src)
-            dst[:, :, :s] = qv
-            sdst[:, :, :s] = sc
+        (kq, ks), (vq, vs) = L.quantize_token_kv(kc), L.quantize_token_kv(vc)
+        srcs = (kq, vq, ks, vs)
     else:
-        cache[0][:, :, :s] = kc
-        cache[1][:, :, :s] = vc
+        srcs = (kc, vc)
+    if shard_local.sharded(cache[0]):
+        shard_local.write_prompt(cache, srcs)
+        return
+    for dst, src in zip(cache, srcs):
+        dst[:, :, :s] = src
 
 
 def _write_token(cache: Tuple[torch.Tensor, ...], k1: torch.Tensor,
@@ -242,6 +251,14 @@ def _write_token(cache: Tuple[torch.Tensor, ...], k1: torch.Tensor,
     A [B] index writes row b at column cur_index[b] (clamped to the last
     column: a row past the end of its cache is finished and its writes are
     never read), an int writes every row at that column."""
+    if len(cache) == 4:
+        (kq, ks), (vq, vs) = (L.quantize_token_kv(x[:, :, None]) for x in (k1, v1))
+        srcs = (kq, vq, ks, vs)
+    else:
+        srcs = (k1[:, :, None], v1[:, :, None])
+    if shard_local.sharded(cache[0]):
+        shard_local.write_token(cache, srcs, cur_index)
+        return
     if isinstance(cur_index, torch.Tensor):
         rows = torch.arange(k1.shape[0], device=k1.device)
         col = cur_index.to(device=k1.device, dtype=torch.long).clamp(
@@ -249,14 +266,17 @@ def _write_token(cache: Tuple[torch.Tensor, ...], k1: torch.Tensor,
         idx = (rows, slice(None), col)
     else:
         idx = (slice(None), slice(None), cur_index)
-    if len(cache) == 4:
-        for dst, sdst, src in ((cache[0], cache[2], k1), (cache[1], cache[3], v1)):
-            qv, sc = L.quantize_token_kv(src[:, :, None])
-            dst[idx] = qv[:, :, 0]
-            sdst[idx] = sc[:, :, 0]
-    else:
-        cache[0][idx] = k1.to(cache[0].dtype)
-        cache[1][idx] = v1.to(cache[1].dtype)
+    for dst, src in zip(cache, srcs):
+        dst[idx] = src[:, :, 0].to(dst.dtype)
+
+
+def _gathered(w: torch.Tensor, cfg: ModelConfig, *logical) -> torch.Tensor:
+    """ZeRO-3 weight gather: with ``fsdp_weight_gather``, an FSDP-sharded
+    weight redistributed so that its contraction dim is whole before the
+    product, instead of reducing the (much larger) activations after it."""
+    if not cfg.fsdp_weight_gather:
+        return w
+    return constrain(w, *logical)
 
 
 def _attention(x, lp, cfg: ModelConfig, sincos, cache, cur_index, window):
@@ -265,9 +285,9 @@ def _attention(x, lp, cfg: ModelConfig, sincos, cache, cur_index, window):
     ``window`` > 0 makes it a local layer over a ring cache.  Writes the
     layer's cache in place and returns the residual delta."""
     h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = L.project_heads(h, lp["wq"])
-    k = L.project_heads(h, lp["wk"])
-    v = L.project_heads(h, lp["wv"])
+    q = L.project_heads(h, _gathered(lp["wq"], cfg, None, "heads", None))
+    k = L.project_heads(h, _gathered(lp["wk"], cfg, None, "kv_heads", None))
+    v = L.project_heads(h, _gathered(lp["wv"], cfg, None, "kv_heads", None))
     if cfg.qk_norm:
         q = L.rms_norm(q, lp["q_norm"], cfg.norm_eps)
         k = L.rms_norm(k, lp["k_norm"], cfg.norm_eps)
@@ -275,6 +295,7 @@ def _attention(x, lp, cfg: ModelConfig, sincos, cache, cur_index, window):
     rd = cfg.resolved_head_dim // 2 if cfg.rope_2d else cfg.resolved_head_dim
     q = L.apply_rope(q, sin, cos, rd)
     k = L.apply_rope(k, sin, cos, rd)
+    q = constrain(q, "batch", "seq", "act_heads", None)
     if cur_index is None:
         if x.shape[1] > FULL_ATTENTION_MAX:
             att = L.attention_blockwise(q, k, v, causal=True, window=window)
@@ -297,14 +318,17 @@ def _attention(x, lp, cfg: ModelConfig, sincos, cache, cur_index, window):
             att = L.attention_decode_int8(q[:, 0], *cache, seen)[:, None]
         else:
             att = L.attention_decode(q[:, 0], cache[0], cache[1], seen)[:, None]
-    return L.merge_heads(att, lp["wo"])
+    att = constrain(att, "batch", "seq", "act_heads", None)
+    return L.merge_heads(att, _gathered(lp["wo"], cfg, "heads", None, None))
 
 
 def _ffn(x, lp, cfg: ModelConfig, moe: bool, dropless: bool):
     """-> (residual delta, the MoE layer's aux loss; 0.0 for a dense one)."""
     if not moe:
         h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        return L.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), 0.0
+        return L.swiglu(h, _gathered(lp["w_gate"], cfg, None, "mlp"),
+                        _gathered(lp["w_up"], cfg, None, "mlp"),
+                        _gathered(lp["w_down"], cfg, "mlp", None)), 0.0
     h = L.rms_norm(x, lp["moe_norm"], cfg.norm_eps)
     return (moe_ffn_dense_fallback if dropless else moe_ffn)(h, lp, cfg)
 
@@ -312,7 +336,7 @@ def _ffn(x, lp, cfg: ModelConfig, moe: bool, dropless: bool):
 def _layer(x, lp, cfg: ModelConfig, sincos, cache, cur_index, window, moe, dropless):
     x = x + _attention(x, lp, cfg, sincos, cache, cur_index, window)
     ff, aux = _ffn(x, lp, cfg, moe, dropless)
-    return x + ff, aux
+    return constrain(x + ff, "batch", "seq_res", "act_embed"), aux
 
 
 def _stack(params: Tree, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Tree],
@@ -345,7 +369,7 @@ def _embed(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
     takes it (bfloat16 rounds sqrt(5376) = 73.32 to 73.5).  A VLM's
     ``patch_embeds`` [B, P, d_model] (P <= S) replace the first P
     positions."""
-    x = params["embedding"][tokens]
+    x = L.embed(params["embedding"], tokens)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model, dtype=x.dtype, device=x.device) ** 0.5
     if patch_embeds is not None:
@@ -358,7 +382,7 @@ def _embed(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
             raise ValueError(f"patch_embeds {tuple(patch_embeds.shape)} do not fit "
                              f"the embeddings [{b}, {s}, {d}]")
         x[:, :patch_embeds.shape[1]] = patch_embeds.to(x.dtype)
-    return x
+    return constrain(x, "batch", "seq_res", "act_embed")
 
 
 def _unembed(params: Tree, cfg: ModelConfig) -> torch.Tensor:

@@ -14,6 +14,10 @@ leaf, so its float32 temporaries stay at a few slices whatever the leaf's
 size.  The leaves are stacked over layers and can be large (gemma3-27b's
 unembedding is 1.41 B elements, 5.25 GiB in float32), and the whole-leaf
 expressions kept up to five float32 copies of a leaf alive at once.
+
+DTensor parameters (the sharded path) are updated on their local shards:
+the update is elementwise, and the global norm sums each shard's slices
+and then reduces over the mesh.  On one device the bits are a plain tree's.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.models.param import tree_leaves, tree_map
+from repro_torch.models.param import is_dtensor, tree_leaves, tree_map
 
 #: Elements of a slice: a float32 temporary of the update is 64 MiB at most.
 SLICE = 1 << 24
@@ -34,28 +38,92 @@ class AdamWState(NamedTuple):
 
 
 def adamw_init(params) -> AdamWState:
-    """Zero float32 moments shaped as the parameters, step 0."""
+    """Zero float32 moments shaped as the parameters (laid out as a DTensor
+    parameter is), step 0."""
     def zero(p):
+        if is_dtensor(p):
+            return torch.zeros_like(p, dtype=torch.float32)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     return AdamWState(step=0, mu=tree_map(zero, params), nu=tree_map(zero, params))
+
+
+def adamw_abstract(param_specs) -> AdamWState:
+    """ParamSpec tree -> the (step, mu, nu) ParamSpecs: the dry-run's
+    stand-ins, the moments float32 with the parameters' logical axes."""
+    from repro_torch.models.param import ParamSpec
+
+    f32 = tree_map(lambda s: ParamSpec(s.shape, s.logical, "float32", "zeros"), param_specs)
+    return AdamWState(step=ParamSpec((), (), "int32", "zeros"), mu=f32,
+                      nu=tree_map(lambda s: s, f32))
+
+
+def _local(x):
+    """A DTensor's local shard (the tensor itself otherwise)."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def _like_param(g, p):
+    """A DTensor gradient laid out as its parameter (a partial sum reduced)."""
+    if is_dtensor(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _sharded_mesh_dims(x) -> tuple:
+    """The mesh dims a DTensor is sharded over (its replicas elsewhere hold
+    the same elements); () for a plain tensor."""
+    if not is_dtensor(x):
+        return ()
+    return tuple(i for i, p in enumerate(x.placements)
+                 if p.is_shard() and x.device_mesh.size(i) > 1)
 
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in float32.  Each slice of
     `SLICE` elements is cast and squared alone and its float32 sum added to
     the total, so a leaf larger than a slice may give a norm a few float32
-    steps from one sum over the whole leaf."""
-    total = 0
+    steps from one sum over the whole leaf.
+
+    A DTensor leaf's slices are those of its local shard, and each slice's
+    sum is summed over the mesh dims the leaf is sharded on (one all-reduce
+    for all the slices of leaves sharded alike) before it joins the total in
+    the same order; on one device the bits are those of a plain tree."""
+    sums, dims = [], []
     for g in tree_leaves(tree):
-        for part in g.reshape(-1).split(SLICE):
-            total = total + torch.sum(torch.square(part.float()))
+        if is_dtensor(g) and any(p.is_partial() for p in g.placements):
+            from torch.distributed.tensor import Replicate
+
+            g = g.redistribute(g.device_mesh, [Replicate() if p.is_partial() else p
+                                               for p in g.placements])
+        for part in _local(g).reshape(-1).split(SLICE):
+            sums.append(torch.sum(torch.square(part.float())))
+            dims.append(_sharded_mesh_dims(g))
+    groups = {}
+    for i, d in enumerate(dims):
+        if d:
+            groups.setdefault(d, []).append(i)
+    if groups:
+        from torch.distributed._functional_collectives import all_reduce
+
+        mesh = next(g.device_mesh for g in tree_leaves(tree) if is_dtensor(g))
+        for d, idx in groups.items():
+            red = torch.stack([sums[i] for i in idx])
+            for m in d:
+                red = all_reduce(red, "sum", (mesh, m))
+            for j, i in enumerate(idx):
+                sums[i] = red[j]
+    total = 0
+    for x in sums:
+        total = total + x
     return torch.sqrt(total)
 
 
 def _slices(*leaves):
     """The leaves' flat views cut into `SLICE`-element pieces, zipped; the
     whole leaves where one that is written (all but the first) is not
-    contiguous."""
+    contiguous.  DTensor leaves give their local shards' pieces (the
+    update is elementwise)."""
+    leaves = [_local(x) for x in leaves]
     if not all(x.is_contiguous() for x in leaves[1:]):
         return [leaves]
     return zip(leaves[0].reshape(-1).split(SLICE),
@@ -73,6 +141,7 @@ def adamw_update(grads, state: AdamWState, params, *, lr: float = 3e-4,
     parameters' structure (any floating type).  -> (params, state with the
     step advanced, the global norm before clipping)."""
     step = state.step + 1
+    grads = tree_map(_like_param, grads, params)
     gnorm = global_norm(grads)
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step_f = torch.tensor(float(step), dtype=torch.float32, device=gnorm.device)

@@ -17,7 +17,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import to_port_layout
 from repro_torch.models import registry
-from repro_torch.models.param import init_tree, tree_leaves, tree_map, tree_unflatten
+from repro_torch.models.param import (
+    init_tree,
+    is_dtensor,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 from repro_torch.training.optimizer import AdamWState, adamw_update
 
 
@@ -29,6 +35,18 @@ def trainable(params):
 def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Dict[str, Any]:
     """Random weights by the JAX init rules, in the training tree's layout."""
     return trainable(init_tree(registry.abstract_params(cfg), generator, device))
+
+
+def _split_shards(x, n: int) -> list:
+    """A batch-sharded DTensor cut into ``n`` microbatches, each rank's
+    shard into n pieces: microbatch i holds piece i of every shard (on one
+    device, rows i B/n .. (i + 1) B/n, as a plain batch splits)."""
+    from torch.distributed.tensor import DTensor
+
+    loc = x.to_local()
+    pieces = loc.reshape((n, loc.shape[0] // n) + tuple(loc.shape[1:]))
+    return [DTensor.from_local(p, x.device_mesh, x.placements, run_check=False)
+            for p in pieces]
 
 
 def _value(x):
@@ -62,6 +80,8 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 3e-4, weight_decay: float =
                 b = x.shape[0]
                 if b % microbatches:
                     raise ValueError(f"batch {b} does not split into {microbatches}")
+                if is_dtensor(x):
+                    return _split_shards(x, microbatches)
                 return x.reshape((microbatches, b // microbatches) + tuple(x.shape[1:]))
 
             pieces = {k: split(v) for k, v in batch.items() if getattr(v, "ndim", 0)}

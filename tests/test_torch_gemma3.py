@@ -113,7 +113,7 @@ def test_gemma3_config_matches_jax():
     28,417,621,760 parameters; 10 periods of (5 local, 1 global) and 2
     local tail layers."""
     dropped = {"use_pallas", "decode_unroll", "attn_causal_skip",
-               "fsdp_weight_gather", "source"}
+               "source"}
     j, p = jax_get_config("gemma3-27b"), get_config("gemma3-27b")
     assert p.source == "hf:google/gemma-3-27b-pt"
     assert {k: v for k, v in vars(p).items()

@@ -1,14 +1,16 @@
-"""The port's copy of the host layer (``core/``, ``cluster/``,
-``analysis/runtime.py`` and ``analysis/ring_checker.py``) against the JAX
-package's, and the port's locks under the concurrency checks that
-``tests/conftest.py`` applies to the JAX package only.
+"""The port's copy of the host layer (``core/``, ``cluster/`` and
+``analysis/``: the runtime lock checks, the ring checker and the static
+concurrency passes) against the JAX package's, and the port's locks under
+the concurrency checks that ``tests/conftest.py`` applies to the JAX package
+only.
 
 - Text: each copied file equals the reference's once ``repro_torch`` reads
   ``repro``.  The reference's host-layer tests (ring buffer, cluster,
   control plane, fault tolerance, DAG workflows, transport) cover the port's
   copy only as long as this holds.
-- Static passes: lock order, guarded fields, blocking under a lock and jit
-  purity over ``src/repro_torch`` find nothing.
+- Static passes: the port's own copy of lock order, guarded fields,
+  blocking under a lock and jit purity over ``src/repro_torch`` finds
+  nothing.
 - Runtime: with the port's lock instrumentation on, one SMALL Wan chain and
   one reduced float32 qwen3 ``llm_disagg`` set served on the CPU observe no
   lock-order cycle, and the port's locks (``ContinuousDecoder._lock`` among
@@ -23,25 +25,24 @@ import numpy as np
 import pytest
 import torch
 
-from repro.analysis import run_all
+from repro_torch.analysis import run_all
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_PKG = ROOT / "src" / "repro_torch"
 REF_PKG = ROOT / "src" / "repro"
-COPIED = sorted(
-    [p.relative_to(PORT_PKG) for d in ("core", "cluster")
-     for p in (PORT_PKG / d).glob("*.py")]
-    + [pathlib.Path("analysis/runtime.py"), pathlib.Path("analysis/ring_checker.py")])
+COPIED = sorted(p.relative_to(PORT_PKG) for d in ("core", "cluster", "analysis")
+                for p in (PORT_PKG / d).glob("*.py"))
 
 torch.set_num_threads(2)
 
 
 def test_the_copied_file_list_is_the_reference_host_layer():
-    """Every module of the reference's core/ and cluster/ has its copy."""
-    ref = sorted(p.relative_to(REF_PKG) for d in ("core", "cluster")
+    """Every module of the reference's core/, cluster/ and analysis/ has its
+    copy, and nothing else is there."""
+    ref = sorted(p.relative_to(REF_PKG) for d in ("core", "cluster", "analysis")
                  for p in (REF_PKG / d).glob("*.py"))
-    assert sorted(p for p in COPIED if p.parts[0] != "analysis") == ref
-    assert len(COPIED) == 20
+    assert COPIED == ref
+    assert len(COPIED) == 28
 
 
 @pytest.mark.parametrize("rel", COPIED, ids=str)

@@ -107,7 +107,7 @@ def test_config_and_param_specs_match_jax():
     hf:Qwen/Qwen3-8B for this config, whose widths are Qwen3-1.7B's, and the
     port cites the model it is."""
     dropped = {"use_pallas", "decode_unroll", "attn_causal_skip",
-               "fsdp_weight_gather", "source"}
+               "source"}
     assert get_config("qwen3-1.7b").source == "hf:Qwen/Qwen3-1.7B"
     for reduce in (False, True):
         j = jax_get_config("qwen3-1.7b")
@@ -508,8 +508,7 @@ def test_chatglm3_config_matches_jax():
     """Field for field, less the JAX-only knobs and the port's
     ``embed_scale`` (the JAX package's name rule); 6,243,454,976 parameters,
     and 1 KiB of bfloat16 cache per token and layer."""
-    dropped = {"use_pallas", "decode_unroll", "attn_causal_skip",
-               "fsdp_weight_gather"}
+    dropped = {"use_pallas", "decode_unroll", "attn_causal_skip"}
     j, p = jax_get_config("chatglm3-6b"), get_config("chatglm3-6b")
     assert {k: v for k, v in vars(p).items() if k != "embed_scale"} == \
         {k: v for k, v in vars(j).items() if k not in dropped}

@@ -41,7 +41,7 @@ torch.set_num_threads(2)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 MAX_LEN = 32
-DROPPED = {"use_pallas", "decode_unroll", "attn_causal_skip", "fsdp_weight_gather"}
+DROPPED = {"use_pallas", "decode_unroll", "attn_causal_skip"}
 
 #: The reduced MoE configs: deepseek-moe-16b keeps 1 dense and 1 MoE layer,
 #: 4 experts, top-2 and 1 shared expert; granite-moe-3b-a800m 2 MoE layers,

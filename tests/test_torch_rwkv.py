@@ -112,7 +112,7 @@ def test_config_and_param_specs_match_jax():
     ``embed_scale`` (the JAX package's name rule); the reduced config is the
     JAX package's (2 layers, d_model 256, 8 heads of 32); specs of the
     weights and of the decode state equal the JAX package's."""
-    dropped = {"use_pallas", "decode_unroll", "attn_causal_skip", "fsdp_weight_gather"}
+    dropped = {"use_pallas", "decode_unroll", "attn_causal_skip"}
     assert "rwkv6-7b" in ARCH_IDS
     for reduce in (False, True):
         j, p = jax_get_config("rwkv6-7b"), get_config("rwkv6-7b")

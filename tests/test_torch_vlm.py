@@ -48,7 +48,7 @@ TOL = dict(atol=2e-5, rtol=2e-5)
 #: quantum moves them (3.9e-4 there).
 INT8_LOGIT_TOL = dict(atol=1e-3, rtol=1e-3)
 MAX_LEN = 32
-DROPPED = {"use_pallas", "decode_unroll", "attn_causal_skip", "fsdp_weight_gather"}
+DROPPED = {"use_pallas", "decode_unroll", "attn_causal_skip"}
 
 VARIANTS = {
     "internvl2": ("internvl2-1b", {}),

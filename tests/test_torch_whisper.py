@@ -40,7 +40,7 @@ torch.set_num_threads(2)
 ARCH = "whisper-large-v3"
 TOL = dict(atol=2e-5, rtol=2e-5)
 MAX_LEN = 32
-DROPPED = {"use_pallas", "decode_unroll", "attn_causal_skip", "fsdp_weight_gather"}
+DROPPED = {"use_pallas", "decode_unroll", "attn_causal_skip"}
 
 
 def configs():

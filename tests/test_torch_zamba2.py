@@ -48,7 +48,7 @@ ARCH = "zamba2-1.2b"
 TOL = dict(atol=2e-5, rtol=2e-5)
 STATE_TOL = dict(atol=1e-4, rtol=1e-4)
 MAX_LEN = 32
-DROPPED = {"use_pallas", "decode_unroll", "attn_causal_skip", "fsdp_weight_gather"}
+DROPPED = {"use_pallas", "decode_unroll", "attn_causal_skip"}
 
 
 def configs():
