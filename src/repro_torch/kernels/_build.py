@@ -142,6 +142,17 @@ def is_fake(t) -> bool:
     return isinstance(t, FakeTensor)
 
 
+def entry(op, impl, t):
+    """What a wrapper calls for a kernel on ``t``: its custom op ``op`` where
+    ``t`` is fake or a dispatch mode is active (the dry-run's fake mode, a
+    flop or collective counter), which must see the op whole; else the op's
+    own body ``impl``, directly, since the op's dispatch costs tens of
+    microseconds of host time a call."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+
+    return op if is_fake(t) or _get_current_dispatch_mode() is not None else impl
+
+
 def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches``; stage threads launch concurrently."""
     with _count_lock:

@@ -21,7 +21,8 @@ nothing else.
 Both kernels' entries are custom ops (``torch.ops.repro.decode_attention``,
 ``decode_attention_int8``), whose implementation is the device switch above;
 a fake tensor (the dry-run's) takes their fake implementation, and a flop
-formula counts their work.  ``decode_attention_lse`` and
+formula counts their work.  A real tensor with no dispatch mode active skips
+the op's dispatch and runs its body (``_build.entry``).  ``decode_attention_lse`` and
 ``decode_attention_int8_lse`` give each row's log-sum-exp beside its output
 (float32 [B,KV,G]; -inf, and an output of zeros, where the row has no
 position at or before its index, which ``cur_index`` < 0 asks for), read
@@ -167,18 +168,16 @@ def _lse_of_partials(ml: Tensor, q: Tensor, cur: Tensor, s: int, elem_bytes: int
     return (mx_safe[:, 0] + torch.log(tot)).view(b, kv, g)
 
 
-@torch.library.custom_op("repro::decode_attention", mutates_args=())
-def _decode_op(q: Tensor, k_cache: Tensor, v_cache: Tensor, cur: Tensor,
-               seq_axis: int) -> Tensor:
+def _decode_impl(q: Tensor, k_cache: Tensor, v_cache: Tensor, cur: Tensor,
+                 seq_axis: int) -> Tensor:
     if q.device.type == "cpu":
         return decode_ref(q, k_cache, v_cache, cur, seq_axis=seq_axis)
     _check_device(q)
     return _launch(q, k_cache, v_cache, cur, seq_axis)[0]
 
 
-@torch.library.custom_op("repro::decode_attention_lse", mutates_args=())
-def _decode_lse_op(q: Tensor, k_cache: Tensor, v_cache: Tensor, cur: Tensor,
-                   seq_axis: int) -> Tuple[Tensor, Tensor]:
+def _decode_lse_impl(q: Tensor, k_cache: Tensor, v_cache: Tensor, cur: Tensor,
+                     seq_axis: int) -> Tuple[Tensor, Tensor]:
     if q.device.type == "cpu":
         return decode_lse_ref(q, k_cache, v_cache, cur, seq_axis=seq_axis)
     _check_device(q)
@@ -186,24 +185,32 @@ def _decode_lse_op(q: Tensor, k_cache: Tensor, v_cache: Tensor, cur: Tensor,
     return out, _lse_of_partials(ml, q, cur, k_cache.shape[seq_axis], k_cache.element_size())
 
 
-@torch.library.custom_op("repro::decode_attention_int8", mutates_args=())
-def _decode_int8_op(q: Tensor, k_q: Tensor, v_q: Tensor, k_scale: Tensor,
-                    v_scale: Tensor, cur: Tensor, seq_axis: int) -> Tensor:
+def _decode_int8_impl(q: Tensor, k_q: Tensor, v_q: Tensor, k_scale: Tensor,
+                      v_scale: Tensor, cur: Tensor, seq_axis: int) -> Tensor:
     if q.device.type == "cpu":
         return decode_int8_ref(q, k_q, v_q, k_scale, v_scale, cur, seq_axis=seq_axis)
     _check_device(q)
     return _launch_int8(q, k_q, v_q, k_scale, v_scale, cur, seq_axis)[0]
 
 
-@torch.library.custom_op("repro::decode_attention_int8_lse", mutates_args=())
-def _decode_int8_lse_op(q: Tensor, k_q: Tensor, v_q: Tensor, k_scale: Tensor,
-                        v_scale: Tensor, cur: Tensor, seq_axis: int
-                        ) -> Tuple[Tensor, Tensor]:
+def _decode_int8_lse_impl(q: Tensor, k_q: Tensor, v_q: Tensor, k_scale: Tensor,
+                          v_scale: Tensor, cur: Tensor, seq_axis: int
+                          ) -> Tuple[Tensor, Tensor]:
     if q.device.type == "cpu":
         return decode_int8_lse_ref(q, k_q, v_q, k_scale, v_scale, cur, seq_axis=seq_axis)
     _check_device(q)
     out, ml = _launch_int8(q, k_q, v_q, k_scale, v_scale, cur, seq_axis)
     return out, _lse_of_partials(ml, q, cur, k_q.shape[seq_axis], 1)
+
+
+_decode_op = torch.library.custom_op("repro::decode_attention", _decode_impl,
+                                     mutates_args=())
+_decode_lse_op = torch.library.custom_op("repro::decode_attention_lse", _decode_lse_impl,
+                                         mutates_args=())
+_decode_int8_op = torch.library.custom_op("repro::decode_attention_int8",
+                                          _decode_int8_impl, mutates_args=())
+_decode_int8_lse_op = torch.library.custom_op("repro::decode_attention_int8_lse",
+                                              _decode_int8_lse_impl, mutates_args=())
 
 
 def _fake_out(q, *args):
@@ -238,8 +245,8 @@ def decode_attention_grouped(q: torch.Tensor, k_cache: torch.Tensor,
     (seq_axis 1), float32 or bfloat16 like q -> [B,KV,G,D] in q's type."""
     if q.device.type == "cuda":
         _build.refuse_grad("decode_attention", q, k_cache, v_cache)
-    return _decode_op(q, k_cache, v_cache, _cur_vector(cur_index, q.shape[0], q.device),
-                      seq_axis)
+    run = _build.entry(_decode_op, _decode_impl, q)
+    return run(q, k_cache, v_cache, _cur_vector(cur_index, q.shape[0], q.device), seq_axis)
 
 
 def decode_attention_grouped_lse(q: torch.Tensor, k_cache: torch.Tensor,
@@ -249,8 +256,8 @@ def decode_attention_grouped_lse(q: torch.Tensor, k_cache: torch.Tensor,
     float32); an index < 0 gives zeros and -inf."""
     if q.device.type == "cuda":
         _build.refuse_grad("decode_attention", q, k_cache, v_cache)
-    return _decode_lse_op(q, k_cache, v_cache,
-                          _cur_vector(cur_index, q.shape[0], q.device), seq_axis)
+    run = _build.entry(_decode_lse_op, _decode_lse_impl, q)
+    return run(q, k_cache, v_cache, _cur_vector(cur_index, q.shape[0], q.device), seq_axis)
 
 
 def decode_attention_int8_grouped(q: torch.Tensor, k_q: torch.Tensor,
@@ -261,8 +268,9 @@ def decode_attention_int8_grouped(q: torch.Tensor, k_q: torch.Tensor,
     scales [B,KV,S] -> [B,KV,G,D] in q's type."""
     if q.device.type == "cuda":
         _build.refuse_grad("decode_attention_int8", q, k_q, v_q, k_scale, v_scale)
-    return _decode_int8_op(q, k_q, v_q, k_scale, v_scale,
-                           _cur_vector(cur_index, q.shape[0], q.device), seq_axis)
+    run = _build.entry(_decode_int8_op, _decode_int8_impl, q)
+    return run(q, k_q, v_q, k_scale, v_scale, _cur_vector(cur_index, q.shape[0], q.device),
+               seq_axis)
 
 
 def decode_attention_int8_grouped_lse(q: torch.Tensor, k_q: torch.Tensor,
@@ -272,8 +280,9 @@ def decode_attention_int8_grouped_lse(q: torch.Tensor, k_q: torch.Tensor,
     """``decode_attention_int8_grouped`` -> (out, each row's log-sum-exp)."""
     if q.device.type == "cuda":
         _build.refuse_grad("decode_attention_int8", q, k_q, v_q, k_scale, v_scale)
-    return _decode_int8_lse_op(q, k_q, v_q, k_scale, v_scale,
-                               _cur_vector(cur_index, q.shape[0], q.device), seq_axis)
+    run = _build.entry(_decode_int8_lse_op, _decode_int8_lse_impl, q)
+    return run(q, k_q, v_q, k_scale, v_scale, _cur_vector(cur_index, q.shape[0], q.device),
+               seq_axis)
 
 
 decode_attention_grouped.launches = 0

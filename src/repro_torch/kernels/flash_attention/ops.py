@@ -18,7 +18,8 @@ ops (``torch.ops.repro.flash_attention``, ``flash_attention_lse``,
 ``flash_attention_backward``), whose implementation is the device switch
 above: a fake tensor (the dry-run's) takes their fake implementation, which
 gives the outputs' shapes and launches nothing, and a flop formula counts
-their work (``torch.utils.flop_counter``).
+their work (``torch.utils.flop_counter``).  A real tensor with no dispatch
+mode active skips the op's dispatch and runs its body (``_build.entry``).
 """
 from __future__ import annotations
 
@@ -136,9 +137,28 @@ def _lse_like(q: Tensor) -> Tensor:
                        device=q.device)
 
 
-@torch.library.custom_op("repro::flash_attention", mutates_args=())
-def _flash_op(q: Tensor, k: Tensor, v: Tensor, causal: bool, scale: float) -> Tensor:
+def _flash_impl(q: Tensor, k: Tensor, v: Tensor, causal: bool, scale: float) -> Tensor:
     return _forward(q, k, v, causal, scale)
+
+
+def _flash_lse_impl(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                    scale: float) -> Tuple[Tensor, Tensor]:
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, sm_scale=scale, return_lse=True)
+    lse = _lse_like(q)
+    return _forward(q, k, v, causal, scale, lse), lse
+
+
+def _flash_bwd_impl(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor, causal: bool,
+                    scale: float, lse: Optional[Tensor]) -> Tuple[Tensor, Tensor, Tensor]:
+    return _backward(q, k, v, o, do, causal, scale, lse)
+
+
+_flash_op = torch.library.custom_op("repro::flash_attention", _flash_impl, mutates_args=())
+_flash_lse_op = torch.library.custom_op("repro::flash_attention_lse", _flash_lse_impl,
+                                        mutates_args=())
+_flash_bwd_op = torch.library.custom_op("repro::flash_attention_backward", _flash_bwd_impl,
+                                        mutates_args=())
 
 
 @_flash_op.register_fake
@@ -146,24 +166,9 @@ def _(q, k, v, causal, scale):
     return torch.empty_like(q)
 
 
-@torch.library.custom_op("repro::flash_attention_lse", mutates_args=())
-def _flash_lse_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
-                  scale: float) -> Tuple[Tensor, Tensor]:
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, sm_scale=scale, return_lse=True)
-    lse = _lse_like(q)
-    return _forward(q, k, v, causal, scale, lse), lse
-
-
 @_flash_lse_op.register_fake
 def _(q, k, v, causal, scale):
     return torch.empty_like(q), _lse_like(q)
-
-
-@torch.library.custom_op("repro::flash_attention_backward", mutates_args=())
-def _flash_bwd_op(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor, causal: bool,
-                  scale: float, lse: Optional[Tensor]) -> Tuple[Tensor, Tensor, Tensor]:
-    return _backward(q, k, v, o, do, causal, scale, lse)
 
 
 @_flash_bwd_op.register_fake
@@ -201,9 +206,9 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, scale):
         lse = None
         if q.device.type == "cuda" and any(ctx.needs_input_grad):
-            o, lse = _flash_lse_op(q, k, v, causal, scale)
+            o, lse = _build.entry(_flash_lse_op, _flash_lse_impl, q)(q, k, v, causal, scale)
         else:
-            o = _flash_op(q, k, v, causal, scale)
+            o = _build.entry(_flash_op, _flash_impl, q)(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale
         return o
@@ -211,8 +216,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        return (*_flash_bwd_op(q, k, v, o, do.contiguous(), ctx.causal, ctx.scale, lse),
-                None, None)
+        run = _build.entry(_flash_bwd_op, _flash_bwd_impl, q)
+        return (*run(q, k, v, o, do.contiguous(), ctx.causal, ctx.scale, lse), None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -237,7 +242,7 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     _build.refuse_grad("flash_attention_with_lse", q, k, v)
     _check(q, k, v, causal)
     scale = float(sm_scale) if sm_scale is not None else q.shape[-1] ** -0.5
-    return _flash_lse_op(q, k, v, causal, scale)
+    return _build.entry(_flash_lse_op, _flash_lse_impl, q)(q, k, v, causal, scale)
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -251,7 +256,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     card (no atomics)."""
     _check(q, k, v, causal)
     scale = float(sm_scale) if sm_scale is not None else q.shape[-1] ** -0.5
-    return _flash_bwd_op(q, k, v, o, do, causal, scale, lse)
+    return _build.entry(_flash_bwd_op, _flash_bwd_impl, q)(q, k, v, o, do, causal, scale, lse)
 
 
 flash_attention.launches = 0

@@ -11,7 +11,9 @@ the backward (``csrc/wkv6_bwd.cu``) as its gradient.
 The forward and the backward are custom ops (``torch.ops.repro.wkv6``,
 ``wkv6_backward``) under the autograd Function: a fake tensor (the
 dry-run's) takes their fake implementation, and a flop formula counts their
-work.  A real CPU tensor keeps the plain loop, which autograd differentiates.
+work.  A real CPU tensor keeps the plain loop, which autograd differentiates,
+and a real tensor with no dispatch mode active skips the ops' dispatch and
+runs their bodies (``_build.entry``).
 """
 from __future__ import annotations
 
@@ -102,24 +104,27 @@ def _backward(r, k, v, w, u, state, dy, dstate_out):
     return dr, dk, dv, dw, du, dstate
 
 
-@torch.library.custom_op("repro::wkv6", mutates_args=())
-def _wkv6_op(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
-             state: Tensor) -> Tuple[Tensor, Tensor]:
+def _wkv6_impl(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
+               state: Tensor) -> Tuple[Tensor, Tensor]:
     if r.device.type == "cpu":
         return wkv6_ref(r, k, v, w, u, state)
     return _forward(r, k, v, w, u, state)
 
 
+def _wkv6_bwd_impl(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor, state: Tensor,
+                   dy: Tensor, dstate_out: Optional[Tensor]
+                   ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    return _backward(r, k, v, w, u, state, dy, dstate_out)
+
+
+_wkv6_op = torch.library.custom_op("repro::wkv6", _wkv6_impl, mutates_args=())
+_wkv6_bwd_op = torch.library.custom_op("repro::wkv6_backward", _wkv6_bwd_impl,
+                                       mutates_args=())
+
+
 @_wkv6_op.register_fake
 def _(r, k, v, w, u, state):
     return torch.empty_like(r), torch.empty_like(state)
-
-
-@torch.library.custom_op("repro::wkv6_backward", mutates_args=())
-def _wkv6_bwd_op(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor, state: Tensor,
-                 dy: Tensor, dstate_out: Optional[Tensor]
-                 ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
-    return _backward(r, k, v, w, u, state, dy, dstate_out)
 
 
 @_wkv6_bwd_op.register_fake
@@ -153,14 +158,14 @@ class _WKV6(torch.autograd.Function):
     def forward(ctx, r, k, v, w, u, state):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(r, k, v, w, u, state)
-        return _wkv6_op(r, k, v, w, u, state)
+        return _build.entry(_wkv6_op, _wkv6_impl, r)(r, k, v, w, u, state)
 
     @staticmethod
     def backward(ctx, dy, dstate_out):
         r, k, v, w, u, state = ctx.saved_tensors
         dy = torch.zeros_like(r) if dy is None else dy.contiguous()
-        grads = _wkv6_bwd_op(r, k, v, w, u, state, dy,
-                             None if dstate_out is None else dstate_out.contiguous())
+        grads = _build.entry(_wkv6_bwd_op, _wkv6_bwd_impl, r)(
+            r, k, v, w, u, state, dy, None if dstate_out is None else dstate_out.contiguous())
         return (*grads[:5], grads[5] if ctx.needs_input_grad[5] else None)
 
 
@@ -185,7 +190,7 @@ def wkv6_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Te
     their inputs' types, dstate in float32.  On the CPU ``wkv6_bwd_ref``.
     Deterministic on the card (no atomics)."""
     _check(r, k, v, w, u, state)
-    return _wkv6_bwd_op(r, k, v, w, u, state, dy, dstate_out)
+    return _build.entry(_wkv6_bwd_op, _wkv6_bwd_impl, r)(r, k, v, w, u, state, dy, dstate_out)
 
 
 wkv6.launches = 0

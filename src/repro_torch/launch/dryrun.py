@@ -15,6 +15,11 @@ import pathlib
 import subprocess
 import sys
 
+#: --all: cases traced at once, each in a process of its own
+JOBS = 4
+#: --all: seconds a case may take before it counts as failed
+CASE_TIMEOUT_S = 600.0
+
 
 def _args(argv=None):
     ap = argparse.ArgumentParser(description="dry-run of the port over a fake mesh")
@@ -25,9 +30,6 @@ def _args(argv=None):
                     help="run every (arch x shape) x {single,multi} case in subprocesses")
     ap.add_argument("--out", default="experiments/dryrun_torch", help="output dir for JSON")
     ap.add_argument("--skip-existing", action="store_true")
-    ap.add_argument("--jobs", type=int, default=1, help="--all: cases run at once")
-    ap.add_argument("--case-timeout", type=float, default=None,
-                    help="--all: seconds a case may take before it counts as failed")
     ap.add_argument("--rules", default=None,
                     help="JSON dict of sharding-rule overrides (perf experiments)")
     ap.add_argument("--tag", default="", help="suffix for the output filename")
@@ -64,7 +66,8 @@ def table(out: pathlib.Path) -> str:
 
 
 def _run_all(args, out: pathlib.Path) -> int:
-    """Every case in its own subprocess, ``--jobs`` at a time."""
+    """Every case in its own subprocess, ``JOBS`` at a time, each stopped
+    after ``CASE_TIMEOUT_S``."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.launch.dryrun_lib import case_list
@@ -83,13 +86,13 @@ def _run_all(args, out: pathlib.Path) -> int:
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
                "--shape", shape, "--out", str(out)] + (["--multi-pod"] if mp else [])
         try:
-            r = subprocess.run(cmd, capture_output=True, text=True, timeout=args.case_timeout)
+            r = subprocess.run(cmd, capture_output=True, text=True, timeout=CASE_TIMEOUT_S)
             return case, r.returncode, r.stdout[-1500:], r.stderr[-3000:]
         except subprocess.TimeoutExpired:
-            return case, "timeout", "", f"timed out after {args.case_timeout} s"
+            return case, "timeout", "", f"timed out after {CASE_TIMEOUT_S} s"
 
     failures = []
-    with ThreadPoolExecutor(max(1, args.jobs)) as pool:
+    with ThreadPoolExecutor(JOBS) as pool:
         for (arch, shape, _, mesh_tag), rc, so, se in pool.map(run, cases):
             print(f"=== {arch} x {shape} x {mesh_tag}: {'ok' if rc == 0 else rc}", flush=True)
             print(so, flush=True)

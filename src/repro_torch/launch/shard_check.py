@@ -2,11 +2,12 @@
 inputs over a mesh, each output held against the same model run unsharded
 on the same weights in the same process.
 
-    python -m repro_torch.launch.shard_check --mesh 2,2 --device cpu
-        # four gloo processes on the CPU, the reduced float32 models
-        # (qwen3 prefill, decode over a cache sharded along its sequence
-        # and one train step; deepseek-moe through the sharded moe_ffn;
-        # rwkv6 through WKV6 under local_map); rank 0 prints one JSON line
+    python -m repro_torch.launch.shard_check
+        # four gloo processes on the CPU (a 2x2 data x model mesh), the
+        # reduced float32 models (qwen3 prefill, decode over a cache sharded
+        # along its sequence and one train step; deepseek-moe through the
+        # sharded moe_ffn, also at its own capacity; rwkv6 through WKV6
+        # under local_map); rank 0 prints one JSON line
 
 Every rank makes the same whole weights from the seed and keeps its shards
 (``Partitioner.distribute_tree``).  The functions here are also what
@@ -34,6 +35,10 @@ from repro_torch.sharding import Partitioner
 
 #: float32 parity, element by element: |a - b| <= RTOL |b| + ATOL
 RTOL = ATOL = 2e-5
+#: the CPU check's mesh: data x model
+MESH = (2, 2)
+#: seconds the CPU check's four processes may take
+TIMEOUT_S = 600.0
 
 
 def _full(x):
@@ -48,6 +53,16 @@ def compare(a: torch.Tensor, b: torch.Tensor) -> Dict[str, Any]:
     return {"max_abs": float(d.max()) if d.numel() else 0.0,
             "limit_use": float((d / (ATOL + RTOL * b.abs())).max()) if d.numel() else 0.0,
             "equal": bool(torch.equal(_full(a), b))}
+
+
+def compare_by_max(a: torch.Tensor, b: torch.Tensor) -> Dict[str, Any]:
+    """a against b by b's largest element, |a - b| <= ATOL + RTOL max |b|:
+    for a result that sums many terms in another order when sharded (a
+    gradient, the d_ff partials), whose elements near zero keep the
+    rounding of its largest."""
+    a, b = _full(a).detach().float(), b.detach().float()
+    d = float((a - b).abs().max())
+    return {"max_abs": d, "limit_use": d / (ATOL + RTOL * float(b.abs().max()))}
 
 
 def _weights(cfg: ModelConfig, seed: int, device):
@@ -161,13 +176,51 @@ def check_gradients(cfg: ModelConfig, mesh, *, batch: int, seq: int, seed: int =
     with use_partitioner(part):
         l2, g2 = grads(trainable(part.distribute_tree(tree, specs)),
                        {k: part.distribute(v, ("batch", "seq")) for k, v in data.items()})
-    uses = []
-    for a, b in zip(g2, g1):
-        if a is None or b is None:
-            continue
-        a, b = _full(a).float(), b.float()
-        uses.append(float((a - b).abs().max() / (ATOL + RTOL * b.abs().max())))
+    uses = [compare_by_max(a, b)["limit_use"] for a, b in zip(g2, g1)
+            if a is not None and b is not None]
     return {"loss": compare(l2, l1), "gradients": {"limit_use": max(uses), "leaves": len(uses)}}
+
+
+def check_moe_capacity(cfg: ModelConfig, mesh, *, batch: int, seq: int, seed: int = 0,
+                       device="cpu") -> Dict[str, Any]:
+    """The sharded ``moe_ffn`` of the first MoE layer at the config's own
+    capacity, where experts overflow.  Sharded, each data shard counts
+    capacity over its own tokens, as the JAX package's ``shard_map`` does;
+    so the output is held against the unsharded dispatch run on each data
+    shard's batch rows in turn (routing is per token), by its largest
+    element (``compare_by_max``: the d_ff partials sum in another order, and
+    the reduced weights give outputs in the thousands; an assignment kept on
+    one side and dropped on the other moves a token's row by as much), and
+    the load-balancing loss against the unsharded one over the whole batch.
+    ``dropped`` counts the assignments the shards drop, which must be some
+    for the check to see the capacity."""
+    from repro_torch.models import moe
+
+    part = Partitioner(mesh, rules_for(cfg, SHAPES["train_4k"]))
+    specs, tree = _weights(cfg, seed, device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    x = torch.randn(batch, seq, cfg.d_model, generator=gen, device=device)
+    x = x.to(getattr(torch, cfg.dtype))
+    tok = part.placements(x.shape, ("batch", None, None))
+    n = 1
+    for dim, p in enumerate(tok):
+        n *= mesh.size(dim) if p.is_shard() else 1
+    lp = to_port_layout(tree)["layers"][0]
+    with torch.no_grad():
+        top_w, top_i, aux = moe._router(x, lp, cfg)
+        rows = batch // n
+        ref = torch.cat([moe._dispatch_compute(x[i:i + rows], top_w[i:i + rows],
+                                               top_i[i:i + rows], lp, cfg)
+                         for i in range(0, batch, rows)])
+        cap = moe._capacity(rows * seq, cfg)
+        dropped = sum(int((torch.bincount(top_i[i:i + rows].reshape(-1),
+                                          minlength=cfg.num_experts) - cap).clamp(min=0).sum())
+                      for i in range(0, batch, rows))
+        with use_partitioner(part):
+            dlp = to_port_layout(part.distribute_tree(tree, specs))["layers"][0]
+            out, daux = moe.moe_ffn(part.distribute(x, ("batch", None, None)), dlp, cfg)
+    return {"out": compare_by_max(out, ref), "aux": compare(daux, aux), "dropped": dropped,
+            "data_shards": n}
 
 
 def reduced(arch: str, **over) -> ModelConfig:
@@ -183,7 +236,9 @@ def cpu_checks(mesh) -> Dict[str, Any]:
     each shard reads the slice its query heads map to), deepseek-moe (the
     sharded ``moe_ffn``, with a capacity that drops nothing: sharded, each
     data shard's capacity counts its own tokens, so a drop would differ by
-    design; prefill, decode, and the loss and gradients, ``check_gradients``)
+    design; prefill, decode, and the loss and gradients, ``check_gradients``;
+    then ``moe_ffn`` alone at the config's own capacity against the
+    unsharded dispatch on each data shard's tokens, ``check_moe_capacity``)
     and rwkv6 (the same)."""
     out = {}
     qwen = reduced("qwen3-1.7b")
@@ -195,6 +250,8 @@ def cpu_checks(mesh) -> Dict[str, Any]:
     moe = dataclasses.replace(moe, capacity_factor=float(moe.num_experts))
     out["deepseek_moe"] = check_inference(moe, mesh, batch=2, prompt=12, max_len=16, steps=2)
     out["deepseek_moe_grad"] = check_gradients(moe, mesh, batch=2, seq=16)
+    out["deepseek_moe_capacity"] = check_moe_capacity(reduced("deepseek-moe-16b"), mesh,
+                                                      batch=4, seq=32)
     rwkv = reduced("rwkv6-7b")
     out["rwkv6"] = check_inference(rwkv, mesh, batch=2, prompt=12, max_len=16, steps=2)
     out["rwkv6_grad"] = check_gradients(rwkv, mesh, batch=2, seq=16)
@@ -206,11 +263,11 @@ def _worker(args) -> int:
     from torch.distributed.device_mesh import init_device_mesh
 
     torch.set_num_threads(1)
-    world = args.mesh[0] * args.mesh[1]
+    world = MESH[0] * MESH[1]
     store = dist.FileStore(args.store, world)
     dist.init_process_group("gloo", store=store, rank=args.rank, world_size=world)
     try:
-        mesh = init_device_mesh("cpu", tuple(args.mesh), mesh_dim_names=("data", "model"))
+        mesh = init_device_mesh("cpu", MESH, mesh_dim_names=("data", "model"))
         out = cpu_checks(mesh)
         if args.rank == 0:
             print(json.dumps(out))
@@ -221,25 +278,21 @@ def _worker(args) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="sharded against unsharded, on the CPU")
-    ap.add_argument("--mesh", default="2,2", help="data,model")
     ap.add_argument("--store", default=None, help="FileStore path (a fresh file)")
     ap.add_argument("--rank", type=int, default=None, help="(internal) this worker's rank")
-    ap.add_argument("--timeout", type=float, default=600.0)
     args = ap.parse_args(argv)
-    args.mesh = [int(x) for x in args.mesh.split(",")]
     if args.rank is not None:
         return _worker(args)
     import tempfile
 
     store = args.store or os.path.join(tempfile.mkdtemp(), "store")
-    world = args.mesh[0] * args.mesh[1]
-    cmd = [sys.executable, "-m", "repro_torch.launch.shard_check", "--mesh",
-           ",".join(map(str, args.mesh)), "--store", store]
+    world = MESH[0] * MESH[1]
+    cmd = [sys.executable, "-m", "repro_torch.launch.shard_check", "--store", store]
     procs = [subprocess.Popen(cmd + ["--rank", str(r)], stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True) for r in range(world)]
     rc = 0
     try:
-        outs = [p.communicate(timeout=args.timeout) for p in procs]
+        outs = [p.communicate(timeout=TIMEOUT_S) for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:

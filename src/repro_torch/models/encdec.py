@@ -245,7 +245,7 @@ def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
                          f"d_model] = {(b, cfg.frontend_tokens, cfg.d_model)}")
     enc = encode(params, frames.to(device=tokens.device, dtype=getattr(torch, cfg.dtype)),
                  cfg)
-    cache = zeros(abstract_cache(cfg, b, max_len), tokens.device)
+    cache = zeros(abstract_cache(cfg, b, max_len), tokens.device, params["embedding"])
     x = _embed_tokens(params, tokens, cfg, torch.arange(s, device=tokens.device))
     x = _decoder_stack(params, x, enc, cfg, cache, None)
     return _logits(params, x[:, -1]), cache
@@ -290,7 +290,8 @@ def make_decode_cache(params: Tree, frames: torch.Tensor, cfg: ModelConfig,
     K/V of ``max_len`` positions and each layer's cross K/V from the
     encoder, computed one layer at a time in the model's type."""
     enc = encode(params, frames, cfg)
-    cache = zeros(abstract_cache(cfg, frames.shape[0], max_len), frames.device)
+    cache = zeros(abstract_cache(cfg, frames.shape[0], max_len), frames.device,
+                  params["embedding"])
     _, _, xk, xv = cache["decoder"]
     for i, lp in enumerate(params["decoder"]):
         kx, vx = _cross_kv(enc, lp)

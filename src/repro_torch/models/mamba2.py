@@ -287,7 +287,7 @@ def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
     max_len = s if max_len is None else max_len
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
-    cache = zeros(abstract_cache(cfg, b, max_len), tokens.device)
+    cache = zeros(abstract_cache(cfg, b, max_len), tokens.device, params["embedding"])
     x = _stack(params, L.embed(params["embedding"], tokens), cfg, cache, None)
     return (x[:, -1] @ params["unembed"]).float(), cache
 

@@ -16,7 +16,6 @@ and ``moe_ffn`` ask ``current_partitioner`` whether to run under
 from __future__ import annotations
 
 import contextlib
-import contextvars
 import math
 from typing import Any, NamedTuple, Optional, Tuple
 
@@ -112,11 +111,12 @@ def materialize(spec: ParamSpec, generator: torch.Generator,
     return out
 
 
-def zeros(spec_tree, device):
-    """A tree of zero tensors for a ParamSpec tree (a decode cache); under a
-    partitioner, DTensors laid out by each leaf's logical axes."""
+def zeros(spec_tree, device, like=None):
+    """A tree of zero tensors for a ParamSpec tree (a decode cache); where
+    ``like`` (a weight or activation of the model that asks) is a DTensor
+    under a partitioner, DTensors laid out by each leaf's logical axes."""
     part = current_partitioner()
-    if part is not None:
+    if part is not None and is_dtensor(like):
         return tree_map(part.zeros, spec_tree)
     return tree_map(lambda s: torch.zeros(s.shape, dtype=getattr(torch, s.dtype),
                                           device=device), spec_tree)
@@ -135,21 +135,22 @@ def init_tree(spec_tree, generator: torch.Generator, device) -> dict:
 
 
 # --- ambient partitioner: models call constrain() without threading a mesh ---
-_AMBIENT: contextvars.ContextVar = contextvars.ContextVar("partitioner", default=None)
-#: the partitioners in use, innermost last: the autograd engine runs a CUDA
+#: The partitioner in use, process-wide: the autograd engine runs a CUDA
 #: backward (and the recompute of a checkpointed layer) on threads of its
-#: own, which the context variable does not reach
-_ACTIVE: list = []
+#: own, which a context variable would not reach.  Every thread sees it, so
+#: it only acts on DTensors: a thread that runs on plain tensors meanwhile
+#: runs unsharded.
+_CURRENT = None
 
 
 @contextlib.contextmanager
 def use_partitioner(p):
-    """Make ``p`` the ambient partitioner.  With one, a plain tensor that
-    meets a DTensor in an op (a position index, an iota, a mask made on the
-    spot) is taken as replicated (DTensor's ``implicit_replication``)."""
-    tok = _AMBIENT.set(p)
-    if p is not None:
-        _ACTIVE.append(p)
+    """Make ``p`` (or, for None, no partitioner) the ambient one until the
+    block ends.  With one, a plain tensor that meets a DTensor in an op (a
+    position index, an iota, a mask made on the spot) is taken as
+    replicated (DTensor's ``implicit_replication``)."""
+    global _CURRENT
+    prev, _CURRENT = _CURRENT, p
     try:
         if p is None:
             yield p
@@ -159,16 +160,12 @@ def use_partitioner(p):
             with implicit_replication():
                 yield p
     finally:
-        _AMBIENT.reset(tok)
-        if p is not None:
-            _ACTIVE.remove(p)
+        _CURRENT = prev
 
 
 def current_partitioner():
-    """The ambient partitioner; on a thread the context does not reach (the
-    autograd engine's), the one in use.  Only DTensors act on it."""
-    p = _AMBIENT.get()
-    return p if p is not None or not _ACTIVE else _ACTIVE[-1]
+    """The ambient partitioner, or None.  Only DTensors act on it."""
+    return _CURRENT
 
 
 def is_dtensor(x) -> bool:

@@ -241,7 +241,7 @@ def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
     b, s = tokens.shape
     if max_len is not None and s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
-    cache = zeros(abstract_cache(cfg, b, s), tokens.device)
+    cache = zeros(abstract_cache(cfg, b, s), tokens.device, params["embedding"])
     x = _stack(params, L.embed(params["embedding"], tokens), cfg, cache, True)
     return (x[:, -1] @ params["unembed"]).float(), cache
 
@@ -259,9 +259,9 @@ def loss_fn(params: Tree, batch: Tree, cfg: ModelConfig, **_):
     x = constrain(L.embed(params["embedding"], tokens), "batch", "seq_res", "act_embed")
     k = cfg.resolved_head_dim
     dt = str(x.dtype).removeprefix("torch.")
-    x_prev = zeros(ParamSpec((b, cfg.d_model), ("batch", "act_embed"), dt, "zeros"), x.device)
+    x_prev = zeros(ParamSpec((b, cfg.d_model), ("batch", "act_embed"), dt, "zeros"), x.device, x)
     state = zeros(ParamSpec((b, cfg.num_heads, k, k), ("batch", "ssm_heads", None, None),
-                            "float32", "zeros"), x.device)
+                            "float32", "zeros"), x.device, x)
     for lp in params["layers"]:
         x = checkpoint(_train_layer, x, lp, cfg, x_prev, state, use_reentrant=False)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)

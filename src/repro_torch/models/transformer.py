@@ -403,7 +403,7 @@ def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig, *,
     max_len = s if max_len is None else max_len
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
-    cache = zeros(abstract_cache(cfg, b, max_len), tokens.device)
+    cache = zeros(abstract_cache(cfg, b, max_len), tokens.device, params["embedding"])
     x = _embed(params, tokens, cfg, patch_embeds)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     x, _ = _stack(params, x, cfg, cache, positions, None, dropless)

@@ -19,7 +19,10 @@ partition rules and against the port's own unsharded path.
   sharded ``moe_ffn``) and rwkv6, each held against the unsharded port at
   float32 2e-5 element by element (gradients by each leaf's largest
   element).  qwen3's decode at 14 and 15 leaves the sequence's second shard
-  without a valid position.
+  without a valid position.  deepseek-moe's ``moe_ffn`` also runs at the
+  config's own capacity, where each data shard drops its own overflow.
+- ``use_partitioner(None)`` turns sharding off inside a partitioner's
+  block, and ``zeros`` makes DTensors only for a caller that runs on them.
 
 A process group made here is destroyed by its fixture: xdist's
 ``--dist loadfile`` runs other files in the same worker process.
@@ -199,13 +202,39 @@ def test_sharded_path_on_one_device_equals_the_unsharded_bit_for_bit(arch, one_d
         assert all(r["equal"] for r in rows), (name, res)
 
 
+def test_use_partitioner_none_clears_it_and_zeros_follow_the_caller(one_device_mesh):
+    """``use_partitioner(None)`` inside a partitioner's block turns sharding
+    off until its own block ends; ``zeros`` gives DTensors only where the
+    tensor it is handed is one, so an unsharded caller gets plain tensors
+    while a partitioner is in use."""
+    from repro_torch.launch.dryrun_lib import rules_for
+    from repro_torch.models.param import (
+        ParamSpec, current_partitioner, is_dtensor, use_partitioner, zeros)
+
+    cfg = get_config("qwen3-1.7b")
+    part = Partitioner(one_device_mesh, rules_for(cfg, SHAPES["train_4k"]))
+    spec = {"k": ParamSpec((2, 4), ("batch", None), "float32", "zeros")}
+    like = part.distribute(torch.ones(2, 4), ("batch", None))
+    assert current_partitioner() is None
+    with use_partitioner(part):
+        assert current_partitioner() is part
+        assert is_dtensor(zeros(spec, "cpu", like)["k"])
+        assert not is_dtensor(zeros(spec, "cpu", torch.ones(2))["k"])
+        assert not is_dtensor(zeros(spec, "cpu")["k"])
+        with use_partitioner(None):
+            assert current_partitioner() is None
+            assert not is_dtensor(zeros(spec, "cpu", like)["k"])
+        assert current_partitioner() is part
+    assert current_partitioner() is None
+
+
 # --------------------------------------------------------------- 2x2 mesh
 @pytest.fixture(scope="module")
 def two_by_two(tmp_path_factory):
     store = tmp_path_factory.mktemp("shard_check") / "store"
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.shard_check",
-                           "--mesh", "2,2", "--store", str(store)], cwd=ROOT, env=env,
+                           "--store", str(store)], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -237,6 +266,16 @@ def test_qwen3_train_step_on_a_2x2_mesh(two_by_two, name):
 def test_deepseek_moe_sharded_moe_ffn_on_a_2x2_mesh(two_by_two):
     for res in two_by_two["deepseek_moe"].values():
         _held(res)
+
+
+def test_deepseek_moe_capacity_drops_per_data_shard_on_a_2x2_mesh(two_by_two):
+    """At the config's own capacity some assignments overflow; each data
+    shard drops its own, as the unsharded dispatch on that shard's tokens
+    does (``shard_check.check_moe_capacity``)."""
+    got = two_by_two["deepseek_moe_capacity"]
+    assert got["data_shards"] == 2 and got["dropped"] > 0, got
+    _held(got["out"])
+    _held(got["aux"])
 
 
 def test_rwkv6_wkv6_under_local_map_on_a_2x2_mesh(two_by_two):
