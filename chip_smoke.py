@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only wkv6_bwd  # set-up and the WKV6 backward's build and cases
     python3 chip_smoke.py --only train     # set-up and the training phase alone
     python3 chip_smoke.py --only sharding  # set-up and the sharding phase alone
+    python3 chip_smoke.py --only ssd       # set-up and zamba2's SSD scan alone
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -60,7 +61,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    (S 1500 at index 1499) and self cache (S 448) and zamba2's served cache
    in flash-decode.  Every flash-decode call held against its plain
    version runs with its partials filled with NaN first, so that a combine
-   that read them before the split wrote them would fail.
+   that read them before the split wrote them would fail.  Last zamba2-1.2b's
+   SSD scan (``--only ssd``; plain PyTorch, as the JAX package's is plain
+   jnp): its chunked form against the step loop it replaced, at the served
+   prefill's shape and with gradients at the training run's (`ssd_phase`),
+   each timed beside the loop.
 3. The port on small inputs, card against CPU on the same weights: the SMALL
    Wan pipeline's latents and frames (same noise), and the reduced float32
    qwen3, chatglm3 (groups of 16), gemma3 (8 layers, window 16, rings
@@ -167,8 +172,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    whisper's encoder self-attention (bfloat16, 1500 frames).
 6. Sharding (``--only sharding`` runs set-up and this phase alone): the
    production dry-run of qwen3-1.7b at ``train_4k``, ``prefill_32k`` and
-   ``decode_32k``, deepseek-moe-16b at ``train_4k`` and rwkv6-7b at
-   ``long_500k`` on a 16x16 mesh, each in a subprocess on the CPU (fake
+   ``decode_32k``, deepseek-moe-16b at ``train_4k``, rwkv6-7b at
+   ``long_500k`` and zamba2-1.2b at ``prefill_32k`` (the chunked SSD scan
+   over 32,768 positions) on a 16x16 mesh, each in a subprocess on the CPU (fake
    tensors over a fake process group; it exits 0 and launches nothing), and
    on the card's 1x1 mesh (NCCL, world size 1) with DTensor weights, cache
    and inputs: qwen3-1.7b at full width and depth (prefill of 4 prompts of
@@ -395,9 +401,9 @@ def main(argv) -> int:
 
     only = argv[1] if len(argv) == 2 and argv[0] == "--only" else None
     if argv and only not in ("decode", "wkv6", "wkv6_bwd", "train", "bf16_numerics",
-                             "sharding"):
+                             "sharding", "ssd"):
         print("usage: chip_smoke.py [--only decode|wkv6|wkv6_bwd|train|bf16_numerics|"
-              "sharding]",
+              "sharding|ssd]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -471,6 +477,9 @@ def main(argv) -> int:
         return 0
     if only == "sharding":
         print(json.dumps({"sharding": sharding_phase(torch)}, default=str))
+        return 0
+    if only == "ssd":
+        print(json.dumps({"ssd": ssd_phase(torch, dev)}))
         return 0
     if only == "bf16_numerics":
         print(json.dumps({"bf16_numerics": bf16_numerics(torch, F, dev, randn, lib_path)},
@@ -558,6 +567,7 @@ def main(argv) -> int:
     flash_bf16_rows = flash_bf16_phase(torch, F, dev, randn)
     wkv_hmma = wkv6_build_report(lib_path)
     wkv_rows = wkv6_kernel_phase(torch, dev, randn)
+    ssd_rows = ssd_phase(torch, dev)
 
     # --------------------------------------------- 3. small input, card vs CPU
     small = WanI2VPipeline(cfg=SMALL, seed=0, device="cpu")
@@ -827,6 +837,7 @@ def main(argv) -> int:
     print(f"total {time.perf_counter() - t_start:.1f}s on {card}")
     print(json.dumps({"sharding": {"sharded_launches": sharded, "dryrun": shard["dryrun"]}},
                      default=str))
+    print(json.dumps({"ssd": ssd_rows}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1368,8 +1379,8 @@ def llm_small_phase(torch, np, dev) -> None:
 #: gemma3-27b's 1500- and 1200-token prompts wrap its 1024-slot rings in the
 #: prefill, its 1010- and 1020-token ones during the 32 decode steps; it has
 #: no int8 cache.  internvl2-1b serves text only, as the JAX engine does.
-#: zamba2-1.2b's prompts of 64-256 tokens run its plain SSD loop, 38 x P
-#: steps a prefill; it has no int8 cache.
+#: zamba2-1.2b's prompts of 64-256 tokens run its chunked SSD scan, 38 x
+#: ceil(P / 64) chunk steps a prefill; it has no int8 cache.
 LLM_SERVED = {
     "qwen3-1.7b": (1024, [("bf16 cache", "", [64, 512, 128, 256, 384, 96, 200, 448]),
                           ("int8 cache", "int8", [64, 512, 160, 320])]),
@@ -3747,11 +3758,125 @@ def _to(torch, tree, dev):
 
 
 
+#: zamba2-1.2b's SSD scan: (label, B, T, with gradients).  The served
+#: prefill's shape (one prompt of 256 tokens: the coalescer's rows run one
+#: at a time) and the training run's (B 4, S 256); H 64, P 64, N 64.
+SSD_CASES = [("served_1x256", 1, 256, False), ("train_4x256", 4, 256, True)]
+SSD_HEADS, SSD_HEAD_DIM, SSD_STATE = 64, 64, 64
+#: y elementwise at the float32 limit |a - b| <= 2e-5 |b| + 2e-5, the state
+#: at 1e-4 (the CPU tests' limits); a gradient leaf within 2e-5 of its
+#: largest element: its elements sum 64-4096 terms, and no float32 order
+#: meets the elementwise limit from float64 there (the step loop's dt, log
+#: a, B and C gradients read 0.8-1.6 of it on the CPU at these shapes)
+SSD_TOL, SSD_STATE_TOL = 2e-5, 1e-4
+
+
+def ssd_step_loop(torch, x, dt, la, B, C, state):
+    """The recurrence as the port ran it before the chunked form: one
+    ``mamba2.ssd_step`` a position, the decays exp(la)."""
+    from repro_torch.models import mamba2
+
+    a, ys = torch.exp(la), []
+    for t in range(x.shape[1]):
+        y, state = mamba2.ssd_step(x[:, t], dt[:, t], a[:, t], B[:, t], C[:, t], state)
+        ys.append(y)
+    return torch.stack(ys, dim=1), state
+
+
+def ssd_phase(torch, dev) -> list:
+    """zamba2-1.2b's SSD scan in the chunked form (``mamba2.ssd_scan_log``,
+    plain PyTorch in float32, TF32 off) against the step loop it replaced
+    (`ssd_step_loop`) on the card, at `SSD_CASES`: y and the end state, and
+    at the training shape the gradients of x, dt, the log-decays, B, C and
+    the start state (each form differentiated by autograd); both forms'
+    distance from the chunked form in float64 is printed beside.  Inputs as
+    ``tests/test_torch_zamba2.py`` draws them: dt softplus of N(0, 1), the
+    log-decay -dt exp(0.5 N(0, 1)) a head.  Times: the median of 5 calls
+    between CUDA events (forward, or forward and backward)."""
+    from repro_torch.models import mamba2
+
+    rows = []
+    for label, b, t, grad in SSD_CASES:
+        h, p, n = SSD_HEADS, SSD_HEAD_DIM, SSD_STATE
+        gen = torch.Generator(device=dev).manual_seed(3)
+
+        def r(*shape):
+            return torch.randn(shape, generator=gen, device=dev, dtype=torch.float64)
+
+        dt = torch.nn.functional.softplus(r(b, t, h))
+        args64 = [r(b, t, h, p), dt, -dt * torch.exp(0.5 * r(h)), r(b, t, n), r(b, t, n),
+                  0.5 * r(b, h, p, n)]
+        gy, gs = r(b, t, h, p), r(b, h, p, n)
+        args = [v.float() for v in args64]
+
+        def run(fn, xs, backward):
+            leaves = [v.clone().requires_grad_(backward) for v in xs]
+            y, s = fn(*leaves)
+            if backward:
+                ((y * gy.to(y.dtype)).sum() + (s * gs.to(s.dtype)).sum()).backward()
+            return y.detach(), s.detach(), [v.grad for v in leaves]
+
+        def loop(*xs):
+            return ssd_step_loop(torch, *xs)
+
+        chunked, plain = (run(fn, args, grad) for fn in (mamba2.ssd_scan_log, loop))
+        exact = run(mamba2.ssd_scan_log, args64, grad)
+        torch.cuda.synchronize()
+
+        def elem(a, ref, tol):
+            return float(((a.double() - ref.double()).abs()
+                          / (tol + tol * ref.double().abs())).max())
+
+        def by_max(a, ref, tol):
+            return float((a.double() - ref.double()).abs().max()
+                         / (tol + tol * ref.double().abs().max()))
+
+        row = dict(shape=label, b=b, t=t, h=h, p=p, n=n, gradients=grad,
+                   y_limit_use=elem(chunked[0], plain[0], SSD_TOL),
+                   state_limit_use=elem(chunked[1], plain[1], SSD_STATE_TOL),
+                   y_from_f64=[elem(f[0], exact[0], SSD_TOL) for f in (chunked, plain)],
+                   finite=all(bool(torch.isfinite(v).all()) for v in chunked[:2]))
+        if grad:
+            names = ("x", "dt", "log_a", "B", "C", "state")
+            row["grad_leaf_use"] = {k: by_max(a, b_, SSD_TOL)
+                                    for k, a, b_ in zip(names, chunked[2], plain[2])}
+            row["grad_elementwise_from_f64"] = {
+                k: [elem(f[2][i], exact[2][i], SSD_TOL) for f in (chunked, plain)]
+                for i, k in enumerate(names)}
+            row["finite"] = row["finite"] and all(bool(torch.isfinite(g).all())
+                                                  for g in chunked[2])
+        ms = {}
+        for name, fn in (("chunked", mamba2.ssd_scan_log), ("loop", loop)):
+            ms[name] = statistics.median(cuda_times(torch, lambda: run(fn, args, grad), 5))
+        row.update(ms=ms["chunked"], loop_ms=ms["loop"])
+        rows.append(row)
+        extra = ""
+        if grad:
+            extra = ("; gradients, of each leaf's largest element: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in row["grad_leaf_use"].items())
+                + "; elementwise from float64 (chunked, loop): " + ", ".join(
+                f"{k} {a:.2f}/{b_:.2f}" for k, (a, b_) in row["grad_elementwise_from_f64"].items()))
+        print(f"ssd {label} [B {b}, T {t}, H {h}, P {p}, N {n}] chunked against the step "
+              f"loop: y {row['y_limit_use']:.4f} of the f32 limit, state "
+              f"{row['state_limit_use']:.4f} of 1e-4; y from float64 (chunked, loop) "
+              f"{row['y_from_f64'][0]:.3f}/{row['y_from_f64'][1]:.3f}{extra}; "
+              f"{'forward and backward' if grad else 'forward'} ms chunked={ms['chunked']:.3f} "
+              f"loop={ms['loop']:.3f} ({ms['loop'] / ms['chunked']:.1f}x)")
+        check(row["finite"], f"ssd {label}: the chunked form gave a value not finite")
+        check(row["y_limit_use"] <= 1.0 and row["state_limit_use"] <= 1.0,
+              f"ssd {label}: the chunked form differs from the step loop: {row}")
+        if grad:
+            check(max(row["grad_leaf_use"].values()) <= 1.0,
+                  f"ssd {label}: a gradient of the chunked form differs from the step "
+                  f"loop's: {row['grad_leaf_use']}")
+    return rows
+
+
 #: The production dry-run cases of the sharding phase, each traced at 16x16
 #: in a subprocess on the CPU (the card hidden): (arch, shape).
 DRYRUN_CASES = [("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "prefill_32k"),
                 ("qwen3-1.7b", "decode_32k"), ("deepseek-moe-16b", "train_4k"),
-                ("rwkv6-7b", "long_500k")]
+                ("rwkv6-7b", "long_500k"), ("zamba2-1.2b", "prefill_32k")]
 #: The sharded checks on the card's 1x1 mesh: name -> (arch, layers or None
 #: for the full depth, check, its arguments).  deepseek-moe-16b runs its
 #: capacity branch (``moe_ffn``), sharded through ``local_map``.
@@ -3767,7 +3892,7 @@ SHARDED_CHECKS = [
 
 
 def sharding_phase(torch) -> dict:
-    """The sharding phase (``--only sharding``): (b) the five production
+    """The sharding phase (``--only sharding``): (b) the six production
     dry-run cases, started first, each in a subprocess on the CPU with the
     card hidden (fake tensors over a fake process group of 256); (a) on the
     card's 1x1 mesh (NCCL, world size 1) each model of `SHARDED_CHECKS` with

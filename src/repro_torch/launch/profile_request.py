@@ -15,8 +15,8 @@ default, or any other arch of ``configs.ARCH_IDS``) at full width in
 bfloat16 and the depth served on one card (``launch.serve.llm_config``),
 after one warm-up request; each run prints the MB of KV pages (or
 recurrent state) it shipped.  For zamba2 it first prints one prefill's wall
-time and the share of it in the plain SSD loop (``mamba2.ssd_scan``, each
-call timed between device syncs).
+time and the share of it in the SSD recurrence (``mamba2._ssd``, the
+chunked scan, each call timed between device syncs).
 
 Prints the request's wall time, the device time by kernel (top rows of
 ``key_averages``), the kernels' summed device time against the wall time
@@ -87,8 +87,8 @@ def llm_request(arch: str, cache_dtype: str, max_len: int):
 
 def ssd_share(engine, prompt_len: int = 256) -> None:
     """One prefill of ``prompt_len`` tokens: its wall time alone, then again
-    with every ``mamba2.ssd_scan`` call timed between device syncs, and the
-    loop's share of that prefill."""
+    with every call of the SSD recurrence (``mamba2._ssd``) timed between
+    device syncs, and their share of that prefill."""
     from repro_torch.models import mamba2
 
     prompts = np.random.default_rng(1).integers(
@@ -103,23 +103,23 @@ def ssd_share(engine, prompt_len: int = 256) -> None:
 
     prefill_s()
     alone = prefill_s()
-    inner, spent = mamba2.ssd_scan, []
+    inner, spent = mamba2._ssd, []
 
-    def timed(*args):
+    def timed(*args, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = inner(*args)
+        out = inner(*args, **kw)
         torch.cuda.synchronize()
         spent.append(time.perf_counter() - t0)
         return out
 
-    mamba2.ssd_scan = timed
+    mamba2._ssd = timed
     try:
         wall = prefill_s()
     finally:
-        mamba2.ssd_scan = inner
+        mamba2._ssd = inner
     print(f"prefill of {prompt_len} tokens: {alone * 1e3:.1f} ms wall; with the SSD "
-          f"loop timed {wall * 1e3:.1f} ms, of which ssd_scan {sum(spent) * 1e3:.1f} ms "
+          f"scan timed {wall * 1e3:.1f} ms, of which mamba2._ssd {sum(spent) * 1e3:.1f} ms "
           f"in {len(spent)} calls ({100 * sum(spent) / wall:.1f} %)")
 
 

@@ -7,7 +7,8 @@ on the same weights in the same process.
         # reduced float32 models (qwen3 prefill, decode over a cache sharded
         # along its sequence and one train step; deepseek-moe through the
         # sharded moe_ffn, also at its own capacity; rwkv6 through WKV6
-        # under local_map); rank 0 prints one JSON line
+        # under local_map; zamba2 through the SSD scan under local_map);
+        # rank 0 prints one JSON line
 
 Every rank makes the same whole weights from the seed and keeps its shards
 (``Partitioner.distribute_tree``).  The functions here are also what
@@ -239,7 +240,8 @@ def cpu_checks(mesh) -> Dict[str, Any]:
     design; prefill, decode, and the loss and gradients, ``check_gradients``;
     then ``moe_ffn`` alone at the config's own capacity against the
     unsharded dispatch on each data shard's tokens, ``check_moe_capacity``)
-    and rwkv6 (the same)."""
+    rwkv6 (the same, through WKV6) and zamba2 (the same, through the SSD
+    scan and its in- and out-projections on local shards)."""
     out = {}
     qwen = reduced("qwen3-1.7b")
     out["qwen3"] = check_inference(qwen, mesh, batch=2, prompt=14, max_len=32, steps=4)
@@ -255,6 +257,9 @@ def cpu_checks(mesh) -> Dict[str, Any]:
     rwkv = reduced("rwkv6-7b")
     out["rwkv6"] = check_inference(rwkv, mesh, batch=2, prompt=12, max_len=16, steps=2)
     out["rwkv6_grad"] = check_gradients(rwkv, mesh, batch=2, seq=16)
+    zamba = reduced("zamba2-1.2b")
+    out["zamba2"] = check_inference(zamba, mesh, batch=2, prompt=12, max_len=16, steps=2)
+    out["zamba2_grad"] = check_gradients(zamba, mesh, batch=2, seq=16)
     return out
 
 

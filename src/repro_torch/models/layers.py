@@ -25,6 +25,9 @@ cannot find alone.
 """
 from __future__ import annotations
 
+from functools import partial
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -84,7 +87,7 @@ def row_blocks_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` over blocks of exactly ``ROW_BLOCK`` rows of x [..., D],
     zero-padded; sharded, over each rank's rows."""
     if shard_local.sharded(x):
-        return shard_local.rowwise(_row_blocks_matmul, x, w)
+        return shard_local.rows(_row_blocks_matmul, (x,), (w,))
     return _row_blocks_matmul(x, w)
 
 
@@ -103,7 +106,7 @@ def per_row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     sequence row by row, so that every product has the same shape at any
     batch size; sharded, over each rank's rows."""
     if shard_local.sharded(x):
-        return shard_local.rowwise(_per_row_matmul, x, w)
+        return shard_local.rows(_per_row_matmul, (x,), (w,))
     return _per_row_matmul(x, w)
 
 
@@ -216,15 +219,18 @@ def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel; causal needs Sq == Sk.  With a window, key t is seen from query
     s where s - window < t (and t <= s if causal), in plain PyTorch."""
     if window:
-        return _masked_attention(q, k, v, 0, 0, causal, window)
-    return _flash(q, k, v, causal)
+        return _on_shards(partial(_masked_attention, q0=0, k0=0, window=window), q, k, v,
+                          causal)
+    return _on_shards(flash_attention, q, k, v, causal)
 
 
-def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
-    """The flash kernel, on each rank's shards when q is sharded."""
+def _on_shards(attend: Callable, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool) -> torch.Tensor:
+    """``attend(q, k, v, causal=)`` (the flash kernel, or a windowed plain
+    attention), on each rank's shards when q is sharded."""
     if shard_local.sharded(q):
-        return shard_local.flash_attention(flash_attention, q, k, v, causal)
-    return flash_attention(q, k, v, causal=causal)
+        return shard_local.attention(attend, q, k, v, causal)
+    return attend(q, k, v, causal=causal)
 
 
 def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -237,7 +243,12 @@ def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``window + q_block`` keys ending at its last query, so a local layer
     costs O(S * window), in plain PyTorch."""
     if not window:
-        return _flash(q, k, v, causal)
+        return _on_shards(flash_attention, q, k, v, causal)
+    return _on_shards(partial(_windowed_blocks, window=window, q_block=q_block), q, k, v,
+                      True)
+
+
+def _windowed_blocks(q, k, v, causal: bool, window: int, q_block: int) -> torch.Tensor:
     s = q.shape[1]
     q_block = min(q_block, s)
     while s % q_block:
@@ -247,7 +258,7 @@ def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for qs in range(0, s, q_block):
         start = min(max(qs + q_block - span, 0), s - span)
         out.append(_masked_attention(q[:, qs:qs + q_block], k[:, start:start + span],
-                                     v[:, start:start + span], qs, start, True,
+                                     v[:, start:start + span], qs, start, causal,
                                      window))
     return torch.cat(out, dim=1)
 

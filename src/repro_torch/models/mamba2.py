@@ -30,14 +30,19 @@ with no cache, each Mamba2 layer and each place of the shared block under
 block's attention differentiates through the flash backward kernel.
 
 Everything here but the shared block's attention is plain PyTorch, as it is
-plain jnp in the JAX package (which has no kernel for ``ssd_scan``): the
-prefill's recurrence runs step by step in float32, in the JAX scan's
-order.  The shared block's prefill runs through the causal flash kernel,
-its decode through flash-decode, with ``cur_index`` an int or a [B] vector.
-A decode step's arithmetic per row does not depend on the batch: its
-reductions (the RMS norms, the conv over 4 taps, the SSD read over the
-state) run over at least ``layers.MIN_REDUCE_ROWS`` rows as elementwise
-products and sums, never as a batched matrix product.
+plain jnp in the JAX package (which has no kernel for ``ssd_scan``): a
+sequence's recurrence (prefill and training) runs in float32 in the chunked
+matrix form (``ssd_scan_log``: chunks of ``SSD_CHUNK`` positions, the state
+carried from chunk to chunk), a decode step's is ``ssd_step``.  The shared
+block's prefill runs through the causal flash kernel, its decode through
+flash-decode, with ``cur_index`` an int or a [B] vector.  A row's
+arithmetic does not depend on the batch: a prefill's recurrence runs row by
+row (``_ssd_rows``), and a decode step's reductions (the RMS norms, the conv
+over 4 taps, the SSD read over the state) run over at least
+``layers.MIN_REDUCE_ROWS`` rows as elementwise products and sums, never as
+a batched matrix product.  Under a partitioner the in-projection
+(column-parallel), the out-projection (row-parallel over the heads) and the
+recurrence (heads over ``model``) run on each rank's shards.
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
 from repro_torch.models.param import ParamSpec, constrain, tree_map, zeros
+from repro_torch.sharding import local as shard_local
 
 Tree = Dict[str, Any]
 CONV_WIDTH = 4
@@ -92,16 +98,69 @@ def ssd_step(x, dt, a, B, C, state):
     return y, state
 
 
-def ssd_scan(x, dt, a, B, C, state):
+#: positions a chunk of ``ssd_scan``: the loop over chunks takes T/64 turns
+#: (512 at 32,768 positions), the decay matrix of a chunk holds 64 x 64
+#: entries a head, and the intra-chunk product's 2 Q H P flops a position
+#: match the state read's 2 H P N at zamba2's N of 64; a served prompt of
+#: 64-256 tokens is 1-4 chunks.
+SSD_CHUNK = 64
+
+
+def ssd_scan(x, dt, a, B, C, state, chunk: int = SSD_CHUNK):
     """x: [B,T,H,P]; dt/a: [B,T,H]; B/C: [B,T,N]; state: [B,H,P,N].
-    Returns (y [B,T,H,P], final state): ``ssd_step`` over t = 0..T-1, the
-    order of the JAX package's scan (which chunks only so that its backward
-    can checkpoint)."""
-    ys = []
-    for t in range(x.shape[1]):
-        y, state = ssd_step(x[:, t], dt[:, t], a[:, t], B[:, t], C[:, t], state)
-        ys.append(y)
-    return torch.stack(ys, dim=1), state
+    Returns (y [B,T,H,P], final state): ``ssd_scan_log`` of log a.  A decay
+    of exactly 0 is a log of -inf, which the forward takes; a path that
+    differentiates passes its log-decay to ``ssd_scan_log`` itself, since
+    the gradient of log a at 0 is not finite."""
+    return ssd_scan_log(x, dt, torch.log(a), B, C, state, chunk)
+
+
+def ssd_scan_log(x, dt, la, B, C, state, chunk: int = SSD_CHUNK):
+    """The recurrence of ``ssd_step`` over t = 0..T-1 from the log-decays la
+    = log a [B,T,H], in the chunked matrix form, all in the inputs' type.
+    In a chunk of Q positions (``min(chunk, T)``; the last one padded with
+    positions of no input and decay 1), with seg[i, j] the sum of la_k over
+    j < k <= i and cum[i] = seg[i, -1] + la_0 the sum from the chunk's
+    start:
+
+        y_i = sum_{j <= i} (C_i . B_j) exp(seg[i, j]) dt_j x_j
+              + exp(cum[i]) (s_in C_i)
+        s_out = exp(cum[Q-1]) s_in + sum_j exp(seg[Q-1, j]) dt_j x_j B_j^T
+
+    seg is a masked cumulative sum, never a difference of two (which gives
+    -inf - -inf once a decay underflows), so a log-decay of -inf or one far
+    below gives a decay of 0 and a finite gradient.  The products run per
+    chunk over the batch; the states pass from chunk to chunk in a loop of
+    T/Q turns."""
+    b, t, h, p = x.shape
+    n = B.shape[-1]
+    q = min(chunk, t)
+    nc = -(-t // q)
+    xdt = x * dt[..., None]
+    pad = nc * q - t
+    if pad:
+        xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
+        la = F.pad(la, (0, 0, 0, pad))
+        B, C = F.pad(B, (0, 0, 0, pad)), F.pad(C, (0, 0, 0, pad))
+    xdt = xdt.reshape(b, nc, q, h, p).transpose(2, 3)     # [b,c,h,q,p]
+    la = la.reshape(b, nc, q, h).transpose(2, 3)          # [b,c,h,q]
+    Bc, Cc = B.reshape(b, nc, 1, q, n), C.reshape(b, nc, 1, q, n)
+    below = torch.ones(q, q, dtype=torch.bool, device=x.device).tril(-1)
+    seg = la[..., :, None].expand(*la.shape, q).masked_fill(~below, 0).cumsum(dim=-2)
+    decay = torch.exp(seg.masked_fill(below.T, float("-inf")))   # 0 above the diagonal
+    cum = la.cumsum(dim=-1)                               # [b,c,h,q]
+    # the chunk's own inputs: its outputs, and its part of the end state
+    y = ((Cc @ Bc.transpose(-1, -2)) * decay) @ xdt       # [b,c,h,q,p]
+    own = (xdt * decay[..., -1, :, None]).transpose(-1, -2) @ Bc   # [b,c,h,p,n]
+    # the states carried in, chunk by chunk
+    total = torch.exp(cum[..., -1])[..., None, None]      # [b,c,h,1,1]
+    s_in = []
+    for c in range(nc):
+        s_in.append(state)
+        state = total[:, c] * state + own[:, c]
+    carried = Cc @ torch.stack(s_in, dim=1).transpose(-1, -2)      # [b,c,h,q,p]
+    y = y + torch.exp(cum)[..., None] * carried
+    return y.transpose(2, 3).reshape(b, nc * q, h, p)[:, :t], state
 
 
 def _causal_conv_seq(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -124,23 +183,52 @@ def _gated_norm(y, z, w, eps):
     return L.rms_norm(y * F.silu(z), w, eps)
 
 
-def mamba_layer(x: torch.Tensor, lp: Tree, cfg: ModelConfig, cache, seq_mode: bool):
+def _ssd_rows(x, dt, la, B, C, state):
+    """``ssd_scan_log`` row by row: each row's products at the shape they
+    have alone, whatever the batch (a served prefill must equal the
+    request's solo one bit for bit, and cuBLAS may pick a batched
+    product's algorithm, and its sums' order, by the batch)."""
+    ys, states = zip(*(ssd_scan_log(*(v[i:i + 1] for v in (x, dt, la, B, C, state)))
+                       for i in range(x.shape[0])))
+    return torch.cat(ys), torch.cat(states)
+
+
+def _ssd(x, dt, la, B, C, state, rows: bool):
+    """The sequence's SSD recurrence (``ssd_scan_log``; ``rows``: row by
+    row); sharded, on each rank's shards (``sharding.local.ssd``)."""
+    scan = _ssd_rows if rows else ssd_scan_log
+    if shard_local.sharded(x):
+        return shard_local.ssd(scan, x, dt, la, B, C, state)
+    return scan(x, dt, la, B, C, state)
+
+
+def mamba_layer(x: torch.Tensor, lp: Tree, cfg: ModelConfig, cache, seq_mode: bool,
+                train: bool = False):
     """x [B,T,D]; cache: (conv_state [B,conv_dim,W-1], ssd_state [B,H,P,N]).
     Returns (x + the block's output, (new conv state, new ssd state)).  The
-    conv state keeps the last W-1 raw (pre-conv) xBC inputs."""
+    conv state keeps the last W-1 raw (pre-conv) xBC inputs.  A sequence's
+    recurrence runs from the log-decays (finite, so is their gradient);
+    outside ``train`` row by row, so that a row's bits do not depend on the
+    batch."""
     bsz, t, _ = x.shape
     d_inner, n_heads, conv_dim, _ = _dims(cfg)
     hd, ns = cfg.ssm_head_dim, cfg.ssm_state
     conv_state, ssd_state = cache
 
     xn = L.rms_norm(x, lp["norm"], cfg.norm_eps)
-    zxbcdt = xn @ lp["w_in"]
+    # x @ w_in (sharded, column-parallel: ``layers.project_heads``)
+    zxbcdt = L.project_heads(xn, lp["w_in"].view(cfg.d_model, -1, 1)).view(bsz, t, -1)
     z = zxbcdt[..., :d_inner]
     xBC = zxbcdt[..., d_inner:d_inner + conv_dim]
     dt_raw = zxbcdt[..., d_inner + conv_dim:]   # [B,T,H]
 
     if seq_mode:
-        xBC_conv = F.silu(_causal_conv_seq(xBC, lp["conv_w"], lp["conv_b"]))
+        # sharded, on each rank's rows: torch 2.11 cannot pad this DTensor
+        if shard_local.sharded(xBC):
+            xBC_conv = shard_local.rows(_causal_conv_seq, (xBC,), (lp["conv_w"], lp["conv_b"]))
+        else:
+            xBC_conv = _causal_conv_seq(xBC, lp["conv_w"], lp["conv_b"])
+        xBC_conv = F.silu(xBC_conv)
         if t >= CONV_WIDTH - 1:
             new_conv = xBC[:, -(CONV_WIDTH - 1):].transpose(1, 2)
         else:
@@ -156,17 +244,19 @@ def mamba_layer(x: torch.Tensor, lp: Tree, cfg: ModelConfig, cache, seq_mode: bo
     Bm = xBC_conv[..., d_inner:d_inner + ns].float()
     Cm = xBC_conv[..., d_inner + ns:].float()
     dtv = _softplus(dt_raw.float() + lp["dt_bias"])
-    a = torch.exp(-torch.exp(lp["a_log"]) * dtv)   # [B,T,H]
+    la = -torch.exp(lp["a_log"]) * dtv   # [B,T,H], the log of the decays
     xs32 = xs.float()
     if seq_mode:
-        y, new_ssd = ssd_scan(xs32, dtv, a, Bm, Cm, ssd_state)
+        y, new_ssd = _ssd(xs32, dtv, la, Bm, Cm, ssd_state, rows=not train)
     else:
-        y, new_ssd = ssd_step(xs32[:, 0], dtv[:, 0], a[:, 0], Bm[:, 0], Cm[:, 0],
-                              ssd_state)
+        y, new_ssd = ssd_step(xs32[:, 0], dtv[:, 0], torch.exp(la[:, 0]), Bm[:, 0],
+                              Cm[:, 0], ssd_state)
         y = y[:, None]
     y = y + lp["d_skip"][None, None, :, None] * xs32
     y = y.reshape(bsz, t, d_inner).to(x.dtype)
-    out = _gated_norm(y, z, lp["gn_w"], cfg.norm_eps) @ lp["w_out"]
+    # g @ w_out (sharded, row-parallel over the heads: ``layers.merge_heads``)
+    out = L.merge_heads(_gated_norm(y, z, lp["gn_w"], cfg.norm_eps).view(bsz, t, n_heads, hd),
+                        lp["w_out"].view(n_heads, hd, cfg.d_model))
     return constrain(x + out, "batch", "seq_res", "act_embed"), (new_conv, new_ssd)
 
 
@@ -241,7 +331,7 @@ def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int) -> Tree:
 
 
 def _train_layer(x, lp, cfg: ModelConfig, zero_state):
-    return mamba_layer(x, lp, cfg, zero_state, True)[0]
+    return mamba_layer(x, lp, cfg, zero_state, True, train=True)[0]
 
 
 def _stack(params: Tree, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Tree],
@@ -255,8 +345,8 @@ def _stack(params: Tree, x: torch.Tensor, cfg: ModelConfig, cache: Optional[Tree
     shared = params.get("shared")
     if cache is None:
         spec = abstract_cache(cfg, x.shape[0], 0)["mamba"]
-        zero_state = tuple(torch.zeros(s.shape[1:], dtype=getattr(torch, s.dtype),
-                                       device=x.device) for s in spec)
+        zero_state = zeros(tuple(ParamSpec(s.shape[1:], s.logical[1:], s.dtype, s.init)
+                                 for s in spec), x.device, x)
     for i, lp in enumerate(params["layers"]):
         if cache is None:
             x = checkpoint(_train_layer, x, lp, cfg, zero_state, use_reentrant=False)

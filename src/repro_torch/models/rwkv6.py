@@ -38,10 +38,15 @@ forward and the recompute under checkpointing) and the backward once.
 
 Under a partitioner the weights and the state are DTensors, the activations
 held to the JAX package's layouts by ``constrain``, and the recurrence runs
-on each rank's shards (heads over ``model``) through ``local_map``.
+on each rank's shards (heads over ``model``) through ``local_map``, as do
+the token-shift mix and decay (rows split by batch, the small weights
+whole), the projections (column- and row-parallel over the heads) and the
+channel mix's FFN: DTensor alone lays their products out op by op, and on
+a 2x16x16 mesh it searched for minutes an op.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -153,13 +158,28 @@ def _ddlerp(x, xx, lp, matmul=torch.matmul):
     delta = xx - x
     base = x + delta * lp["mu_x"]
     lora = torch.tanh(matmul(base, lp["lora_a"]))   # [B,T,5*R]
-    # sharded, whole along 5 * R before the view splits it
-    lora = constrain(lora, "batch", "seq", None)
     b, t, _ = lora.shape
     lora = lora.reshape(b, t, 5, LORA_MIX)
     dd = torch.einsum("btcr,crd->btcd", lora, lp["lora_b"])
     mix = lp["mu_rkvwg"][None, None] + dd
     return x[:, :, None] + delta[:, :, None] * mix
+
+
+#: the small weights of the token-shift mix and the decay's LoRA
+MIX_WEIGHTS = ("mu_x", "lora_a", "lora_b", "mu_rkvwg", "w0", "wa", "wb")
+
+
+def _mix_and_decay(xn, xx, *weights, matmul=torch.matmul):
+    """-> (the (r, k, v, w, g) inputs [B,T,5,D] (``_ddlerp``), the decays
+    [B,T,D]): exp(-exp(w0 + tanh(xw @ wa) @ wb)) in float32, cast to the
+    model's type before the recurrence, as the JAX package does.
+    ``weights`` are ``MIX_WEIGHTS``."""
+    lp = dict(zip(MIX_WEIGHTS, weights))
+    mixed = _ddlerp(xn, xx, lp, matmul)
+    w = torch.exp(-torch.exp(
+        (lp["w0"] + torch.tanh(matmul(mixed[:, :, 3], lp["wa"])) @ lp["wb"]).float()
+    )).to(xn.dtype)
+    return mixed, w
 
 
 def _time_mix(x, lp, cfg: ModelConfig, x_prev, wkv_state, seq_mode: bool):
@@ -173,16 +193,17 @@ def _time_mix(x, lp, cfg: ModelConfig, x_prev, wkv_state, seq_mode: bool):
     # to the 64 decay inputs): a decay that rounds the other way in bfloat16
     # would move the recurrent state
     skinny = torch.matmul if seq_mode else L.row_blocks_matmul
-    mixed = _ddlerp(xn, xx, lp, skinny)
-    xr, xk, xv, xw, xg = (mixed[:, :, i] for i in range(5))
-    r, kk, vv = (L.project_heads(xi, lp[name].view(d, h, kdim))
-                 for xi, name in ((xr, "w_r"), (xk, "w_k"), (xv, "w_v")))
-    g = F.silu(xg @ lp["w_g"])
-    # the decay in float32, then cast to the model's type before the
-    # recurrence, as the JAX package does
-    w = torch.exp(-torch.exp(
-        (lp["w0"] + torch.tanh(skinny(xw, lp["wa"])) @ lp["wb"]).float()
-    )).to(x.dtype).reshape(b, t, h, kdim)
+    mix = partial(_mix_and_decay, matmul=skinny)
+    weights = [lp[name] for name in MIX_WEIGHTS]
+    if shard_local.sharded(xn):
+        mixed, w = shard_local.rows(mix, (xn, xx), weights, outputs=2)
+    else:
+        mixed, w = mix(xn, xx, *weights)
+    w = w.reshape(b, t, h, kdim)
+    xr, xk, xv, xg = (mixed[:, :, i] for i in (0, 1, 2, 4))
+    r, kk, vv, g = (L.project_heads(xi, lp[name].view(d, h, kdim))
+                    for xi, name in ((xr, "w_r"), (xk, "w_k"), (xv, "w_v"), (xg, "w_g")))
+    g = F.silu(g)
     r = constrain(r, "batch", "seq", "ssm_heads", None)
     if seq_mode and shard_local.sharded(r):
         y, new_state = shard_local.wkv6(wkv6, r, kk, vv, w, lp["bonus_u"], wkv_state)
@@ -192,23 +213,35 @@ def _time_mix(x, lp, cfg: ModelConfig, x_prev, wkv_state, seq_mode: bool):
         y, new_state = wkv6_step(r[:, 0], kk[:, 0], vv[:, 0], w[:, 0],
                                  lp["bonus_u"], wkv_state)
         y = y[:, None]
-    y = _group_norm(y.reshape(b, t, d).to(x.dtype), lp["gn_w"], h)
+    y = _group_norm(y.reshape(b, t, d).to(x.dtype), lp["gn_w"], h).view(b, t, h, kdim)
     # sharded, the products' partial sums reduced before the residual add
-    out = constrain(((y * g) @ lp["w_o"]).to(x.dtype), "batch", "seq", "act_embed")
+    out = constrain(L.merge_heads(y * g, lp["w_o"].view(h, kdim, d)).to(x.dtype),
+                    "batch", "seq", "act_embed")
     return out, xn[:, -1], new_state
 
 
 def _channel_mix(x, lp, cfg: ModelConfig, x_prev, seq_mode: bool):
+    b, t, d = x.shape
     xn = L.rms_norm(x, lp["ln_ffn"], cfg.norm_eps)
     xx = _shifted(xn, x_prev) if seq_mode else x_prev[:, None]
     delta = xx - xn
     xk = xn + delta * lp["mu_k2"]
     xr = xn + delta * lp["mu_r2"]
-    kk = torch.square(torch.relu(xk @ lp["w_k2"]))
-    kk = constrain(kk, "batch", "seq", "act_mlp")
-    out = torch.sigmoid(xr @ lp["w_r2"]) * constrain(kk @ lp["w_v2"], "batch", "seq",
-                                                     "act_embed")
+    if shard_local.sharded(xk):
+        kv = shard_local.mlp(_squared_relu_ffn, xk, (lp["w_k2"],), lp["w_v2"])
+    else:
+        kv = _squared_relu_ffn(xk, lp["w_k2"], lp["w_v2"])
+    h = cfg.num_heads
+    gate = L.project_heads(xr, lp["w_r2"].view(d, h, d // h)).view(b, t, d)
+    out = torch.sigmoid(gate) * constrain(kv, "batch", "seq", "act_embed")
     return out, xn[:, -1]
+
+
+def _squared_relu_ffn(x, w_k2, w_v2):
+    """relu(x @ w_k2)^2 @ w_v2."""
+    kk = torch.square(torch.relu(x @ w_k2))
+    kk = constrain(kk, "batch", "seq", "act_mlp")
+    return kk @ w_v2
 
 
 def _layer(x, lp, cfg: ModelConfig, xp_att, xp_ffn, st, seq_mode: bool):

@@ -6,16 +6,18 @@ kernels.
 
   sharded(x)             whether ``x`` runs sharded: a DTensor under an
                          ambient partitioner
-  flash_attention(...)   the flash kernel with heads over ``model``; a
-                         shard's query heads read the kv heads they map to
-                         in the whole model
+  attention(...)         the flash kernel, or a windowed layer's plain
+                         attention, with heads over ``model``; a shard's
+                         query heads read the kv heads they map to in the
+                         whole model
   decode(...)            flash-decode over a cache whose sequence is sharded:
                          each shard's output and log-sum-exp, combined over
                          the sequence's mesh axes by log-sum-exp
   wkv6(...)              the WKV6 recurrence with heads over ``model``
+  ssd(...)               Mamba2's SSD recurrence with heads over ``model``
   write_prompt / write_token   the cache writes of prefill and decode,
                          each shard writing the positions it holds
-  embed, project_heads, merge_heads, mlp, row_mean, rowwise
+  embed, project_heads, merge_heads, mlp, row_mean, rows
                          the lookup, the attention's column- and
                          row-parallel products, the MLP and the row-wise
                          ops whose views would flatten two split dims (a
@@ -111,17 +113,21 @@ def row_mean(fn: Callable, x):
     return _local_map(fn, list(pl), (pl,), x.device_mesh)(x)
 
 
-def rowwise(fn: Callable, x, w):
-    """``fn(x, w)``, a product x [B, ..., D] @ w [D, N] whose rows must not
-    depend on the batch (``layers.row_blocks_matmul``, ``per_row_matmul``),
-    on each rank's rows: x with its batch split as it is and whole
-    elsewhere, w whole; w's gradient a partial sum over the batch shards."""
+def rows(fn: Callable, xs: Sequence, ws: Sequence, outputs: int = 1):
+    """``fn(*xs, *ws)`` on each rank's rows: every x [B, ...] with the first
+    x's batch split and whole elsewhere, every w whole; each of the
+    ``outputs`` outputs [B, ...] split by batch.  The ws' gradients are
+    partial sums over the batch shards.  (A product whose rows must not
+    depend on the batch, ``layers.row_blocks_matmul``; rwkv6's token-shift
+    mix and decay, whose products DTensor would lay out op by op.)"""
     from torch.distributed.tensor import Partial, Replicate
 
-    xp = _even(x, _keep(x.placements, 0))
+    xp = _even(xs[0], _keep(xs[0].placements, 0))
     wp = tuple(Replicate() for _ in xp)
     w_grad = tuple(Partial() if _is_shard(a, 0) else b for a, b in zip(xp, wp))
-    return _local_map(fn, list(xp), (xp, wp), x.device_mesh, (xp, w_grad))(x, w)
+    out = list(xp) if outputs == 1 else (xp,) * outputs
+    return _local_map(fn, out, (xp,) * len(xs) + (wp,) * len(ws), xs[0].device_mesh,
+                      (xp,) * len(xs) + (w_grad,) * len(ws))(*xs, *ws)
 
 
 def mlp(fn: Callable, x, w_in: Sequence, w_out):
@@ -223,11 +229,12 @@ def merge_heads(fn: Callable, att, w):
     return _local_map(fn, out, (ap, wp), att.device_mesh, (ap, w_grad))(att, w)
 
 
-def flash_attention(flash: Callable, q, k, v, causal: bool):
-    """``flash(q, k, v, causal=)`` on each rank's shards: q, k, v [B,S,H,hd]
-    with batch over ("pod", "data") and heads over ``model`` where they
-    divide.  Where the kv heads do not divide over ``model`` (qwen3-1.7b's 8
-    kv heads on 16), each shard reads the kv heads its query heads map to."""
+def attention(attend: Callable, q, k, v, causal: bool):
+    """``attend(q, k, v, causal=)`` (the flash kernel, or the windowed
+    layers' plain attention) on each rank's shards: q, k, v [B,S,H,hd] with
+    batch over ("pod", "data") and heads over ``model`` where they divide.
+    Where the kv heads do not divide over ``model`` (qwen3-1.7b's 8 kv heads
+    on 16), each shard reads the kv heads its query heads map to."""
     part = current_partitioner()
     mesh = part.mesh
     logical = ("batch", "seq", "act_heads", None)
@@ -237,7 +244,7 @@ def flash_attention(flash: Callable, q, k, v, causal: bool):
     def local(ql, kl, vl):
         rank = mesh.get_local_rank("model") if "model" in mesh.mesh_dim_names else 0
         kl, vl = _kv_slice(kl, vl, h, kv, ql.shape[2], rank)
-        return flash(ql.contiguous(), kl.contiguous(), vl.contiguous(), causal=causal)
+        return attend(ql.contiguous(), kl.contiguous(), vl.contiguous(), causal=causal)
 
     # whole kv heads read in slices: their gradient sums the slices' over model
     from torch.distributed.tensor import Partial
@@ -366,3 +373,27 @@ def wkv6(fn: Callable, r, k, v, w, u, state):
     u_grad = tuple(Partial() if _is_shard(a, 0) else b for a, b in zip(x, up))
     return _local_map(local, (x, sp), (x, x, x, x, up, sp), part.mesh,
                       (x, x, x, x, u_grad, sp))(r, k, v, w, u, state)
+
+
+# --------------------------------------------------------------------- ssd
+def ssd(fn: Callable, x, dt, la, B, C, state):
+    """``fn(x, dt, la, B, C, state)``, Mamba2's SSD recurrence over a
+    sequence, on each rank's shards: batch over ("pod", "data"), heads over
+    ``model`` (``ssm_heads``); B and C [B,T,N] have no head dim and are
+    whole but for the batch, read by every head shard: their gradient sums
+    the head shards'.  (DTensor alone would propagate op by op through each
+    chunk's products.)"""
+    part = current_partitioner()
+    xp = part.placements(x.shape, ("batch", "seq", "ssm_heads", None))
+    hp = part.placements(dt.shape, ("batch", "seq", "ssm_heads"))
+    bp = part.placements(B.shape, ("batch", "seq", None))
+    sp = part.placements(state.shape, ("batch", "ssm_heads", None, None))
+
+    def local(*xs):
+        return fn(*(t.contiguous() for t in xs))
+
+    from torch.distributed.tensor import Partial
+
+    b_grad = tuple(Partial() if _is_shard(a, 2) else b for a, b in zip(xp, bp))
+    return _local_map(local, (xp, sp), (xp, hp, hp, bp, bp, sp), part.mesh,
+                      (xp, hp, hp, b_grad, b_grad, sp))(x, dt, la, B, C, state)

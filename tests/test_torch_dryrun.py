@@ -191,3 +191,51 @@ def test_dryrun_cli_traces_a_production_case(tmp_path):
     assert stats["collective_bytes_per_chip"] > 0
     assert stats["memory"]["fits_hbm"] and stats["dominant"] in ("compute", "memory",
                                                                  "collective")
+
+
+# ---------------------------------------------------- a fake 2x2x2 mesh
+#: Reduced train steps that once held DTensor's redistribution search on a
+#: (pod, data, model) mesh for minutes an op (a strided split, from a view
+#: that flattened the batch split over two mesh axes with a sequence or a
+#: head split, makes DTensor search every order of the three axes): rwkv6's
+#: and zamba2's products on a sequence-parallel residual, gemma3's windowed
+#: attention.  Each now runs on local shards; (arch, config overrides, seq,
+#: global batch).
+THREE_D_CASES = [("rwkv6-7b", dict(num_layers=1), 64, 8),
+                 ("zamba2-1.2b", dict(num_layers=2), 64, 8),
+                 ("gemma3-27b", dict(num_layers=6, sliding_window=16), 128, 64)]
+#: seconds a case may take (it traces in ~15-30 s; each held op took 40-50 s)
+THREE_D_TIMEOUT_S = 240
+
+_TRACE_2X2X2 = """
+import dataclasses, json, sys
+from repro_torch.launch.mesh import fake_process_group
+fake_process_group(8)
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.launch import dryrun_lib
+from repro_torch.launch.hlo_analysis import analyze
+arch, over, seq, batch = json.loads(sys.argv[1])
+mesh = init_device_mesh("cpu", (2, 2, 2), mesh_dim_names=("pod", "data", "model"))
+cfg = dataclasses.replace(get_config(arch).reduced(), **over)
+shape = dataclasses.replace(SHAPES["train_4k"], seq_len=seq, global_batch=batch)
+with FakeTensorMode():
+    fn, args = dryrun_lib.build_case(cfg, shape, mesh)
+r = analyze(fn, *args)
+print(json.dumps({"flops": r["flops"], "collective_bytes": r["collective_bytes"]}))
+"""
+
+
+@pytest.mark.parametrize("arch,over,seq,batch", THREE_D_CASES)
+def test_train_step_traces_on_a_fake_2x2x2_mesh(arch, over, seq, batch):
+    """The reduced train step of ``build_case`` (loss, backward, AdamW)
+    traced on a fake (pod, data, model) mesh of 2x2x2 in a subprocess,
+    within ``THREE_D_TIMEOUT_S``."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", _TRACE_2X2X2,
+                           json.dumps([arch, over, seq, batch])], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=THREE_D_TIMEOUT_S)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["flops"] > 0 and got["collective_bytes"] > 0

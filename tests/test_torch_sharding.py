@@ -186,7 +186,7 @@ def one_device_mesh(tmp_path):
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-moe-16b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-moe-16b", "rwkv6-7b", "zamba2-1.2b"])
 def test_sharded_path_on_one_device_equals_the_unsharded_bit_for_bit(arch, one_device_mesh):
     """On one device every local op is the unsharded op: prefill, decode and
     one train step give the same bits (as ``chip_smoke.py`` holds them on the
@@ -283,11 +283,20 @@ def test_rwkv6_wkv6_under_local_map_on_a_2x2_mesh(two_by_two):
         _held(res)
 
 
-@pytest.mark.parametrize("name", ["deepseek_moe_grad", "rwkv6_grad"])
+def test_zamba2_ssd_under_local_map_on_a_2x2_mesh(two_by_two):
+    """Prefill (the chunked SSD scan on each rank's heads) and decode."""
+    got = two_by_two["zamba2"]
+    assert {"prefill", "decode_12", "decode_13"} <= set(got)
+    for res in got.values():
+        _held(res)
+
+
+@pytest.mark.parametrize("name", ["deepseek_moe_grad", "rwkv6_grad", "zamba2_grad"])
 def test_sharded_gradients_on_a_2x2_mesh(two_by_two, name):
     """The loss and every gradient leaf (``shard_check.check_gradients``):
     the routing's gradient sums the d_ff shards' (the sharded ``moe_ffn``),
-    the WKV6 bonus's the batch shards'."""
+    the WKV6 bonus's the batch shards', B's and C's of the SSD scan the
+    head shards'."""
     got = two_by_two[name]
     _held(got["loss"])
     _held(got["gradients"])

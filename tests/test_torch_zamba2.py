@@ -193,8 +193,9 @@ def _ssd_inputs(seed, b, tt, h, p, n):
 
 @pytest.mark.parametrize("tt,chunk", [(1, 256), (37, 8), (64, 16), (300, 256)])
 def test_ssd_scan_matches_jax(tt, chunk):
-    """The step order against the JAX scan, whose chunk divides T only after
-    halving (37 over 8 runs chunks of 1; 300 over 256 chunks of 4)."""
+    """The chunked form (chunks of ``SSD_CHUNK``, one at T <= 64) against
+    the JAX step scan, whose chunk divides T only after halving (37 over 8
+    runs chunks of 1; 300 over 256 chunks of 4)."""
     xs = _ssd_inputs(tt, 2, tt, 3, 8, 5)
     y, s = mamba2.ssd_scan(*map(t, xs))
     jy, js = jm.ssd_scan(*map(jnp.asarray, xs), chunk=chunk)
@@ -210,10 +211,125 @@ def test_ssd_step_matches_jax_and_continues_the_scan():
                          jnp.asarray(s0))
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
     np.testing.assert_allclose(s.numpy(), np.asarray(js), **STATE_TOL)
-    whole, sw = mamba2.ssd_scan(*map(t, xs))
-    head, sh = mamba2.ssd_scan(*(t(v[:, :4]) for v in xs[:5]), t(s0))
-    tail, st = mamba2.ssd_scan(*(t(v[:, 4:]) for v in xs[:5]), sh)
+    # split where a chunk ends, the scan goes on from its state bit for bit
+    whole, sw = mamba2.ssd_scan(*map(t, xs), chunk=2)
+    head, sh = mamba2.ssd_scan(*(t(v[:, :4]) for v in xs[:5]), t(s0), chunk=2)
+    tail, st = mamba2.ssd_scan(*(t(v[:, 4:]) for v in xs[:5]), sh, chunk=2)
     assert torch.equal(torch.cat([head, tail], dim=1), whole) and torch.equal(st, sw)
+
+
+def _decays(kind, xs):
+    """``_ssd_inputs`` with its decays set: ``spread`` as drawn,
+    ``zero_decays`` every seventh position at dt 200 (a = 0 in float32),
+    ``near_one`` dt 1e-4 (a ~ 1 - 1e-4: the state keeps every input)."""
+    x, dt, a, bm, cm, s0 = xs
+    dt = dt.copy()
+    if kind == "zero_decays":
+        dt[:, ::7] = 200.0
+    elif kind == "near_one":
+        dt = np.full_like(dt, 1e-4)
+    a = np.exp(-dt * np.exp(np.random.default_rng(0).standard_normal(dt.shape[-1]) * 0.5))
+    return x, dt, a.astype(np.float32), bm, cm, s0
+
+
+@pytest.mark.parametrize("tt,kind", [(256, "spread"), (200, "spread"),
+                                     (300, "zero_decays"), (300, "near_one")])
+def test_chunked_ssd_scan_matches_jax(tt, kind):
+    """The chunked form (chunks of ``SSD_CHUNK``; 200 and 300 end in a
+    partial chunk) against the JAX step scan: 4 whole chunks, a ragged last
+    one, decays of exactly 0 (the log-decay -inf, no NaN), decays near 1."""
+    xs = _decays(kind, _ssd_inputs(tt + 1, 2, tt, 3, 8, 5))
+    if kind == "zero_decays":
+        assert (xs[2] == 0).sum() > 100
+    assert -(-tt // mamba2.SSD_CHUNK) > 1
+    y, s = mamba2.ssd_scan(*map(t, xs))
+    jy, js = jm.ssd_scan(*map(jnp.asarray, xs))
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), **STATE_TOL)
+
+
+@pytest.mark.parametrize("tt", [37, 150])
+def test_chunked_ssd_scan_gradient_matches_jax(tt):
+    """``ssd_scan_log``'s gradient (of x, dt, the log-decays, B, C and the
+    start state) against ``jax.grad`` of the JAX scan of exp(la), with a
+    fifth of the log-decays at -200 (the decays 0): finite, within 2e-5."""
+    x, dt, a, bm, cm, s0 = _ssd_inputs(tt, 2, tt, 3, 8, 5)
+    la = np.log(a)
+    la[:, ::5] = -200.0
+    rng = np.random.default_rng(tt)
+    gy = rng.standard_normal(x.shape).astype(np.float32)
+    gs = rng.standard_normal(s0.shape).astype(np.float32)
+    args = (x, dt, la, bm, cm, s0)
+
+    def jloss(*v):
+        y, s = jm.ssd_scan(v[0], v[1], jnp.exp(v[2]), *v[3:])
+        return jnp.sum(y * gy) + jnp.sum(s * gs)
+
+    jgrads = jax.grad(jloss, argnums=tuple(range(6)))(*map(jnp.asarray, args))
+    leaves = [t(v).requires_grad_() for v in args]
+    y, s = mamba2.ssd_scan_log(*leaves)
+    ((y * t(gy)).sum() + (s * t(gs)).sum()).backward()
+    for leaf, jg in zip(leaves, jgrads):
+        assert torch.isfinite(leaf.grad).all()
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(jg), **TOL)
+
+
+def test_mamba_layer_gradient_matches_jax_with_decays_underflowing(weights, port_weights):
+    """A training layer (``train=True``: the chunked form from the
+    log-decays) differentiated against ``jax.grad`` of the JAX layer, with
+    two heads' a_log at 5 so that exp(a_log) dt passes ~103 and their decays
+    underflow to 0 in float32: every gradient finite, each leaf within 2e-5
+    of its largest element.  (Elementwise, a leaf such as conv_w sums 300
+    positions' terms of up to ~100 into entries of ~1e-3: there both
+    float32 gradients, the JAX one and this, lie ~1e-4 from the float64
+    one, so no float32 order meets 2e-5 of the entry itself.)"""
+    jcfg, cfg = configs()
+    _, n_heads, conv_dim, _ = mamba2._dims(cfg)
+    lp = {k: v[1].copy() for k, v in weights["layers"].items()}
+    lp["a_log"][:2] = 5.0
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 150, cfg.d_model)).astype(np.float32)
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    zero = (np.zeros((2, conv_dim, mamba2.CONV_WIDTH - 1), np.float32),
+            np.zeros((2, n_heads, cfg.ssm_head_dim, cfg.ssm_state), np.float32))
+    dtv = np.asarray(jax.nn.softplus(
+        jnp.asarray(x @ lp["w_in"])[..., -n_heads:] + lp["dt_bias"]))
+    assert (np.exp(-np.exp(lp["a_log"]) * dtv) == 0).sum() > 100
+
+    def jloss(xj, lpj):
+        out = jm.mamba_layer(xj, lpj, jcfg, tuple(map(jnp.asarray, zero)), True)[0]
+        return jnp.sum(out * g)
+
+    jgx, jglp = jax.grad(jloss, argnums=(0, 1))(
+        jnp.asarray(x), {k: jnp.asarray(v) for k, v in lp.items()})
+    xt = t(x).requires_grad_()
+    plp = {k: t(v).requires_grad_() for k, v in lp.items()}
+    out = mamba2.mamba_layer(xt, plp, cfg, tuple(map(t, zero)), True, train=True)[0]
+    (out * t(g)).sum().backward()
+    for name, got, want in [("x", xt.grad, jgx)] + [(k, plp[k].grad, jglp[k])
+                                                     for k in sorted(lp)]:
+        assert torch.isfinite(got).all(), name
+        want = np.asarray(want)
+        err = float(np.abs(got.numpy() - want).max())
+        assert err <= 2e-5 * float(np.abs(want).max()) + 2e-5, (name, err)
+
+
+def test_ssd_scan_ops_grow_with_chunks_not_positions():
+    """The local ops ``ssd_scan`` dispatches (``LocalCounter``, as the
+    dry-run counts them): a constant set-up and two a chunk (the carried
+    state's scale and add), so 4,096 positions take ~150, not ~5 a
+    position as the step loop took."""
+    from repro_torch.launch.hlo_analysis import analyze
+
+    def ops(tt):
+        xs = _ssd_inputs(1, 1, tt, 2, 4, 4)
+        return analyze(lambda *v: mamba2.ssd_scan(*v)[0].sum(), *map(t, xs))["n_ops"]
+
+    n1, n2, n4 = ops(1024), ops(2048), ops(4096)
+    chunks = 4096 // mamba2.SSD_CHUNK
+    assert (n4 - n2, n2 - n1) == (2 * (chunks // 2), 2 * (chunks // 4))
+    assert n4 < 3 * chunks < 4096 // 8
 
 
 @pytest.mark.parametrize("tt", [1, 2, 3, 11])
